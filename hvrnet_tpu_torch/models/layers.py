@@ -1,0 +1,61 @@
+"""Common building blocks (NCHW), counterparts of ``hvrnet_tpu/models/layers.py``.
+
+Every BatchNorm in the shipped configs is frozen (``requires_grad=False`` +
+``norm_eval=True``), so ``FrozenBN`` is a constant per-channel affine built
+from the four stored tensors.  It keeps mmdet's BatchNorm names (``weight``,
+``bias``, ``running_mean``, ``running_var``) so a reference ``state_dict``
+loads by name.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class FrozenBN(nn.Module):
+    """BatchNorm with frozen statistics and affine params (inference form):
+    ``scale = γ·rsqrt(var + eps)``, ``bias = β − mean·scale``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a reference BatchNorm2d state_dict also carries its update counter,
+        # which a frozen BN has no use for
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        bias = self.bias - self.running_mean * scale
+        return x * scale[None, :, None, None] + bias[None, :, None, None]
+
+
+class ConvModule(nn.Module):
+    """mmdet ConvModule default: conv(+bias) → ReLU, no norm (the shared
+    head's ``external_conv``; its parameters live under ``.conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv(x))
+
+
+def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+def conv1x1_as_linear(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1×1 Conv2d applied to (N, C) rows — the reference's ``linear_out``
+    runs on (N, C, 1, 1) maps, which is a dense layer."""
+    w = conv.weight.reshape(conv.weight.shape[0], conv.weight.shape[1])
+    return F.linear(x, w, conv.bias)

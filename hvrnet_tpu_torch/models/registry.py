@@ -1,0 +1,6 @@
+from ..utils.registry import Registry
+
+BACKBONES = Registry("backbone")
+SHARED_HEADS = Registry("shared_head")
+HEADS = Registry("head")
+DETECTORS = Registry("detector")

@@ -1,0 +1,52 @@
+"""Two-stage detector module: backbone + shared head + RPN + bbox head
+(counterpart of ``hvrnet_tpu/models/two_stage.py``).
+
+The C5 configuration both shipped configs use: ``feat_from_shared_head``
+moves the dilated stage 4 and its 1×1→256 conv before RoI pooling.  The
+submodule names (``backbone``, ``shared_head``, ``rpn_head``, ``bbox_head``)
+are mmdet's, so the module's ``state_dict`` is a reference checkpoint's.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Dict
+
+from torch import nn
+
+from .registry import BACKBONES, HEADS, SHARED_HEADS
+
+
+def build_submodule(cfg: Dict[str, Any], registry):
+    """Instantiate ``cfg['type']`` from ``registry`` with the config keys its
+    constructor takes; the others (losses, norm settings the frozen modules
+    need not see) are dropped, as the JAX builder drops them."""
+    cls = registry.get(cfg["type"])
+    if cls is None:
+        raise KeyError(f"{cfg['type']} not registered in {registry.name}")
+    params = inspect.signature(cls.__init__).parameters
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in cfg.items() if k != "type" and k in params}
+    return cls(**kwargs)
+
+
+class TwoStageModule(nn.Module):
+
+    def __init__(self, backbone: dict, shared_head: dict, rpn_head: dict,
+                 bbox_head: dict):
+        super().__init__()
+        self.backbone = build_submodule(backbone, BACKBONES)
+        self.shared_head = build_submodule(shared_head, SHARED_HEADS)
+        self.rpn_head = build_submodule(rpn_head, HEADS)
+        self.bbox_head = build_submodule(bbox_head, HEADS)
+
+    def extract_feat(self, img):
+        """(B, 3, H, W) → C4 (B, 1024, H/16, W/16)."""
+        return self.backbone(img)[0]
+
+    def shared(self, c4):
+        """C4 → C5 (dilated stage 4 + external 1×1→256)."""
+        return self.shared_head(c4)
+
+    def rpn(self, c4):
+        """C4 → (cls logits, reg deltas) maps."""
+        return self.rpn_head(c4)
