@@ -7,9 +7,10 @@ from the root of a checkout, on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA.  Phases, each printing its own lines; any failure
 stops the script with a non-zero exit:
 
-1. Device: name, count, ``nvidia-smi`` name and power limit; TF32 off.
+1. Device: name, count, ``nvidia-smi`` name and power limit; TF32 off for
+   the plain references.
 2. Build: every kernel under ``hvrnet_tpu_torch/csrc/``, one ``nvcc`` per
-   source, all started together.
+   source.
 3. Kernels against their plain versions at the main path's shapes, with
    times (CUDA events), the plain version's, one PyTorch library call's, and
    the bound the card's published peaks give.
@@ -99,6 +100,8 @@ def phase_device(torch):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # for the plain references the kernels are held against (the engine
+    # turns TF32 off for its own work)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] TF32 off for matmuls and convolutions")
@@ -112,10 +115,10 @@ def phase_build():
                              check=True).stdout
     log(f"[build] {version.strip().splitlines()[-1]}")
     t0 = time.time()
-    reports = kb.build(kb.SOURCES)
     for name in kb.SOURCES:
+        report = kb.build(name)
         log(f"[build] {name}: {kb.library_path(name).relative_to(ROOT)}")
-        for line in reports.get(name, "").splitlines():
+        for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(kb.SOURCES)} kernel source(s) in "
@@ -137,6 +140,7 @@ def phase_attention(torch):
     """The kernel against its plain version at the main path's shapes."""
     import torch.nn.functional as F
     from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
+                                                bf16_agreement,
                                                 masked_attention)
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = D ** -0.5
@@ -153,21 +157,23 @@ def phase_attention(torch):
                     live = torch.zeros_like(live)
                 bias = torch.where(live, 0.0, NEG_INF).float()
                 got = masked_attention(q, k, v, bias, scale)
-                want = attention_plain(q, k, v, bias, scale)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                if dt == torch.float32:
-                    tol = 1e-4
-                else:
-                    # the kernel rounds the unnormalised weights (relative to
-                    # the running max) to bf16, the plain version the
-                    # normalised ones: each weight may differ by 2^-9
-                    # relative on either side, so |Δ| ≤ 2^-8·max|v|
-                    tol = 2.0 ** -8 * v.float().abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and err <= tol
                 case = dict(label=label, nq=nq, nk=nk,
                             dtype=str(dt).replace("torch.", ""),
-                            masking=masking, max_abs_err=err, tol=tol)
+                            masking=masking)
+                if dt == torch.float32:
+                    err = (got - attention_plain(q, k, v, bias, scale)
+                           ).abs().max().item()
+                    case.update(max_abs_err=err, tol=1e-4)
+                    ok = err <= 1e-4
+                else:
+                    # limits from rounding the softmax weights to bf16 (see
+                    # bf16_agreement): elementwise, rms, and proof that the
+                    # kernel rounds at all
+                    case.update(bf16_agreement(got, q, k, v, bias, scale))
+                    ok = (case["worst"] <= 1 and case["rms"] <= 1
+                          and (masking == "all masked"
+                               or case["rounds"] >= 0.1))
+                ok = ok and bool(torch.isfinite(got).all())
                 if masking == "10% masked" and label != "ragged nk":
                     case["ms"] = cuda_ms(torch, lambda: masked_attention(
                         q, k, v, bias, scale))
@@ -187,7 +193,7 @@ def phase_attention(torch):
                     raise RuntimeError(f"masked_attention kernel disagrees "
                                        f"with its plain version: {case}")
                 cases.append(case)
-                del got, want
+                del got
             del q, k, v
     torch.cuda.empty_cache()
     return cases

@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 
 from ..models.layers import FrozenBN
+from .detector import f32_precision
 
 _VAR_FLOOR = 1e-8
 
@@ -42,9 +43,10 @@ def calibrate_frozen_bn(engine, frames: Sequence[dict]) -> int:
 
     hooks = [bn.register_forward_pre_hook(observe) for bn in bns]
     try:
-        for frame in frames:
-            x = engine._to_input(frame["img"], frame["img_shape"])
-            model.shared(model.extract_feat(x))
+        with f32_precision():
+            for frame in frames:
+                x = engine._to_input(frame["img"], frame["img_shape"])
+                model.shared(model.extract_feat(x))
     finally:
         for h in hooks:
             h.remove()

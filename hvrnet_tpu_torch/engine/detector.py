@@ -15,7 +15,8 @@ oldest→newest order, so the centre frame sits at ``key_dim``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -39,6 +40,22 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def f32_precision():
+    """The engine computes in float32, as the shipped configs run: no TF32 in
+    its convolutions and matmuls, whatever the process-wide flags say (they
+    are restored on exit)."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
 
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
@@ -159,6 +176,7 @@ class BaseEngine:
         return x.float().permute(0, 3, 1, 2).contiguous()
 
     @torch.no_grad()
+    @f32_precision()
     def backbone_maps(self, img, img_shape):
         """(c5, rpn cls, rpn reg) maps, NCHW, of one (1, H, W, 3) canvas."""
         x = self._to_input(img, img_shape)
@@ -175,6 +193,7 @@ class BaseEngine:
         return self.frame_post(c5, cls_map, reg_map, img_shape, pad_shape)
 
     @torch.no_grad()
+    @f32_precision()
     def frame_post(self, c5, cls_map, reg_map, img_shape, pad_shape):
         """Proposals → RoIAlign → fc_new_1 from one frame's NCHW maps."""
         stride = self.anchor_stride
@@ -209,20 +228,18 @@ class _RingMixin:
         state["pos"] = pos
         return state
 
-    def ring_detect(self, state, img_shape, scale_factor,
-                    key_dim: Optional[int] = None, branch=None):
+    def ring_detect(self, state, img_shape, scale_factor, branch=None):
         order = (torch.arange(self.window, device=self.device)
                  + state["pos"] + 1) % self.window       # oldest → newest
         return self.window_detect(state["fc1"][order], state["boxes"][order],
                                   state["masks"][order], img_shape,
-                                  scale_factor, key_dim, branch)
+                                  scale_factor, branch)
 
-    def ring_step(self, state, feats, img_shape, scale_factor,
-                  key_dim: Optional[int] = None, branch=None):
+    def ring_step(self, state, feats, img_shape, scale_factor, branch=None):
         """Push a frame's caches and detect the window centre."""
         state = self.ring_push(state, feats)
         return state, self.ring_detect(state, img_shape, scale_factor,
-                                       key_dim, branch)
+                                       branch)
 
 
 @DETECTORS.register_module
@@ -240,13 +257,14 @@ class HNMBRCNN(_RingMixin, BaseEngine):
             self.test_cfg["relation_setup"]["frame_interval"]) + 1
 
     @torch.no_grad()
+    @f32_precision()
     def window_detect(self, fc1_stack, boxes, masks, img_shape, scale_factor,
-                      key_dim: Optional[int] = None, branch=None):
+                      branch=None):
         """fc1_stack: (T, P, D), boxes: (T, P, 4), masks: (T, P), oldest
         frame first.  Decodes the centre frame ``key_dim``: one
         (dets (max, 5), labels (max,), mask (max,)) triple per head branch,
         or only ``branch``'s when it is given, in original-image coords."""
-        kd = self.key_dim if key_dim is None else key_dim
+        kd = self.key_dim
         T, P = fc1_stack.shape[0], self.proposal_num
         cls_list, reg_list = self.model.bbox_head.forward_fc1(
             fc1_stack.reshape(T * P, -1), kd * P, P, masks.reshape(T * P))

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 from collections import deque
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ class SlidingWindowRunner:
                  timer=None, prepad_provider=None, flush_every: int = 16):
         self.engine = engine
         self.window = engine.window
-        self.key_dim = (self.window - 1) // 2
+        self.key_dim = engine.key_dim   # the centre the engine decodes
         self.branch = branch            # which head branch to keep
         # multi-branch engines decode only the stored branch
         self.device_branch = (branch if getattr(engine, "multi_branch", False)

@@ -35,6 +35,39 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return w.to(v.dtype).float() @ v.float()
 
 
+def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: torch.Tensor, scale: float) -> dict:
+    """How far ``got``, the kernel's output on bfloat16 inputs, lies from
+    ``attention_plain``'s, in units of what rounding the softmax weights to
+    bfloat16 explains.  Both versions round each weight w_j with relative
+    error ≤ u = 2^-8 (the kernel p_j against its running max, the plain
+    version w_j after normalising), so the difference Δ obeys:
+
+    * ``worst`` = max |Δ| / (2u·Σ_j w_j·|v_j|) ≤ 1, elementwise;
+    * ``rms`` = rms(Δ) / (u·R), R² = mean of Σ_j w_j²·v_j²: independent
+      roundings give ≈ 0.6, so ≤ 1 holds with margin;
+    * ``rounds`` = rms(got − w·v) / (u·R): the kernel's own rounding leaves
+      ≈ 0.4 between it and the unrounded product, and a kernel that skips
+      the rounding ≈ 1e-4.  (With every key masked the weights are exactly 1
+      in the kernel and nothing rounds.)
+    """
+    vf = v.float()
+    w = torch.softmax((q.float() @ k.float().T) * scale
+                      + bias.float()[None, :], dim=-1)
+    delta = got - attention_plain(q, k, v, bias, scale)
+    u = 2.0 ** -8
+    bound = 2 * u * (w @ vf.abs()) + 1e-6        # + f32 rounding
+
+    def rms(x):
+        return x.square().mean().sqrt()
+
+    r = rms((w.square() @ vf.square()).sqrt())
+    return dict(max_abs_err=delta.abs().max().item(),
+                worst=(delta.abs() / bound).max().item(),
+                rms=(rms(delta) / (u * r)).item(),
+                rounds=(rms(got - w @ vf) / (u * r)).item())
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float) -> torch.Tensor:
     """q: (nq, d); k, v: (nk, d); bias: (nk,) float32 → (nq, d) float32.

@@ -5,18 +5,16 @@ shared library with a plain C interface, for ``sm_90a`` (Hopper).  The
 library is named after a hash of its source and flags and lands in
 ``build/kernels/`` at the root of the checkout, so a changed source is
 rebuilt and an unchanged one is reused.  Nothing is built at import: the
-first call that needs a kernel builds it, or ``build`` builds several at once.
+first call that needs a kernel builds it.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("masked_attention",)          # one library per csrc/<name>.cu
@@ -39,35 +37,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every named source that has no current library, all nvcc
-    processes at once.  Returns ``{name: ptxas report}`` for the sources
-    compiled by this call; raises with nvcc's output if one fails."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its current library exists.  Returns
+    nvcc's ptxas report ("" when the library was already built); raises with
+    nvcc's output if the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = log
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return reports
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}.cu (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    build([name])
+    """Build ``csrc/<name>.cu`` if needed and load its library."""
+    build(name)
     return ctypes.CDLL(str(library_path(name)))

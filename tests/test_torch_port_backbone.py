@@ -139,11 +139,12 @@ def test_frame_post_matches_jax(engines):
 
 
 def test_frame_features_match_jax(engines):
-    """The whole frame program from a uint8 frame: the same proposal slots,
-    boxes within 1e-4 of their scale (the backbone's rounding, see
-    ``assert_close_to_scale``, moves the box deltas), and fc1 within 1e-3 of
-    its scale (those box shifts also move RoIAlign's sample points; up to
-    2e-4 measured over three frames)."""
+    """The whole frame program from a uint8 frame, a smoke check end to
+    end: the same proposal slots, boxes within 1e-4 of their scale (the
+    backbone's rounding, see ``assert_close_to_scale``, moves the box
+    deltas), and fc1 within 1e-3 of its scale (those box shifts also move
+    RoIAlign's sample points; up to 2e-4 measured over three frames).  From
+    the same maps the tight limits hold (``test_frame_post_matches_jax``)."""
     jeng, params, port = engines
     img = uint8_frame(np.random.default_rng(3))
     want = jax.device_get(jeng.frame_features(params, jnp.asarray(img),

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from hvrnet_tpu.engine import SlidingWindowRunner as JaxRunner
 from hvrnet_tpu_torch.engine import HNMBRCNN, SlidingWindowRunner
 from tests.test_engine_hnmb import tiny_hnmb_cfg
-from tests.test_torch_port_backbone import (CANVAS, shared_engines,
+from tests.test_torch_port_backbone import (CANVAS, _nchw, shared_engines,
                                             uint8_frame)
 
 torch.set_num_threads(2)
@@ -45,13 +45,45 @@ def engines():
     return shared_engines(seed=2)
 
 
+class _JaxMaps:
+    """The port's engine, fed the JAX frame program's backbone maps: the
+    runner then compares everything after the backbone, without the f32
+    drift the backbones' different reduction orders leave in the maps."""
+
+    def __init__(self, port, jeng, params):
+        self.port, self.jeng, self.params = port, jeng, params
+
+    def __getattr__(self, name):
+        return getattr(self.port, name)
+
+    def frame_features(self, img, img_shape, pad_shape):
+        maps = self.jeng._backbone_dispatch(self.params, jnp.asarray(img),
+                                            img_shape)
+        return self.port.frame_post(
+            *[torch.from_numpy(_nchw(m).copy()) for m in maps], img_shape,
+            pad_shape)
+
+
 @pytest.mark.parametrize("prepad", [False, True])
 def test_video_matches_jax_runner(engines, prepad):
-    """Per frame and class: the same number of detections, boxes within
-    1e-4 of the image scale (the backbone's f32 rounding moves proposals by
-    up to ~1e-2 px, see test_torch_port_backbone.assert_close_to_scale),
-    scores within 1e-4.  ``prepad`` front-pads the window with other frames
-    (the reference's random pre-padding) instead of copies of the first."""
+    """End to end, a smoke check: per frame and class the same number of
+    detections, scores within 1e-4, and boxes within 1e-4 of the image scale
+    (the backbone's f32 rounding moves proposals by up to ~1e-2 px, see
+    test_torch_port_backbone.assert_close_to_scale).  ``prepad`` front-pads
+    the window with other frames (the reference's random pre-padding)
+    instead of copies of the first."""
+    _compare_runners(engines, prepad, "port")
+
+
+@pytest.mark.parametrize("prepad", [False, True])
+def test_video_from_jax_maps_matches_jax_runner(engines, prepad):
+    """Everything after the backbone, fed the JAX backbone maps: the same
+    detections per frame and class, boxes within 1e-3 px, scores within
+    1e-4."""
+    _compare_runners(engines, prepad, "jax")
+
+
+def _compare_runners(engines, prepad, maps):
     jeng, params, port = engines
     n = 6
 
@@ -63,10 +95,12 @@ def test_video_matches_jax_runner(engines, prepad):
     want = JaxRunner(jeng, params, branch=-1,
                      prepad_provider=provider(True)).run(_video(n, 9, True), n)
     emitted = []
+    eng = _JaxMaps(port, jeng, params) if maps == "jax" else port
     got = SlidingWindowRunner(
-        port, branch=-1, flush_every=4, progress_hook=emitted.append,
+        eng, branch=-1, flush_every=4, progress_hook=emitted.append,
         prepad_provider=provider(False)).run(_video(n, 9, False), n)
     assert sum(emitted) == n             # one detection per frame
+    box_tol = 1e-3 if maps == "jax" else 1e-4 * CANVAS[1]
     total = 0
     for fw, fg in zip(want, got):
         assert len(fg) == len(fw) == 30
@@ -74,11 +108,37 @@ def test_video_matches_jax_runner(engines, prepad):
             assert cg.shape == cw.shape
             if len(cw):
                 np.testing.assert_allclose(cg[:, :4], cw[:, :4], rtol=0,
-                                           atol=1e-4 * CANVAS[1])
+                                           atol=box_tol)
                 np.testing.assert_allclose(cg[:, 4], cw[:, 4], rtol=0,
                                            atol=1e-4)
             total += len(cw)
     assert total > 0
+
+
+def test_engine_computes_in_f32_whatever_the_tf32_flags(engines,
+                                                         monkeypatch):
+    """The engine turns TF32 off around its convolutions and matmuls (the
+    frame program and the window step) and restores the caller's flags."""
+    _, _, port = engines
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    for f in flags:
+        monkeypatch.setattr(f, "allow_tf32", True)
+    seen = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda *_: seen.add(tuple(f.allow_tf32 for f in flags)))
+        for m in port.model.modules()]
+    try:
+        frame = next(_video(1, 5, False))
+        feats = port.frame_features(frame["img"], frame["img_shape"],
+                                    frame["pad_shape"])
+        ring = port.ring_reset(int(feats["fc1"].shape[-1]))
+        port.ring_step(ring, feats, frame["img_shape"],
+                       frame["scale_factor"])
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen == {(False, False)}
+    assert all(f.allow_tf32 for f in flags)
 
 
 def _imports(path: Path):
