@@ -2,14 +2,16 @@
 
 Counterpart of ``hvrnet_tpu/ops/attention.py:masked_attention``.  On a CUDA
 tensor it launches the hand-written Hopper kernel
-(``csrc/masked_attention.cu``, which replaces the Pallas ``_flash_kernel``);
-on a CPU tensor it runs ``attention_plain``, the straightforward expression
-that the tests and ``chip_smoke.py`` hold the kernel against.
+(``csrc/masked_attention.cu``, which replaces the Pallas ``_flash_kernel``):
+five phases on the tensor cores (pre-split, logits, row statistics, output,
+combine) whose scratch this module allocates; on a CPU tensor it runs
+``attention_plain``, the straightforward expression that the tests and
+``chip_smoke.py`` hold the kernel against.
 
 ``bias`` is 0 for live keys and −1e30 for masked ones.  Inputs are float32
-or bfloat16; logits, softmax and accumulation are float32; with bfloat16
-inputs the softmax weights are rounded to bfloat16 before the product with
-v.
+or bfloat16; logits, softmax and accumulation are float32 (float32 inputs
+as 3xTF32 on the tensor cores); with bfloat16 inputs the softmax weights
+are rounded to bfloat16 before the product with v.
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ from . import kernel_build
 
 NEG_INF = -1e30
 
-_BQ, _BK = 16, 64          # the kernel's query-tile rows and key-tile size
-_KERNEL_DTYPES = {torch.float32: "hvr_masked_attention_f32",
-                  torch.bfloat16: "hvr_masked_attention_bf16"}
+_BM, _BN = 128, 128        # the kernels' query rows and columns per block
+_KEYS_PER_STAGE = {torch.float32: 32, torch.bfloat16: 64}   # pass 2
+# µs one output block of pass 2 spends on one stage of keys (H100 80GB HBM3
+# at 700 W, chip_smoke.py's NL1 pass-2 times of the first tensor-core
+# version); only their ratio to the combine's traffic steers the split
+_TILE_US = {torch.float32: 1.2, torch.bfloat16: 1.05}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,7 +45,7 @@ def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     """How far ``got``, the kernel's output on bfloat16 inputs, lies from
     ``attention_plain``'s, in units of what rounding the softmax weights to
     bfloat16 explains.  Both versions round each weight w_j with relative
-    error ≤ u = 2^-8 (the kernel p_j against its running max, the plain
+    error ≤ u = 2^-8 (the kernel p_j against its row max, the plain
     version w_j after normalising), so the difference Δ obeys:
 
     * ``worst`` = max |Δ| / (2u·Σ_j w_j·|v_j|) ≤ 1, elementwise;
@@ -91,7 +96,7 @@ def _check(q, k, v, bias):
         if t.device != q.device:
             raise ValueError(f"masked_attention: {name} on {t.device}, "
                              f"q on {q.device}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
+    if q.dtype not in _KEYS_PER_STAGE or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError("masked_attention kernel takes q, k, v all float32 "
                         f"or all bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -117,35 +122,92 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _round_up(a: int, b: int) -> int:
+    return _ceil_div(a, b) * b
+
+
+@functools.lru_cache(maxsize=256)
+def _choose_split(tiles: int, ktiles: int, sms: int, tile_us: float,
+                  split_us: float) -> tuple[int, int]:
+    """(nsplit, k-tiles per split) for the output phase: its ``tiles``
+    output tiles times nsplit blocks run in waves of ``sms``, each block for
+    its k-tiles (about ``tile_us`` each, plus two for its prologue and
+    epilogue), and every split costs the combine ``split_us`` of traffic."""
+    best = None
+    for want in range(1, min(ktiles, 32) + 1):
+        per = _ceil_div(ktiles, want)
+        nsplit = _ceil_div(ktiles, per)
+        cost = (_ceil_div(tiles * nsplit, sms) * (per + 2) * tile_us
+                + (nsplit > 1) * (nsplit + 1) * split_us)
+        if best is None or cost < best[0]:
+            best = (cost, nsplit, per)
+    return best[1], best[2]
+
+
+PHASES = ("pre-split", "pass 1", "statistics", "pass 2", "combine")
+
+
+class _Call:
+    """One kernel call's arguments and workspace: ``run(first, last)``
+    launches phases ``PHASES[first..last]`` on the current stream."""
+
+    def __init__(self, q, k, v, bias, scale):
+        nq, d = q.shape
+        nk = k.shape[0]
+        f32 = q.dtype == torch.float32
+        dev = q.device
+        sms = _sm_count(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+        self.nsplit, per = _choose_split(
+            _ceil_div(nq, _BM) * _ceil_div(d, _BN),
+            _ceil_div(nk, _KEYS_PER_STAGE[q.dtype]), sms,
+            _TILE_US[q.dtype], nq * d * 4 / 2.5e6)
+        lib = _library()
+        nbytes = lib.hvr_attn_workspace_bytes(int(f32), nq, nk, d, self.nsplit)
+        self.out = torch.empty((nq, d), dtype=torch.float32, device=dev)
+        self.workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        self._args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      bias.data_ptr(), self.out.data_ptr(),
+                      self.workspace.data_ptr(), nq, nk, d, float(scale),
+                      self.nsplit, per,
+                      torch.cuda.current_stream(dev).cuda_stream)
+        self._f32 = int(f32)
+
+    def run(self, first: int = 0, last: int = len(PHASES) - 1) -> torch.Tensor:
+        err = _library().hvr_attn_run(self._f32, first, last, *self._args)
+        if err != 0:
+            msg = _library().hvr_attn_error_string(err).decode()
+            raise RuntimeError(f"masked_attention kernel launch failed: {msg}")
+        return self.out
+
+    @property
+    def phases(self):
+        """``(name, fn)`` for each phase this call runs, in order; ``fn``
+        reruns that phase alone (after the phases before it have run)."""
+        names = PHASES if self.nsplit > 1 else PHASES[:-1]
+        return [(name, functools.partial(self.run, i, i))
+                for i, name in enumerate(names)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(q, k, v, bias, scale) -> _Call:
+    """A checked call on CUDA tensors that has not run yet, for timing its
+    phases; ``plan(...).run()`` computes what ``masked_attention`` returns
+    (without counting a launch)."""
+    _check(q, k, v, bias)
+    return _Call(q, k, v, bias, scale)
+
+
 def _launch(q, k, v, bias, scale):
     _check(q, k, v, bias)
-    nq, d = q.shape
-    nk = k.shape[0]
-    out = torch.empty((nq, d), dtype=torch.float32, device=q.device)
-    if nq == 0:
-        return out
-    # split the keys over blocks when the query tiles alone leave SMs idle
-    # (two blocks fit on an SM)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    want = max(1, min(2 * sms // _ceil_div(nq, _BQ), _ceil_div(nk, _BK)))
-    keys_per_split = _ceil_div(_ceil_div(nk, want), _BK) * _BK
-    nsplit = _ceil_div(nk, keys_per_split)
-    if nsplit > 1:
-        part_o = torch.empty((nsplit, nq, d), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((nsplit, nq, 2), dtype=torch.float32,
-                              device=q.device)
-        part_o_ptr, part_ml_ptr = part_o.data_ptr(), part_ml.data_ptr()
-    else:
-        part_o_ptr = part_ml_ptr = None
-    fn = getattr(_library(), _KERNEL_DTYPES[q.dtype])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), part_o_ptr, part_ml_ptr, nq, nk, d,
-             float(scale), nsplit, keys_per_split, stream)
-    if err != 0:
-        msg = _library().hvr_cuda_error_string(err).decode()
-        raise RuntimeError(f"masked_attention kernel launch failed: {msg}")
+    if q.shape[0] == 0:
+        return torch.empty((0, q.shape[1]), dtype=torch.float32,
+                           device=q.device)
+    out = _Call(q, k, v, bias, scale).run()
     masked_attention.launches += 1
     return out
 
@@ -153,12 +215,12 @@ def _launch(q, k, v, bias, scale):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("masked_attention")
-    ptr = ctypes.c_void_p
-    for name in _KERNEL_DTYPES.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] \
-            + [ctypes.c_int] * 2 + [ptr]
-        fn.restype = ctypes.c_int
-    lib.hvr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.hvr_cuda_error_string.restype = ctypes.c_char_p
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hvr_attn_workspace_bytes.argtypes = [i32] * 5
+    lib.hvr_attn_workspace_bytes.restype = ctypes.c_longlong
+    lib.hvr_attn_run.argtypes = ([i32] * 3 + [ptr] * 6 + [i32] * 3
+                                 + [ctypes.c_float] + [i32] * 2 + [ptr])
+    lib.hvr_attn_run.restype = i32
+    lib.hvr_attn_error_string.argtypes = [i32]
+    lib.hvr_attn_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each source under ``hvrnet_tpu_torch/csrc/`` compiles on its own into a
-shared library with a plain C interface, for ``sm_90a`` (Hopper).  The
-library is named after a hash of its source and flags and lands in
-``build/kernels/`` at the root of the checkout, so a changed source is
-rebuilt and an unchanged one is reused.  Nothing is built at import: the
-first call that needs a kernel builds it.
+shared library with a plain C interface, for ``sm_90a`` (Hopper).  A
+source may include the headers beside it (``csrc/*.cuh``, inline PTX for
+TMA, mbarriers and wgmma); no CUTLASS or CuTe header is used, so the build
+needs only the CUDA toolkit.  The library is named after a hash of its
+source, every header in ``csrc/`` and the flags, and lands in
+``build/kernels/`` at the root of the checkout, so a changed source or
+header is rebuilt and an unchanged one is reused.  Nothing is built at
+import: the first call that needs a kernel builds it.
 """
 from __future__ import annotations
 
@@ -32,8 +35,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
