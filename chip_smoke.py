@@ -51,7 +51,10 @@ PEAK_BF16_FLOPS = 989e12        # tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 # (nq, nk, label): the exact ring's attention calls per detected frame
 ATTN_SHAPES = ((6300, 6300, "NL1/NL3"), (300, 6300, "NL2/NL4"))
+# the same calls at the 63-frame cache
+ATTN_SHAPES_63 = ((18900, 18900, "NL1/NL3 T=63"), (300, 18900, "NL2/NL4 T=63"))
 D = 1024
+FLUSH_FORCED = 4      # chunk size of the forced-rollback run
 
 
 def log(*args):
@@ -164,7 +167,8 @@ def phase_attention(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = D ** -0.5
     cases = []
-    for nq, nk, label in ATTN_SHAPES + ((300, 6299, "ragged nk"),):
+    for nq, nk, label in (ATTN_SHAPES + ATTN_SHAPES_63
+                          + ((300, 6299, "ragged nk"),)):
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(n, D, device="cuda", generator=gen).to(dt)
                        for n in (nq, nk, nk))
@@ -259,7 +263,7 @@ def synthetic_video(np, n, seed=0):
     scene = np.repeat(np.repeat(scene, 16, axis=0), 16, axis=1)
     for i in range(n):
         img = np.zeros((1,) + CANVAS + (3,), np.uint8)
-        y, x = 2 * i, 5 * i
+        y, x = 2 * i, 5 * i % 281      # in the scene for up to 84 frames
         img[0, :CONTENT[0], :CONTENT[1]] = \
             scene[y:y + CONTENT[0], x:x + CONTENT[1]]
         yield dict(img=img,
@@ -270,59 +274,105 @@ def synthetic_video(np, n, seed=0):
                    frame_offset=i, seg_len=n, frame_start_id=1)
 
 
-def phase_main_path(torch, np):
-    from hvrnet_tpu_torch.engine import HNMBRCNN, SlidingWindowRunner
-    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
-    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
-    from hvrnet_tpu_torch.ops.attention import (attention_plain,
-                                                masked_attention)
-    from hvrnet_tpu_torch.utils.config import Config
-
-    cfg = Config.fromfile(str(CONFIG))
-    t0 = time.time()
-    engine = HNMBRCNN(cfg.model, cfg.test_cfg, device="cuda", seed=0)
-    first = next(synthetic_video(np, 1))
-    n_bn = calibrate_frozen_bn(engine, [first])
-    torch.cuda.synchronize()
-    bh = engine.model_cfg["bbox_head"]
-    log(f"[main] HNMBRCNN R101-C5 built in {time.time() - t0:.1f} s "
-        f"(seeded random weights, {n_bn} frozen BNs calibrated): window "
-        f"{engine.window}, t_dim {bh['t_dim']}, key_dim {engine.key_dim}, "
-        f"{engine.proposal_num} proposals/frame, canvas {CANVAS}")
-
+def run_video(torch, np, engine, tag, **runner_kw):
+    """The synthetic video through ``SlidingWindowRunner`` with the
+    kernel's launch count set to 0 just before and read just after; checks
+    one detection and a 30-class result with finite boxes per frame."""
+    from hvrnet_tpu_torch.engine import SlidingWindowRunner
+    from hvrnet_tpu_torch.ops.attention import masked_attention
     timer = PhaseTimer(torch)
     detections = []
     runner = SlidingWindowRunner(engine, branch=-1, timer=timer,
-                                 progress_hook=detections.append)
+                                 progress_hook=detections.append,
+                                 **runner_kw)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     masked_attention.launches = 0
     t0 = time.time()
     results = runner.run(synthetic_video(np, N_FRAMES), N_FRAMES)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"masked_attention": masked_attention.launches}
-    n_det = sum(detections)
-    log(f"[main] {N_FRAMES} frames, {n_det} detections, kernel launches "
-        f"{launches}")
-    if n_det != N_FRAMES or launches["masked_attention"] != 4 * n_det:
-        raise RuntimeError("the main path did not run the attention kernel "
-                           "4 times per detection")
+    run = dict(results=results, launches=masked_attention.launches,
+               detections=sum(detections), replayed=runner.replayed,
+               rebuilds=runner.rebuilds, wall_s=wall,
+               frame_ms=timer.mean_ms("frame_features"),
+               step_ms=timer.mean_ms("window_detect"),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if run["detections"] != N_FRAMES:
+        raise RuntimeError(f"{tag} {run['detections']} detections for "
+                           f"{N_FRAMES} frames")
     n_boxes = 0
     for i, res in enumerate(results):
         if res is None or len(res) != engine.num_classes - 1:
-            raise RuntimeError(f"frame {i} has no 30-class result")
+            raise RuntimeError(f"{tag} frame {i} has no 30-class result")
         for dets in res:
             if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
-                raise RuntimeError(f"frame {i}: bad detections {dets.shape}")
+                raise RuntimeError(f"{tag} frame {i}: bad detections "
+                                   f"{dets.shape}")
             n_boxes += len(dets)
-    log(f"[main] every frame has a 30-class result; {n_boxes} boxes in all")
-    log(f"[main] frame_features {timer.mean_ms('frame_features'):.3f} "
-        f"ms/frame, window step {timer.mean_ms('window_detect'):.3f} "
-        f"ms/detection (CUDA events)")
-    log(f"[main] {N_FRAMES / wall:.2f} frames/s over the whole video "
-        f"including set-up of the first window (a smoke figure, not a "
-        f"benchmark); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{tag} {N_FRAMES} frames, {run['detections']} detections, "
+        f"{n_boxes} boxes, every frame a 30-class result; kernel launches "
+        f"{run['launches']}; replayed detections {run['replayed']}, "
+        f"rebuilds {run['rebuilds']}")
+    log(f"{tag} frame_features {run['frame_ms']:.3f} ms/frame, window step "
+        f"{run['step_ms']:.3f} ms/detection (CUDA events); peak device "
+        f"memory {run['peak_gib']:.2f} GiB; {N_FRAMES / wall:.2f} frames/s "
+        f"over the whole video (a smoke figure)")
+    return run
+
+
+def build_engine(torch, np, window=None, stream_theta=None, weights=None):
+    """HNMBRCNN from the shipped config, optionally at another window
+    (frame_interval, t_dim and key_dim set together, as the 63-frame
+    cache sets them) or with a head ``stream_theta``; ``weights`` is a
+    state_dict to load, else seeded random weights with frozen-BN
+    statistics calibrated on the first frame."""
+    from hvrnet_tpu_torch.engine import HNMBRCNN
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    cfg = Config.fromfile(str(CONFIG))
+    model_cfg, test_cfg = unwrap(cfg.model), unwrap(cfg.test_cfg)
+    if window:
+        test_cfg["relation_setup"]["frame_interval"] = (window - 1) // 2
+        test_cfg["bbox_head"].update(t_dim=window, key_dim=(window - 1) // 2)
+    if stream_theta is not None:
+        model_cfg["bbox_head"]["stream_theta"] = stream_theta
+    t0 = time.time()
+    engine = HNMBRCNN(model_cfg, test_cfg, device="cuda", seed=0)
+    if weights is None:
+        n_bn = calibrate_frozen_bn(engine, [next(synthetic_video(np, 1))])
+        how = f"seeded random weights, {n_bn} frozen BNs calibrated"
+    else:
+        engine.load_state_dict(weights)
+        how = "the T=21 engine's weights"
+    torch.cuda.synchronize()
+    bh = engine.model_cfg["bbox_head"]
+    log(f"[build] HNMBRCNN R101-C5 in {time.time() - t0:.1f} s ({how}): "
+        f"window {engine.window}, t_dim {bh['t_dim']}, key_dim "
+        f"{engine.key_dim}, {engine.proposal_num} proposals/frame, "
+        f"stream_theta {engine.model.bbox_head.stream_theta}")
+    return engine
+
+
+def logit_err(got, want):
+    """max |Δ|/max(|ref|, 1) over the head's (cls list, reg list)."""
+    worst = 0.0
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        scale = max(b.abs().max().item(), 1.0)
+        worst = max(worst, (a - b).abs().max().item() / scale)
+    return worst
+
+
+def phase_main_path(torch, np):
+    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
+    from hvrnet_tpu_torch.ops.attention import (attention_plain,
+                                                masked_attention)
+
+    engine = build_engine(torch, np)
+    run = run_video(torch, np, engine, "[main]")
+    if run["launches"] != 4 * run["detections"]:
+        raise RuntimeError("the main path did not run the attention kernel "
+                           "4 times per detection")
 
     # the window head on the last full window, with the kernel and with the
     # plain attention (these launches are not part of the counts above)
@@ -339,17 +389,194 @@ def phase_main_path(torch, np):
             want = head.forward_fc1(fc1, kd * P, P, valid)
         finally:
             selsa_bbox_head.masked_attention = masked_attention
-    worst = 0.0
-    for a, b in zip(got[0] + got[1], want[0] + want[1]):
-        scale = max(b.abs().max().item(), 1.0)
-        worst = max(worst, (a - b).abs().max().item() / scale)
+    worst = logit_err(got, want)
     log(f"[main] window head logits, kernel vs plain attention: max "
         f"|Δ|/max(|ref|, 1) = {worst:.3g}")
     if not worst <= 1e-4:
         raise RuntimeError("window head with the kernel disagrees with the "
                            "plain attention")
     stage_times(torch, np, engine, feats, fc1, valid, got)
-    return launches
+    return engine, run
+
+
+def final_window_check(torch, np, engine):
+    """Push T + 9 frames into a fresh streaming ring (speculative, rebuilt
+    if flagged) and hold ``stream_forward``'s branch and final logits at
+    the centre against ``forward_fc1`` on the last T frames' rows, oldest
+    first with the centre at key_dim.  Returns the ring, the last frame's
+    caches and the window's (fc1, mask) rows, for the stage times."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    T, P, kd = engine.window, engine.proposal_num, engine.key_dim
+    feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
+             for f in synthetic_video(np, T + 9, seed=1)]
+    engine.stream_rollback = True
+    ring = engine.ring_reset(int(feats[0]["fc1"].shape[-1]))
+    for f in feats:
+        engine.ring_push(ring, f)
+    flagged = bool(ring["flag"])
+    if flagged:
+        engine.stream_rebuild(ring)
+    head = engine.model.bbox_head
+    centre = (ring["pos"] + 1 + kd) % T
+    rows = (torch.cat([f["fc1"] for f in feats[-T:]]),
+            torch.cat([f["mask"] for f in feats[-T:]]))
+    with torch.no_grad(), f32_precision():
+        cls, reg, bad = head.stream_forward(engine.head_state(ring), centre,
+                                            rollback=True)
+        want = head.forward_fc1(rows[0], kd * P, P, rows[1])
+    worst = logit_err((cls, reg), want)
+    log(f"[stream] T={T} final window after {len(feats)} pushes (flag "
+        f"{flagged}, decode flag {bool(bad)}): stream_forward vs forward_fc1 "
+        f"branch and final logits, max |Δ|/max(|ref|, 1) = {worst:.3g} "
+        f"(limit 1e-3)")
+    if not worst <= 1e-3:
+        raise RuntimeError(f"streaming ring at T={T} disagrees with the "
+                           "exact head")
+    return ring, feats[-1], rows
+
+
+def compare_results(a_results, b_results):
+    """(max |Δ| over every frame's detections as emitted, bitwise equal,
+    per-class lists that differ by more than 1e-3 once each list's rows are
+    sorted, per-class lists); raises when a frame's per-class detection
+    counts differ."""
+    import numpy as np
+    worst, same, differ, lists = 0.0, True, 0, 0
+    for i, (fa, fb) in enumerate(zip(a_results, b_results)):
+        for ca, cb in zip(fa, fb):
+            if ca.shape != cb.shape:
+                raise RuntimeError(f"frame {i}: {cb.shape} detections "
+                                   f"against {ca.shape}")
+            lists += 1
+            if len(ca):
+                worst = max(worst, float(abs(ca - cb).max()))
+                sa, sb = (c[np.lexsort(c.T[::-1])] for c in (ca, cb))
+                differ += bool(abs(sa - sb).max() > 1e-3)
+            same = same and ca.tobytes() == cb.tobytes()
+    return worst, same, differ, lists
+
+
+def log_agreement(tag, exact, stream):
+    """Detections of the streaming ring against the exact ring's, printed
+    (no limit: near-tied scores of random weights may swap rows or flip a
+    class-wise NMS pick; the limit is on the logits)."""
+    err, same, differ, lists = compare_results(exact["results"],
+                                               stream["results"])
+    log(f"{tag} detections streaming vs exact: max |Δ| as emitted "
+        f"{err:.3g}, bitwise equal {same}; {differ} of {lists} per-class "
+        f"lists differ by more than 1e-3 once their rows are sorted")
+
+
+def phase_stream(torch, np, engine, exact):
+    """The streaming ring at T=21, speculative and with the in-step repair,
+    then the forced rollback; returns the three runs."""
+    engine.stream = True
+    run = run_video(torch, np, engine, "[stream] T=21")
+    want = 2 * run["detections"] + 4 * run["replayed"]
+    if run["launches"] != want:
+        raise RuntimeError(f"streaming ring launched the kernel "
+                           f"{run['launches']} times, not {want}")
+    log(f"[stream] T=21 window step {run['step_ms']:.3f} ms/detection "
+        f"streaming against {exact['step_ms']:.3f} exact")
+    log_agreement("[stream] T=21", exact, run)
+    crun = run_video(torch, np, engine, "[stream] T=21 in-step repair",
+                     speculative_stream=False)
+    if crun["launches"] != 2 * crun["detections"]:
+        raise RuntimeError(f"in-step repair launched the kernel "
+                           f"{crun['launches']} times, not 2 per detection")
+    log_agreement("[stream] T=21 in-step repair", exact, crun)
+    stream_stages(torch, engine, *final_window_check(torch, np, engine))
+
+    forced = build_engine(torch, np, stream_theta=-1.0,
+                          weights=engine.model.state_dict())
+    forced.stream = True
+    frun = run_video(torch, np, forced, "[stream] forced rollback",
+                     flush_every=FLUSH_FORCED)
+    chunks = -(-frun["detections"] // FLUSH_FORCED)
+    if (frun["replayed"], frun["rebuilds"]) != (frun["detections"], chunks):
+        raise RuntimeError(f"forced rollback replayed {frun['replayed']} "
+                           f"detections in {frun['rebuilds']} rebuilds, not "
+                           f"{frun['detections']} in {chunks}")
+    if frun["launches"] != 6 * frun["detections"]:
+        raise RuntimeError(f"forced rollback launched the kernel "
+                           f"{frun['launches']} times, not 2 + 4 per "
+                           "detection")
+    err, same, _, _ = compare_results(exact["results"], frun["results"])
+    log(f"[stream] forced rollback: every one of {chunks} chunks replayed "
+        f"and rebuilt; detections against the exact ring max |Δ| = "
+        f"{err:.3g} (limit 1e-5), bitwise equal: {same}")
+    if not err <= 1e-5:
+        raise RuntimeError("replayed detections differ from the exact ring")
+    del forced
+    torch.cuda.empty_cache()
+    return run, crun, frun
+
+
+def phase_63(torch, np, engine):
+    """Both rings at the 63-frame cache on the same weights."""
+    eng = build_engine(torch, np, window=63,
+                       weights=engine.model.state_dict())
+    exact = run_video(torch, np, eng, "[stream] T=63 exact ring")
+    if exact["launches"] != 4 * exact["detections"]:
+        raise RuntimeError("the T=63 exact ring did not run the kernel 4 "
+                           "times per detection")
+    eng.stream = True
+    stream = run_video(torch, np, eng, "[stream] T=63 streaming ring")
+    want = 2 * stream["detections"] + 4 * stream["replayed"]
+    if stream["launches"] != want:
+        raise RuntimeError(f"T=63 streaming ring launched the kernel "
+                           f"{stream['launches']} times, not {want}")
+    log(f"[stream] T=63 window step {stream['step_ms']:.3f} ms/detection "
+        f"streaming against {exact['step_ms']:.3f} exact")
+    log_agreement("[stream] T=63", exact, stream)
+    stream_stages(torch, eng, *final_window_check(torch, np, eng))
+    del eng
+    torch.cuda.empty_cache()
+    return exact, stream
+
+
+def stream_stages(torch, engine, ring, feats, rows):
+    """The streaming ring's stages alone on ``ring`` (CUDA events, 5 calls
+    after 2): the slide, the decode and the rebuild of the head, the exact
+    head on the same window's ``rows`` for comparison, then the whole step
+    speculative and with the in-step repair (its two host reads)."""
+    import numpy as np
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    T = engine.window
+    head = engine.model.bbox_head
+    hst = engine.head_state(ring)
+    centre = (ring["pos"] + 1 + engine.key_dim) % T
+    ish, sf = np.array(CONTENT, np.float32), np.full(4, 1.6, np.float32)
+
+    def step(rollback):
+        engine.stream_rollback = rollback
+        engine.ring_step(ring, feats, ish, sf, branch=-1)
+
+    head_stages = {
+        "stream_update (speculative)": lambda: head.stream_update(
+            hst, feats["fc1"], feats["mask"], 0, rollback=True),
+        "stream_forward (speculative)": lambda: head.stream_forward(
+            hst, centre, rollback=True),
+        "stream_rebuild": lambda: head.stream_rebuild(hst),
+        "exact head forward_fc1, same window": lambda: head.forward_fc1(
+            rows[0], engine.key_dim * engine.proposal_num,
+            engine.proposal_num, rows[1]),
+    }
+    step_stages = {
+        "ring_step speculative": lambda: step(True),
+        "ring_step with in-step repair (2 host reads)": lambda: step(False),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), f32_precision():
+        for name, fn in head_stages.items():
+            log(f"[stream] T={T} stage {name}: "
+                f"{cuda_ms(torch, fn):.3f} ms")
+    # the head stages rewrote slot 0's caches under the ring's accumulators
+    engine.stream_rebuild(ring)
+    for name, fn in step_stages.items():
+        log(f"[stream] T={T} stage {name}: {cuda_ms(torch, fn):.3f} ms")
+    log(f"[stream] T={T} peak device memory over the stages "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def stage_times(torch, np, engine, feats, fc1, valid, head_out):
@@ -383,14 +610,14 @@ def stage_times(torch, np, engine, feats, fc1, valid, head_out):
             log(f"[stages] {name}: {cuda_ms(torch, fn, iters=3, warmup=1):.3f} ms")
 
 
-def kernel_summary(cases, launches):
-    """Per-kernel numbers for one detected frame: NL1..NL4 at f32 (two calls
-    at each exact-ring shape)."""
+def kernel_summary(cases, runs):
+    """Per-kernel numbers for one detected frame of the exact ring at T=21:
+    NL1..NL4 at f32 (two calls at each shape); launches on each path."""
     f32 = {c["label"]: c for c in cases
            if c["dtype"] == "float32" and "ms" in c}
 
-    def per_frame(get):
-        return sum(2 * get(f32[label]) for *_, label in ATTN_SHAPES)
+    def per_frame(get, shapes=ATTN_SHAPES):
+        return sum(2 * get(f32[label]) for *_, label in shapes)
 
     sums = {key: per_frame(lambda c: c[key])
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -400,11 +627,13 @@ def kernel_summary(cases, launches):
     phases = {name: per_frame(lambda c: c["phases_ms"].get(name, 0.0))
               for name in names}
     bound_by = {f32[label]["bound_by"] for *_, label in ATTN_SHAPES}
+    launches = {path: run["launches"] for path, run in runs.items()}
     return {"kernels": [dict(
         name="masked_attention", route="cuda",
         source="hvrnet_tpu_torch/csrc/masked_attention.cu",
         replaces="hvrnet_tpu/ops/attention.py:42",
-        launches=launches["masked_attention"],
+        launches=sum(launches.values()),
+        launches_by_path=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases
                         if c["dtype"] == "float32"),
         ms=sums["ms"], plain_ms=sums["plain_ms"],
@@ -413,8 +642,14 @@ def kernel_summary(cases, launches):
         phases_ms=phases,
         cuda_core_bound_ms=sums["cuda_core_bound_ms"],
         bound_fraction=sums["bound_ms"] / sums["ms"],
-        unit="per detected frame: 2 calls at 6300x6300 + 2 at 300x6300, "
-             "d 1024, float32 (3xTF32 bound)",
+        per_frame_t63={key: per_frame(lambda c: c[key], ATTN_SHAPES_63)
+                       for key in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")},
+        unit="per detected frame of the exact ring at T=21: 2 calls at "
+             "6300x6300 + 2 at 300x6300, d 1024, float32 (3xTF32 bound); "
+             "per_frame_t63 the same at 18900x18900 and 300x18900; "
+             "launches summed over the paths in launches_by_path, each "
+             "counted from 0 over its 30-frame run",
         cases=cases)]}
 
 
@@ -432,8 +667,14 @@ def main() -> int:
     kind = phase_device(torch)
     phase_build()
     cases = phase_attention(torch)
-    launches = phase_main_path(torch, np)
-    print(json.dumps(kernel_summary(cases, launches)), flush=True)
+    engine, exact = phase_main_path(torch, np)
+    stream, repair, forced = phase_stream(torch, np, engine, exact)
+    exact63, stream63 = phase_63(torch, np, engine)
+    runs = {"exact T=21": exact, "stream T=21": stream,
+            "stream T=21 in-step repair": repair,
+            "forced rollback T=21": forced, "exact T=63": exact63,
+            "stream T=63": stream63}
+    print(json.dumps(kernel_summary(cases, runs)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,11 @@ then class-wise NMS.
 The ring lives on the device as (T, …) tensors updated in place (the JAX
 package's pure version allocates a new ring per push); a detect reads it in
 oldest→newest order, so the centre frame sits at ``key_dim``.
+
+``HNMBRCNN.stream`` switches to the streaming ring: the ring also carries
+NL1/NL3 softmax accumulators (``ops/streaming_attention.py``), and a
+detection costs a slide of one frame plus NL2/NL4 instead of the whole
+window head.
 """
 from __future__ import annotations
 
@@ -250,6 +255,23 @@ class HNMBRCNN(_RingMixin, BaseEngine):
 
     multi_branch = True   # the head emits [branch, final] prediction pairs
 
+    #: the streaming ring: NL1/NL3 kept as softmax accumulators updated by
+    #: one frame per slide (exact up to their rounding; the health tables
+    #: catch the float32 failure modes, ops/streaming_attention.py)
+    stream: bool = False
+
+    #: speculative streaming: a slide commits without the exact repair and
+    #: ORs its health verdict into a sticky device flag (``state["flag"]``);
+    #: ``SlidingWindowRunner`` reads the flag with each chunk of detections,
+    #: replays a flagged chunk exactly and calls ``stream_rebuild``.  The
+    #: in-step repair (False) must read the verdict on the host, a device
+    #: sync in the slide and another in the decode of every step; the
+    #: runner turns this on for its run unless told otherwise.
+    stream_rollback: bool = False
+
+    _STREAM_KEYS = ("fc1", "q1", "k1", "fc3s", "q3", "k3",
+                    "m1", "l1", "a1", "m3", "l3", "a3", "M1", "M3")
+
     def __init__(self, model_cfg, test_cfg, device="cuda", seed: int = 0):
         super().__init__(model_cfg, test_cfg, device, seed)
         self.key_dim = int(self.test_cfg["bbox_head"]["key_dim"])
@@ -277,3 +299,124 @@ class HNMBRCNN(_RingMixin, BaseEngine):
                                valid=masks[kd])
                 for cls, reg in pairs]
         return outs[0] if branch is not None else outs
+
+    # --------------------------------------------------- streaming ring
+    def ring_reset(self, fc1_dim: int) -> Dict[str, Any]:
+        if not self.stream:
+            return super().ring_reset(fc1_dim)
+        T, P = self.window, self.proposal_num
+        R = T * P
+        bh = self.model_cfg["bbox_head"]
+        key_rows = int(bh["t_dim"]) * int(bh.get("sampler_num", P))
+        if key_rows < R:
+            raise ValueError("streaming ring requires every cached row to be "
+                             "a key (t_dim·sampler_num ≥ window·proposals; "
+                             f"got {key_rows} < {R})")
+        dim = tuple(bh.get("dim", (1024, 1024, 1024)))
+        fc_feat = int(bh.get("fc_feat_dim", 1024))
+        dev = self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, device=dev)
+
+        def neg_inf(*shape):
+            return torch.full(shape, -torch.inf, device=dev)
+
+        state = dict(boxes=zeros(T, P, 4),
+                     masks=torch.zeros((T, P), dtype=torch.bool, device=dev),
+                     pos=-1,
+                     fc1=zeros(R, fc1_dim), q1=zeros(R, dim[0]),
+                     k1=zeros(R, dim[1]), fc3s=zeros(R, fc_feat),
+                     q3=zeros(R, dim[0]), k3=zeros(R, dim[1]),
+                     m1=neg_inf(R), l1=zeros(R), a1=zeros(R, fc1_dim),
+                     m3=neg_inf(R), l3=zeros(R), a3=zeros(R, fc_feat),
+                     M1=neg_inf(R, T), M3=neg_inf(R, T))
+        if self.stream_rollback:
+            state["flag"] = torch.zeros((), dtype=torch.bool, device=dev)
+        return state
+
+    def head_state(self, state):
+        """The head's view of a streaming ring state (the same tensors;
+        the mask under the head's key ``mask``)."""
+        hst = {k: state[k] for k in self._STREAM_KEYS}
+        hst["mask"] = state["masks"]
+        return hst
+
+    def _stream_push(self, state, feats):
+        """Slide the frame into the next slot (under rollback, its health
+        verdict sticks in the flag)."""
+        pos = (state["pos"] + 1) % self.window
+        upd = self.model.bbox_head.stream_update(
+            self.head_state(state), feats["fc1"], feats["mask"], pos,
+            self.stream_rollback)
+        if self.stream_rollback:
+            upd, bad = upd
+            state["flag"] |= bad
+        state.update({k: upd[k] for k in self._STREAM_KEYS})
+        state["boxes"][pos] = feats["boxes"]
+        state["pos"] = pos
+
+    def _stream_decode(self, state, img_shape, scale_factor, branch):
+        center = (state["pos"] + 1 + self.key_dim) % self.window
+        fwd = self.model.bbox_head.stream_forward(
+            self.head_state(state), center, self.stream_rollback)
+        if self.stream_rollback:
+            cls_list, reg_list, bad = fwd
+            state["flag"] |= bad
+        else:
+            cls_list, reg_list = fwd
+        pairs = list(zip(cls_list, reg_list))
+        if branch is not None:
+            pairs = [pairs[branch]]
+        outs = [get_det_bboxes(state["boxes"][center], cls, reg, img_shape,
+                               scale_factor, self.target_means,
+                               self.target_stds, rescale=True,
+                               cfg=self.test_cfg["rcnn"],
+                               valid=state["masks"][center])
+                for cls, reg in pairs]
+        return outs[0] if branch is not None else outs
+
+    @torch.no_grad()
+    @f32_precision()
+    def ring_push(self, state, feats) -> Dict[str, Any]:
+        if not self.stream:
+            return super().ring_push(state, feats)
+        self._stream_push(state, feats)
+        return state
+
+    @torch.no_grad()
+    @f32_precision()
+    def ring_detect(self, state, img_shape, scale_factor, branch=None):
+        if not self.stream:
+            return super().ring_detect(state, img_shape, scale_factor, branch)
+        if self.stream_rollback:
+            # a detect alone returns no state to carry the health flag in, and
+            # repairing here would hide what the flag protocol must surface
+            raise ValueError("stream_rollback detects via ring_step; set "
+                             "stream_rollback=False for split push/detect")
+        return self._stream_decode(state, img_shape, scale_factor, branch)
+
+    @torch.no_grad()
+    @f32_precision()
+    def ring_step(self, state, feats, img_shape, scale_factor, branch=None):
+        """Push a frame's caches and detect the window centre; on the
+        streaming ring under rollback, both the slide's and the decode's
+        health verdicts stick in ``state["flag"]``."""
+        if not self.stream:
+            return super().ring_step(state, feats, img_shape, scale_factor,
+                                     branch)
+        self._stream_push(state, feats)
+        return state, self._stream_decode(state, img_shape, scale_factor,
+                                          branch)
+
+    @torch.no_grad()
+    @f32_precision()
+    def stream_rebuild(self, state) -> Dict[str, Any]:
+        """Exact rebuild of the streaming accumulators from the ring's
+        caches, clearing the health flag: the recovery half of the rollback
+        protocol (one (R, R) pass per block)."""
+        hst = self.model.bbox_head.stream_rebuild(self.head_state(state))
+        state.update({k: hst[k] for k in self._STREAM_KEYS})
+        if "flag" in state:
+            state["flag"] = torch.zeros_like(state["flag"])
+        return state

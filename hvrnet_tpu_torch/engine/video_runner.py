@@ -11,6 +11,14 @@ The reference's stateful test loop, per frame ``key_frame_flag``:
 Results land by absolute frame id, as the reference places them, so
 ``vid_eval`` ordering matches.  Detections stay on the device and are pulled
 to the host in chunks of ``flush_every``.
+
+On a streaming engine (``engine.stream``) the runner speculates by default:
+the steps run without the in-step exact repair and carry a sticky health
+flag, read in the same pull as each chunk's detections.  A flagged chunk's
+detections are recomputed exactly (``window_detect`` over a history of the
+last T + ``flush_every`` pushes) and the accumulators rebuilt
+(``engine.stream_rebuild``), so every emitted detection is either a healthy
+streaming one or exact.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ class SlidingWindowRunner:
     """Runs an HVRNet engine over a sequential frame stream."""
 
     def __init__(self, engine, branch: int = -1, progress_hook=None,
-                 timer=None, prepad_provider=None, flush_every: int = 16):
+                 timer=None, prepad_provider=None, flush_every: int = 16,
+                 speculative_stream=None):
         self.engine = engine
         self.window = engine.window
         self.key_dim = engine.key_dim   # the centre the engine decodes
@@ -46,6 +55,16 @@ class SlidingWindowRunner:
         # dicts pushed before it (the reference pads with random frames of
         # the same video)
         self.prepad_provider = prepad_provider
+        # speculative rollback on a streaming engine: on unless the caller
+        # says otherwise here or set engine.stream_rollback on the instance
+        if speculative_stream is None:
+            spec = bool(vars(engine).get("stream_rollback", True))
+        else:
+            spec = bool(speculative_stream)
+        self.speculative = spec and engine.stream
+        # chunks replayed and detections recomputed by the last run()
+        self.rebuilds = 0
+        self.replayed = 0
 
     def _phase(self, name: str):
         return self.timer.phase(name) if self.timer else \
@@ -59,6 +78,22 @@ class SlidingWindowRunner:
         Returns per-frame per-class det lists indexed by absolute frame
         id − 1.
         """
+        # ring_step reads engine.stream_rollback, so it follows this runner
+        # while it runs; the caller's setting comes back afterwards
+        eng = self.engine
+        if not eng.stream:
+            return self._run(frame_stream, num_frames)
+        prior = vars(eng).get("stream_rollback")
+        eng.stream_rollback = self.speculative
+        try:
+            return self._run(frame_stream, num_frames)
+        finally:
+            if prior is None:
+                del eng.stream_rollback
+            else:
+                eng.stream_rollback = prior
+
+    def _run(self, frame_stream: Iterable[Dict], num_frames: int) -> List:
         eng = self.engine
         T = self.window
         half = (T + 1) // 2
@@ -68,17 +103,50 @@ class SlidingWindowRunner:
         offsets: deque = deque(maxlen=T)
         meta: deque = deque(maxlen=T)
         pending: List = []
+        # the frames' own feats for exact replay: a chunk's oldest detection
+        # looks back at most T + flush_every − 1 pushes
+        hist: deque = deque(maxlen=T + self.flush_every)
+        push_count = 0
+        self.rebuilds = self.replayed = 0
 
-        def flush():
-            if not pending:
-                return
-            outs = [p[0] for p in pending]
-            packed = torch.cat([
+        def pack(outs):
+            return torch.cat([
                 torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]).float()[..., None],
                 torch.stack([o[2] for o in outs]).float()[..., None]],
-                dim=-1).cpu().numpy()            # one device→host pull
-            for (_, fid), rows in zip(pending, packed):
+                dim=-1)
+
+        def replay_exact(push_no, m):
+            """The detection emitted at push ``push_no``, recomputed over
+            the whole window from the feats history."""
+            newest = len(hist) - 1 - (push_count - push_no)
+            window = [hist[newest - T + 1 + j] for j in range(T)]
+            out = eng.window_detect(
+                torch.stack([c["fc1"] for c in window]),
+                torch.stack([c["boxes"] for c in window]),
+                torch.stack([c["mask"] for c in window]),
+                m["img_shape"], m["scale_factor"], branch=self.device_branch)
+            return out[self.branch] if isinstance(out, list) else out
+
+        def flush():
+            nonlocal ring
+            if not pending:
+                return
+            packed = pack([p[0] for p in pending])
+            if self.speculative:
+                # the flag rides in the detections' one device→host pull
+                flat = torch.cat([packed.reshape(-1),
+                                  ring["flag"].reshape(1).float()]).cpu()
+                packed, flagged = flat[:-1].reshape(packed.shape), \
+                    bool(flat[-1] > 0.5)
+                if flagged:
+                    packed = pack([replay_exact(pno, m)
+                                   for _, _, m, pno in pending])
+                    ring = eng.stream_rebuild(ring)
+                    self.rebuilds += 1
+                    self.replayed += len(pending)
+            packed = packed.cpu().numpy()
+            for (_, fid, _, _), rows in zip(pending, packed):
                 mask = rows[:, 6] > 0.5
                 results[fid - 1] = bbox2result_np(
                     rows[mask, :5], rows[mask, 5].astype(np.int64),
@@ -88,10 +156,13 @@ class SlidingWindowRunner:
             pending.clear()
 
         def push(feats, frame, fmeta, detect: bool = False):
-            nonlocal ring, n_cached
+            nonlocal ring, n_cached, push_count
             n_cached = min(n_cached + 1, T)
             offsets.append(frame["frame_offset"])
             meta.append(fmeta)
+            push_count += 1
+            if self.speculative:
+                hist.append(feats)
             if not (detect and n_cached == T):
                 ring = eng.ring_push(ring, feats)
                 return
@@ -102,7 +173,8 @@ class SlidingWindowRunner:
                                           branch=self.device_branch)
             if isinstance(out, list):       # one det set per head branch
                 out = out[self.branch]
-            pending.append((out, m["frame_start_id"] + offsets[self.key_dim]))
+            pending.append((out, m["frame_start_id"] + offsets[self.key_dim],
+                            m, push_count))
             if len(pending) >= self.flush_every:
                 flush()
 
@@ -118,6 +190,11 @@ class SlidingWindowRunner:
                                            frame["pad_shape"])
             fmeta = fmeta_of(frame)
             if flag == 0:      # new video: reset + front-pad
+                if self.speculative:
+                    # the previous video's last chunk is checked against
+                    # its own ring before the reset drops it
+                    flush()
+                    hist.clear()
                 ring = eng.ring_reset(int(feats["fc1"].shape[-1]))
                 offsets = deque(maxlen=T)
                 meta = deque(maxlen=T)

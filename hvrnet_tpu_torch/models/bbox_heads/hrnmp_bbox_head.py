@@ -8,6 +8,15 @@ rows) → final cls/reg.  Queries are computed only for the rows each stage
 keeps; the reference computes all rows and slices afterwards, with the same
 result.  ``fc_new_1`` is row-wise and window-independent, so the runner
 computes it once per frame (``precompute_fc1``) and caches its rows.
+
+The streaming ring (``stream_*``, counterpart of the JAX head's
+``stream_project`` … ``stream_rebuild``): NL1's q/k/v rows and NL3's rows
+outside the key frame are row-wise functions of the per-frame fc1, so their
+softmaxes are kept as streaming accumulators (``ops/streaming_attention.py``)
+and updated by one frame per slide instead of recomputed over the window.
+NL2 and NL4 have fresh key-frame queries at every step and stay exact
+attentions through the kernel.  Valid when every cached row is a key
+(t_dim·sampler_num ≥ T·P, which the engine checks).
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.streaming_attention import (THETA, degenerate_rows, finalize,
+                                        init_rows, repair, slide)
 from ..registry import HEADS
 from .bbox_head import flatten_roi_feats
 from .selsa_bbox_head import SelsaAttention
@@ -29,10 +40,15 @@ class HRNMPBBoxHead(nn.Module):
                  fc_feat_dim: int = 1024,
                  dim: Sequence[int] = (1024, 1024, 1024),
                  roi_feat_size: int = 7, in_channels: int = 256,
-                 num_classes: int = 31, reg_class_agnostic: bool = True):
+                 num_classes: int = 31, reg_class_agnostic: bool = True,
+                 stream_theta: Optional[float] = None):
         super().__init__()
         self.sampler_num = sampler_num
         self.t_dim = t_dim
+        # the streaming ring's anchor-gap threshold in nats (None: THETA);
+        # a config sets it to force the health flag on benign inputs
+        self.stream_theta = THETA if stream_theta is None else \
+            float(stream_theta)
         F_ = fc_feat_dim
         self.fc_new_1 = nn.Linear(in_channels * roi_feat_size ** 2, F_)
         self.fc_new_2 = nn.Linear(F_, F_)
@@ -76,3 +92,150 @@ class HRNMPBBoxHead(nn.Module):
         fc_all_4 = F.relu(q4 + self.selsa_4(q4, fc4[:nongt], kmask))
         return ([cls_branch, self.fc_cls_2(fc_all_4)],
                 [reg_branch, self.fc_reg_2(fc_all_4)])
+
+    # ------------------------------------------------------ streaming ring
+    # The state ``st`` holds mask (T, P) and, flat over the R = T·P rows
+    # (slot-major), the stationary caches fc1, q1, k1, fc3s, q3, k3 (R, D),
+    # the accumulators m1, l1, m3, l3 (R,) and a1, a3 (R, D), and the health
+    # tables M1, M3 (R, T) of per-(row, slot) logit maxima.
+
+    def stream_project(self, fc1_new: torch.Tensor):
+        """A frame's stationary rows: NL1's q/k, the fc_new_3 projection
+        (NL3's input rows outside the key frame) and its q/k."""
+        fc3s = self.fc_new_3(fc1_new)
+        return dict(q1=self.selsa_1.q_proj(fc1_new),
+                    k1=self.selsa_1.k_proj(fc1_new), fc3s=fc3s,
+                    q3=self.selsa_3.q_proj(fc3s),
+                    k3=self.selsa_3.k_proj(fc3s))
+
+    def stream_update(self, st: dict, fc1_new: torch.Tensor,
+                      mask_new: torch.Tensor, slot: int,
+                      rollback: bool = False):
+        """Slide the window, in place: ring slot ``slot``'s keys leave the
+        NL1/NL3 accumulators and the arriving frame's enter, the slot's
+        stationary caches are overwritten, and the arriving rows get exact
+        fresh accumulators.
+
+        ``rollback=False`` rebuilds both blocks exactly when either is
+        degenerate (``ops/streaming_attention.repair``: one host read) and
+        returns ``st``.  ``rollback=True`` commits the slid accumulators as
+        they are and returns ``(st, bad)``, ``bad`` a device bool the caller
+        keeps as a sticky flag."""
+        T, P = st["mask"].shape
+        R = T * P
+        rows = slice(slot * P, (slot + 1) * P)
+        proj = self.stream_project(fc1_new)
+        # the departing keys and values, read before their rows are written
+        mask_dep = st["mask"][slot].clone()
+        dep = {k: st[k][rows].clone() for k in ("k1", "fc1", "k3", "fc3s")}
+        st["mask"][slot] = mask_new
+        st["fc1"][rows] = fc1_new
+        for k in ("q1", "k1", "fc3s", "q3", "k3"):
+            st[k][rows] = proj[k]
+        mask_all = st["mask"].reshape(R)
+
+        def slide_block(name, vkey, scale):
+            # the slot's own rows slide too, then take fresh accumulators
+            acc = dict(m=st["m" + name], l=st["l" + name], a=st["a" + name])
+            acc, col = slide(acc, st["q" + name], dep["k" + name], dep[vkey],
+                             mask_dep, proj["k" + name], st[vkey][rows],
+                             mask_new, scale)
+            M = st["M" + name].clone()
+            M[:, slot] = col
+            fresh, fresh_M = init_rows(proj["q" + name], st["k" + name],
+                                       st[vkey], mask_all, scale, slots=T,
+                                       slot_rows=R)
+            for key in ("m", "l", "a"):
+                acc[key][rows] = fresh[key]
+            M[rows] = fresh_M
+            return acc, M
+
+        acc1, M1 = slide_block("1", "fc1", self.selsa_1.scale)
+        acc3, M3 = slide_block("3", "fc3s", self.selsa_3.scale)
+        bad = (degenerate_rows(acc1, M1, self.stream_theta).any()
+               | degenerate_rows(acc3, M3, self.stream_theta).any())
+        if not rollback and bool(bad):
+            # rebuilding a healthy block beside a degenerate one is exact too
+            self._commit(st, *self._rebuild_blocks(st))
+            return st
+        self._commit(st, acc1, M1, acc3, M3)
+        return (st, bad) if rollback else st
+
+    def stream_forward(self, st: dict, center: int, rollback: bool = False):
+        """The key frame's predictions from the streaming state: equal to
+        ``forward_fc1`` with the key frame at ring slot ``center``, up to the
+        accumulators' rounding.  ``st`` is left unchanged.
+
+        NL1's output comes from the accumulators.  NL3 applies the key-frame
+        splice as a temporary slide of the centre slot's stationary rows out
+        and the fresh fc_all_2 rows in, plus one exact pass for the centre
+        rows' fresh queries.  ``rollback=False`` repairs the slid NL3
+        accumulators when degenerate (a host read) and returns
+        (cls_list, reg_list); ``rollback=True`` returns (cls_list, reg_list,
+        bad) instead."""
+        T, P = st["mask"].shape
+        R = T * P
+        rows = slice(center * P, (center + 1) * P)
+        mask_all = st["mask"].reshape(R)
+
+        att1 = self.selsa_1.out_proj(
+            finalize(dict(m=st["m1"], l=st["l1"], a=st["a1"])))
+        fc_all_1 = F.relu(st["fc1"] + att1)
+        fc2 = self.fc_new_2(fc_all_1)
+        fc2_c = fc2[rows]
+        fc_all_2_cur = F.relu(fc2_c + self.selsa_2(fc2_c, fc2, mask_all))
+        cls_branch = self.fc_cls(fc_all_2_cur)
+        reg_branch = self.fc_reg(fc_all_2_cur)
+
+        fc3f = self.fc_new_3(fc_all_2_cur)
+        q3f = self.selsa_3.q_proj(fc3f)
+        k3f = self.selsa_3.k_proj(fc3f)
+        scale3 = self.selsa_3.scale
+        k3_eff = st["k3"].clone()
+        k3_eff[rows] = k3f
+        fc3_eff = st["fc3s"].clone()
+        fc3_eff[rows] = fc3f
+        mask_c = st["mask"][center]
+        acc3, col3 = slide(dict(m=st["m3"], l=st["l3"], a=st["a3"]),
+                           st["q3"], st["k3"][rows], st["fc3s"][rows],
+                           mask_c, k3f, fc3f, mask_c, scale3)
+        M3 = st["M3"].clone()
+        M3[:, center] = col3
+        if rollback:
+            bad = degenerate_rows(acc3, M3, self.stream_theta).any()
+        else:
+            acc3, _ = repair(acc3, M3, st["q3"], k3_eff, fc3_eff, mask_all,
+                             scale3, T, theta=self.stream_theta, slot_rows=R)
+        att3 = finalize(acc3)
+        att3[rows] = finalize(init_rows(q3f, k3_eff, fc3_eff, mask_all,
+                                        scale3))
+        fc_all_3 = F.relu(fc3_eff + self.selsa_3.out_proj(att3))
+
+        fc4 = self.fc_new_4(fc_all_3)
+        fc4_c = fc4[rows]
+        fc_all_4 = F.relu(fc4_c + self.selsa_4(fc4_c, fc4, mask_all))
+        cls = [cls_branch, self.fc_cls_2(fc_all_4)]
+        reg = [reg_branch, self.fc_reg_2(fc_all_4)]
+        return (cls, reg, bad) if rollback else (cls, reg)
+
+    def stream_rebuild(self, st: dict) -> dict:
+        """Exact rebuild of both blocks' accumulators and health tables from
+        the ring's caches, in place: one (R, R) pass per block."""
+        self._commit(st, *self._rebuild_blocks(st))
+        return st
+
+    def _rebuild_blocks(self, st):
+        T, P = st["mask"].shape
+        mask_all = st["mask"].reshape(T * P)
+        acc1, M1 = init_rows(st["q1"], st["k1"], st["fc1"], mask_all,
+                             self.selsa_1.scale, slots=T, slot_rows=T * P)
+        acc3, M3 = init_rows(st["q3"], st["k3"], st["fc3s"], mask_all,
+                             self.selsa_3.scale, slots=T, slot_rows=T * P)
+        return acc1, M1, acc3, M3
+
+    @staticmethod
+    def _commit(st, acc1, M1, acc3, M3):
+        for name, acc, M in (("1", acc1, M1), ("3", acc3, M3)):
+            for key in ("m", "l", "a"):
+                st[key + name] = acc[key]
+            st["M" + name] = M

@@ -31,17 +31,27 @@ class SelsaAttention(nn.Module):
         self.add_module(f"linear_out_{index}",
                         nn.Conv2d(fc_feat_dim, dim[2], 1))
 
+    # the block's projections one by one, for the streaming ring's caches
+    # of stationary rows (ops/streaming_attention.py)
+    def q_proj(self, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"q_data_fc_{self.index}")(x)
+
+    def k_proj(self, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"k_data_fc_{self.index}")(x)
+
+    def out_proj(self, att: torch.Tensor) -> torch.Tensor:
+        return conv1x1_as_linear(getattr(self, f"linear_out_{self.index}"),
+                                 att)
+
     def forward(self, roi_feat: torch.Tensor, nongt_feat: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """roi_feat: (Q, D) queries; nongt_feat: (K, D) keys/values."""
-        i = self.index
-        q = getattr(self, f"q_data_fc_{i}")(roi_feat)
-        k = getattr(self, f"k_data_fc_{i}")(nongt_feat)
+        q = self.q_proj(roi_feat)
+        k = self.k_proj(nongt_feat)
         if key_mask is None:
             bias = torch.zeros(k.shape[0], dtype=torch.float32,
                                device=k.device)
         else:
             bias = torch.where(key_mask, 0.0, NEG_INF).float()
         out = masked_attention(q, k, nongt_feat, bias, self.scale)
-        return conv1x1_as_linear(getattr(self, f"linear_out_{i}"),
-                                 out.to(roi_feat.dtype))
+        return self.out_proj(out.to(roi_feat.dtype))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (``gpu`` marker; each test skips
-without a CUDA device), and on the CPU the kernel's arithmetic emulated:
+without a CUDA device), the streaming ring's head on the card against the
+exact head, and on the CPU the kernel's arithmetic emulated:
 the limits the bf16 kernel is held to, the 3xTF32 accuracy of the f32
 path, and the split of the keys over blocks.
 
@@ -39,8 +40,9 @@ def _inputs(rng, nq, nk, d, masked, device="cuda"):
 # warpgroup's 64 rows, query counts whose output splits the keys over
 # blocks (300 × 1000, and 300 × 6300 as at NL2/NL4, whose logits take the
 # 64 × 256 block), all keys masked, a ragged query count, nq and nk that
-# are not multiples of 128, and a key count that leaves the last 64 × 256
-# block's second half without keys (300 × 6200)
+# are not multiples of 128, a key count that leaves the last 64 × 256
+# block's second half without keys (300 × 6200), and NL2/NL4 at the
+# 63-frame cache (300 × 18 900)
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,nk,masked", [(5, 70, "partial"),
                                           (40, 200, "partial"),
@@ -49,7 +51,8 @@ def _inputs(rng, nq, nk, d, masked, device="cuda"):
                                           (700, 130, "partial"),
                                           (200, 333, "partial"),
                                           (300, 6300, "partial"),
-                                          (300, 6200, "partial")])
+                                          (300, 6200, "partial"),
+                                          (300, 18900, "partial")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_matches_plain(nq, nk, masked, dtype):
     """f32 within 1e-4 and within 1e-5 of max|plain| (3xTF32 keeps f32
@@ -238,3 +241,51 @@ def test_attention_kernel_rejects_what_it_does_not_take():
         with pytest.raises((TypeError, ValueError)):
             masked_attention(*args, 0.1)
     assert masked_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_streaming_head_matches_exact_head_on_the_card():
+    """The streaming ring on the card (T = 5, 64 proposals, d = 1024, 12
+    slides): ``stream_forward``'s logits within 1e-3 of ``forward_fc1`` on
+    the same window (relative to max(|ref|, 1)), with 2 kernel launches
+    against the exact head's 4, a clear health verdict, and the same after
+    ``stream_rebuild``."""
+    _card()
+    from hvrnet_tpu_torch.engine.detector import f32_precision, init_weights
+    from hvrnet_tpu_torch.models.bbox_heads.hrnmp_bbox_head import \
+        HRNMPBBoxHead
+    t, p, d, kd = 5, 64, 1024, 2
+    head = HRNMPBBoxHead(sampler_num=p, t_dim=t, in_channels=16).eval()
+    init_weights(head, 0)
+    head.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = dict(device="cuda")
+    st = dict(mask=torch.zeros((t, p), dtype=torch.bool, **dev),
+              M1=torch.full((t * p, t), -torch.inf, **dev),
+              M3=torch.full((t * p, t), -torch.inf, **dev))
+    for name in ("fc1", "q1", "k1", "fc3s", "q3", "k3", "a1", "a3"):
+        st[name] = torch.zeros((t * p, d), **dev)
+    for name in ("1", "3"):
+        st["m" + name] = torch.full((t * p,), -torch.inf, **dev)
+        st["l" + name] = torch.zeros((t * p,), **dev)
+    window = []
+    with torch.no_grad(), f32_precision():
+        for i in range(12):
+            fc1 = torch.randn((p, d), generator=gen, **dev)
+            mask = torch.rand((p,), generator=gen, **dev) > 0.2
+            _, bad = head.stream_update(st, fc1, mask, i % t, rollback=True)
+            window = (window + [(fc1, mask)])[-t:]
+        assert not bool(bad)
+        centre = (11 + 1 + kd) % t
+        want = head.forward_fc1(torch.cat([f for f, _ in window]), kd * p, p,
+                                torch.cat([m for _, m in window]))
+        for rebuilt in (False, True):
+            if rebuilt:
+                head.stream_rebuild(st)
+            before = masked_attention.launches
+            cls, reg, bad = head.stream_forward(st, centre, rollback=True)
+            assert masked_attention.launches == before + 2
+            assert not bool(bad)
+            for g, w in zip(cls + reg, want[0] + want[1]):
+                scale = max(w.abs().max().item(), 1.0)
+                assert (g - w).abs().max().item() <= 1e-3 * scale, rebuilt
