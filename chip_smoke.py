@@ -24,7 +24,16 @@ stops the script with a non-zero exit:
    just before and read just after.  The output is checked: a 30-class
    result for every frame, finite boxes, and the window head's logits with
    the kernel against the same head with the plain attention.
-5. One JSON line of per-kernel numbers, then the result line.
+5. ``[stream]``: the streaming ring at T=21 (speculative, in-step repair,
+   forced rollback) and both rings at T=63, with stage times.
+6. ``[train]``: HVRNet training at the config's full width (27 frames = 9
+   videos × 3, 3 chosen videos, 128 RoIs per frame, 608×1008, f32) with
+   seeded random weights and frozen-BN calibration on the first batch:
+   the kernel under autograd at the training shapes against the plain
+   version, then ``train_detector`` for 2 + 5 steps on a synthetic batch
+   with a stage split per step, the launch count zeroed before and read
+   after, frozen tensors checked bit for bit, and a checkpoint resumed.
+7. One JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when no CUDA device is present, or when the
 ``hvrnet_tpu_torch`` package is not beside this file.
@@ -55,6 +64,15 @@ ATTN_SHAPES = ((6300, 6300, "NL1/NL3"), (300, 6300, "NL2/NL4"))
 ATTN_SHAPES_63 = ((18900, 18900, "NL1/NL3 T=63"), (300, 18900, "NL2/NL4 T=63"))
 D = 1024
 FLUSH_FORCED = 4      # chunk size of the forced-rollback run
+# the HRNMP head's training calls per chosen video: NL1 over its 3 × 128
+# RoIs, NL2 and NL3 from its key frame's 128
+TRAIN_SHAPES = ((384, 384, "train NL1"), (128, 384, "train NL2/NL3"))
+TRAIN_VIDEOS = 9          # the triplet loader's pool: 3 of the key class +
+TRAIN_IPV = 3             # 2 other classes × 3, 3 frames each
+TRAIN_GT_MAX = 32         # collate_train's ground-truth slots
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_STAGES = ("backbone", "selection", "proposals", "head", "backward",
+                "optimizer")
 
 
 def log(*args):
@@ -610,6 +628,225 @@ def stage_times(torch, np, engine, feats, fc1, valid, head_out):
             log(f"[stages] {name}: {cuda_ms(torch, fn, iters=3, warmup=1):.3f} ms")
 
 
+def train_attention(torch):
+    """The kernel under autograd at the training shapes, f32 with 10 % of
+    the keys masked: its forward (and ``attention_backward_plain``) against
+    the plain version differentiated by autograd, then its times."""
+    import torch.nn.functional as F
+    from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
+                                                masked_attention, plan)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scale = D ** -0.5
+    cases = []
+    for nq, nk, label in TRAIN_SHAPES:
+        q, k, v = (torch.randn(n, D, device="cuda", generator=gen)
+                   for n in (nq, nk, nk))
+        bias = torch.where(torch.rand(nk, device="cuda", generator=gen)
+                           >= 0.1, 0.0, NEG_INF).float()
+        g = torch.randn(nq, D, device="cuda", generator=gen)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = masked_attention(*ins, bias, scale)
+        got.backward(g)
+        want = attention_plain(*ref, bias, scale)
+        want.backward(g)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        grad_rel = max(((a.grad - b.grad).abs().max()
+                        / b.grad.abs().max()).item()
+                       for a, b in zip(ins, ref))
+        case = dict(label=label, nq=nq, nk=nk, dtype="float32",
+                    masking="10% masked", max_abs_err=err, rel_err=rel,
+                    rel_tol=1e-5, grad_rel_err=grad_rel, grad_rel_tol=1e-4,
+                    bitwise_repeat=bool(torch.equal(
+                        got, masked_attention(q, k, v, bias, scale))))
+        case.update(attention_times(torch, F, plan, attention_plain,
+                                    masked_attention, q, k, v, bias, scale))
+        log("[train] attention " + json.dumps(case))
+        if not (rel <= 1e-5 and grad_rel <= 1e-4 and case["bitwise_repeat"]
+                and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"masked_attention under autograd disagrees "
+                               f"with the plain version: {case}")
+        cases.append(case)
+    return cases
+
+
+def synthetic_train_batch(np, seed=0):
+    """A ``collate_train`` batch as the triplet loader lays it out: 27
+    frames, 9 videos × 3, of 600×1000 smooth random content panning on the
+    608×1008 canvas, normalised float32 NHWC; 1-4 ground-truth boxes per
+    video drifting across its frames; videos 0-2 of one class, 3-5 and 6-8
+    of two others."""
+    rng = np.random.default_rng(seed)
+    F = TRAIN_VIDEOS * TRAIN_IPV
+    mean = np.array([103.06, 115.90, 123.15], np.float32)
+    imgs = np.zeros((F,) + CANVAS + (3,), np.float32)
+    gt_bboxes = np.zeros((F, TRAIN_GT_MAX, 4), np.float32)
+    gt_labels = np.zeros((F, TRAIN_GT_MAX), np.int64)
+    gt_mask = np.zeros((F, TRAIN_GT_MAX), bool)
+    classes = rng.choice(np.arange(1, 31), 3, replace=False)
+    for v in range(TRAIN_VIDEOS):
+        scene = rng.integers(0, 256, size=(48, 80, 3), dtype=np.uint8)
+        scene = np.repeat(np.repeat(scene, 16, axis=0), 16, axis=1)
+        n = int(rng.integers(1, 5))
+        hw = np.array(CONTENT[::-1], np.float64)          # (w, h)
+        xy = rng.uniform(0, 0.66 * hw, (n, 2))
+        wh = rng.uniform(0.08 * hw, 0.3 * hw, (n, 2))
+        for i in range(TRAIN_IPV):
+            f = v * TRAIN_IPV + i
+            y, x = 4 * i, 7 * i
+            imgs[f, :CONTENT[0], :CONTENT[1]] = (
+                scene[y:y + CONTENT[0], x:x + CONTENT[1]] - mean)
+            shift = 6.0 * i
+            gt_bboxes[f, :n] = np.concatenate([xy + shift, xy + wh + shift],
+                                              1)
+            gt_labels[f, :n] = classes[min(v // 3, 2)]
+            gt_mask[f, :n] = True
+    return dict(imgs=imgs, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                gt_mask=gt_mask,
+                img_shape=np.tile(np.array(CONTENT, np.float32), (F, 1)),
+                pad_shape=np.tile(np.array(CANVAS, np.float32), (F, 1)))
+
+
+class StepTimer(PhaseTimer):
+    """PhaseTimer that also reads each training step's peak device memory
+    (the allocator's host-side count: no synchronisation), from the first
+    stage of a step to the end of its last."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.peaks = []
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        if name == TRAIN_STAGES[0]:
+            self.torch.cuda.reset_peak_memory_stats()
+        with super().phase(name):
+            yield
+        if name == TRAIN_STAGES[-1]:
+            self.peaks.append(self.torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_train(torch, np):
+    """HVRNet training at full width through ``train_detector``: 2 warmup
+    and 5 timed steps with a stage split, the launch count, frozen tensors
+    bitwise unchanged, trainable ones moved, and a bitwise resume."""
+    import shutil
+    from hvrnet_tpu_torch.apis import train_detector
+    from hvrnet_tpu_torch.engine import HNMBRCNN
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(CONFIG)).as_dict()
+    work_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    t0 = time.time()
+    engine = HNMBRCNN(cfg["model"], train_cfg=cfg["train_cfg"],
+                      device="cuda", seed=0)
+    batch = synthetic_train_batch(np)
+    n_bn = calibrate_frozen_bn(engine, [
+        dict(img=batch["imgs"][f:f + 1], img_shape=batch["img_shape"][f])
+        for f in range(4)])
+    torch.cuda.synchronize()
+    bh = engine.model.bbox_head
+    log(f"[train] HNMBRCNN R101-C5 training engine in {time.time() - t0:.1f}"
+        f" s (seeded random weights, {n_bn} frozen BNs calibrated on the "
+        f"first batch): {len(batch['imgs'])} frames, sampler_num "
+        f"{bh.sampler_num}, t_dim {bh.t_dim}, canvas {CANVAS}")
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    timer = StepTimer(torch)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.synchronize()
+    masked_attention.launches = 0
+    t0 = time.time()
+    trainer = train_detector(engine, [batch], cfg, str(work_dir),
+                             total_epochs=1, steps_per_epoch=steps,
+                             log_interval=1, seed=0, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = masked_attention.launches
+    peak = max(timer.peaks)
+    logs = [json.loads(line) for line in
+            (work_dir / "train_log.jsonl").read_text().splitlines()]
+    spans = timer.spans
+    step_ms = [spans["backbone"][i][0].elapsed_time(spans["optimizer"][i][1])
+               for i in range(steps)]
+    for i, (ms, gib, lg) in enumerate(zip(step_ms, timer.peaks, logs)):
+        stages = {name: spans[name][i][0].elapsed_time(spans[name][i][1])
+                  for name in TRAIN_STAGES}
+        tag = "warmup" if i < TRAIN_WARMUP else "timed"
+        log(f"[train] step {i} ({tag}) {ms:.3f} ms (CUDA events), peak "
+            f"device memory {gib:.2f} GiB; stages ms "
+            + json.dumps({k: round(v, 3) for k, v in stages.items()})
+            + "; losses " + json.dumps(
+                {k: lg[k] for k in lg if k.startswith(("loss", "acc"))}))
+    timed = slice(TRAIN_WARMUP, steps)
+    mean = {name: sum(a.elapsed_time(b) for a, b in spans[name][timed])
+            / TRAIN_TIMED for name in TRAIN_STAGES}
+    step_mean = sum(step_ms[timed]) / TRAIN_TIMED
+    log(f"[train] {TRAIN_TIMED} timed steps: {step_mean:.3f} ms/step; "
+        f"stages ms " + json.dumps({k: round(v, 3) for k, v in mean.items()})
+        + f"; peak device memory {peak:.2f} GiB; kernel launches {launches}"
+        f" over {steps} steps; {steps / wall:.3f} steps/s wall")
+    bad = [lg for lg in logs
+           if not all(np.isfinite(v) for k, v in lg.items()
+                      if k.startswith(("loss", "acc")))]
+    if len(logs) != steps or bad:
+        raise RuntimeError(f"training logged {len(logs)} steps, non-finite "
+                           f"losses in {bad}")
+    if launches != 9 * steps:
+        raise RuntimeError(f"training launched the kernel {launches} times, "
+                           f"not 9 per step over {steps} steps")
+    check_train_weights(torch, engine, before)
+
+    # a resume from the checkpoint restores the step and the weights
+    resumed = HNMBRCNN(cfg["model"], train_cfg=cfg["train_cfg"],
+                       device="cuda", seed=1)
+    again = train_detector(resumed, [batch], cfg, str(work_dir),
+                           total_epochs=1, steps_per_epoch=steps,
+                           resume_from=str(work_dir / "latest.pth"))
+    same = all(torch.equal(t, resumed.model.state_dict()[k])
+               for k, t in engine.model.state_dict().items())
+    mom = all(torch.equal(again.optimizer.state[a]["momentum_buffer"],
+                          trainer.optimizer.state[b]["momentum_buffer"])
+              for a, b in zip(again.params, trainer.params))
+    log(f"[train] resumed from {(work_dir / 'latest.pth').relative_to(ROOT)}"
+        f": step {again.step}, weights bitwise equal {same}, momentum "
+        f"bitwise equal {mom}")
+    if not (again.step == trainer.step == steps and same and mom):
+        raise RuntimeError("the checkpoint did not resume the training state")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine, resumed, trainer, again
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_mean, stages_ms=mean,
+                peak_gib=peak)
+
+
+def check_train_weights(torch, engine, before):
+    """Backbone, RPN and every frozen-BN tensor (the model's buffers) bit
+    for bit as before; every trainable tensor moved, except the key
+    projections' biases, whose gradient is 0 (a constant per softmax row)
+    and whose decay of 0 is 0."""
+    params = dict(engine.model.named_parameters())
+    frozen_moved, still = [], []
+    for name, t in engine.model.state_dict().items():
+        trains = name in params and params[name].requires_grad
+        if not trains and not torch.equal(t, before[name]):
+            frozen_moved.append(name)
+        if trains and torch.equal(t, before[name]) and not (
+                ".k_data_fc_" in name and name.endswith(".bias")):
+            still.append(name)
+    n_train = sum(p.requires_grad for p in params.values())
+    log(f"[train] {len(before) - n_train} frozen tensors (backbone, RPN, "
+        f"frozen BNs) bitwise unchanged: {not frozen_moved}; {n_train} "
+        f"trainable tensors (shared head, HRNMP head) moved: {not still}")
+    if frozen_moved or still or any(
+            not n.startswith(("shared_head.", "bbox_head."))
+            for n, p in params.items() if p.requires_grad):
+        raise RuntimeError(f"training moved frozen tensors {frozen_moved} "
+                           f"or left trainable ones {still}")
+
+
 def kernel_summary(cases, runs):
     """Per-kernel numbers for one detected frame of the exact ring at T=21:
     NL1..NL4 at f32 (two calls at each shape); launches on each path."""
@@ -645,11 +882,17 @@ def kernel_summary(cases, runs):
         per_frame_t63={key: per_frame(lambda c: c[key], ATTN_SHAPES_63)
                        for key in ("ms", "plain_ms", "library_ms",
                                    "bound_ms")},
+        per_step_train={key: 3 * sum(
+            calls * f32[label][key] for calls, (*_, label) in
+            zip((1, 2), TRAIN_SHAPES))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         unit="per detected frame of the exact ring at T=21: 2 calls at "
              "6300x6300 + 2 at 300x6300, d 1024, float32 (3xTF32 bound); "
              "per_frame_t63 the same at 18900x18900 and 300x18900; "
-             "launches summed over the paths in launches_by_path, each "
-             "counted from 0 over its 30-frame run",
+             "per_step_train one training step's 9 calls: per chosen "
+             "video 1 at 384x384 and 2 at 128x384; launches summed over "
+             "the paths in launches_by_path, each counted from 0 over its "
+             "run (30 frames; train: the 2 + 5 steps)",
         cases=cases)]}
 
 
@@ -670,10 +913,14 @@ def main() -> int:
     engine, exact = phase_main_path(torch, np)
     stream, repair, forced = phase_stream(torch, np, engine, exact)
     exact63, stream63 = phase_63(torch, np, engine)
+    del engine
+    torch.cuda.empty_cache()
+    cases += train_attention(torch)
+    train = phase_train(torch, np)
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
-            "stream T=63": stream63}
+            "stream T=63": stream63, "train": train}
     print(json.dumps(kernel_summary(cases, runs)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,7 +21,7 @@ window head.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -115,16 +115,22 @@ def _rpn_proposals(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
 
 
 class BaseEngine:
-    """Model construction, weights and the per-frame program."""
+    """Model construction, weights and the per-frame program.
 
-    def __init__(self, model_cfg: Dict[str, Any], test_cfg: Dict[str, Any],
-                 device="cuda", seed: int = 0):
+    A serving engine takes a ``test_cfg``, whose ``bbox_head`` overrides
+    the head's ``t_dim`` and ``sampler_num``; a training engine takes a
+    ``train_cfg`` and no ``test_cfg``, and keeps the model config's."""
+
+    def __init__(self, model_cfg: Dict[str, Any],
+                 test_cfg: Optional[Dict[str, Any]] = None, device="cuda",
+                 seed: int = 0, train_cfg: Optional[Dict[str, Any]] = None):
         model_cfg = unwrap(model_cfg)
-        self.test_cfg = unwrap(test_cfg)
-        # test-time bbox_head overrides (t_dim, sampler_num)
+        self.test_cfg = unwrap(test_cfg) if test_cfg else None
+        self.train_cfg = unwrap(train_cfg) if train_cfg else None
         bh = dict(model_cfg["bbox_head"])
-        bh["t_dim"] = int(self.test_cfg["bbox_head"]["t_dim"])
-        bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
+        if self.test_cfg is not None:
+            bh["t_dim"] = int(self.test_cfg["bbox_head"]["t_dim"])
+            bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
         self.model_cfg = model_cfg = dict(model_cfg, bbox_head=bh)
         self.device = resolve_device(device)
         self.model = build_model_module(model_cfg).eval()
@@ -141,7 +147,8 @@ class BaseEngine:
         self.anchor_scales = tuple(rh.get("anchor_scales", (8, 16, 32)))
         self.anchor_ratios = tuple(rh.get("anchor_ratios", (0.5, 1.0, 2.0)))
         self.anchor_stride = int(rh.get("anchor_strides", [16])[0])
-        self.proposal_num = int(self.test_cfg["rpn"]["nms_post"])
+        self.proposal_num = (int(self.test_cfg["rpn"]["nms_post"])
+                             if self.test_cfg else 300)
         # uint8 frames are normalised on the device with the shipped
         # configs' img_norm_cfg
         self.img_norm = dict(mean=(103.06, 115.90, 123.15),
@@ -272,11 +279,17 @@ class HNMBRCNN(_RingMixin, BaseEngine):
     _STREAM_KEYS = ("fc1", "q1", "k1", "fc3s", "q3", "k3",
                     "m1", "l1", "a1", "m3", "l3", "a3", "M1", "M3")
 
-    def __init__(self, model_cfg, test_cfg, device="cuda", seed: int = 0):
-        super().__init__(model_cfg, test_cfg, device, seed)
-        self.key_dim = int(self.test_cfg["bbox_head"]["key_dim"])
-        self.window = 2 * int(
-            self.test_cfg["relation_setup"]["frame_interval"]) + 1
+    def __init__(self, model_cfg, test_cfg=None, device="cuda",
+                 seed: int = 0, train_cfg=None):
+        super().__init__(model_cfg, test_cfg, device, seed, train_cfg)
+        if self.test_cfg is None:
+            # training: the key frame of each sampled video
+            self.key_dim = int(self.train_cfg["rcnn"].get("key_dim", 0))
+            self.window = None
+        else:
+            self.key_dim = int(self.test_cfg["bbox_head"]["key_dim"])
+            self.window = 2 * int(
+                self.test_cfg["relation_setup"]["frame_interval"]) + 1
 
     @torch.no_grad()
     @f32_precision()

@@ -1,0 +1,245 @@
+"""HVRNet training step (counterpart of ``hvrnet_tpu/engine/train.py``:
+``BaseTrainer`` on one device in float32, and ``HNMBTrainer``).
+
+One step, in the reference's order (``hnmb_rcnn.py:224-569``):
+  1. the frozen backbone over every frame (V videos × ``imgs_per_video``),
+     without gradient;
+  2. triplet-video selection from max-pooled C5 descriptors: the key video
+     0, its hardest same-class video and the most confusing other-class
+     video;
+  3. per chosen frame, RPN proposals (``train_cfg.rpn_proposal``) and
+     ``sampler.num`` RoIs sampled against its video's key-frame ground
+     truth;
+  4. the trainable shared head and RoIAlign over the chosen frames, then
+     the HRNMP head's training forward (NL1–NL3 through the attention
+     kernel, NL4 with explicit affinities and the triplet loss);
+  5. branch and final cross-entropy and smooth-L1 losses;
+  6. backward, the global-norm clip and SGD (``engine/optim.py``).
+All of it runs under ``f32_precision``: no TF32 in any forward or backward
+convolution or matmul.
+
+The sampler's noise comes from the trainer's ``torch.Generator`` unless
+the caller hands it in (the tests hand both packages the same noise).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.targets import random_sample_and_target
+from ..models.losses import accuracy, smooth_l1, softmax_cross_entropy
+from .detector import _rpn_proposals, f32_precision
+from .optim import (clip_grad_global_norm_, default_trainable_mask,
+                    make_optimizer, step_lr_schedule)
+
+
+class BaseTrainer:
+    """The optimizer side: trainable mask, schedule, clip, SGD step."""
+
+    freeze_backbone = False
+    freeze_rpn = False
+
+    def __init__(self, engine, cfg, steps_per_epoch: int = 1000,
+                 seed: int = 0):
+        self.engine = engine
+        opt = cfg.get("optimizer") or dict(lr=2.5e-4, momentum=0.9,
+                                           weight_decay=1e-4)
+        lrc = cfg.get("lr_config") or dict(step=[12], warmup_iters=500,
+                                           warmup_ratio=1.0 / 3)
+        clip = ((cfg.get("optimizer_config") or {}).get("grad_clip")
+                or {}).get("max_norm", 35.0)
+        self.schedule = step_lr_schedule(
+            float(opt["lr"]), steps_per_epoch, list(lrc.get("step", [])),
+            warmup_iters=int(lrc.get("warmup_iters", 500)),
+            warmup_ratio=float(lrc.get("warmup_ratio", 1.0 / 3)))
+        self.clip_norm = float(clip)
+        mask = default_trainable_mask(
+            engine.model,
+            frozen_stages=int(engine.model_cfg["backbone"].get(
+                "frozen_stages", 1)),
+            freeze_backbone=self.freeze_backbone, freeze_rpn=self.freeze_rpn)
+        self.params: List[torch.nn.Parameter] = []
+        for name, p in engine.model.named_parameters():
+            p.requires_grad_(mask[name])
+            if mask[name]:
+                self.params.append(p)
+        self.optimizer = make_optimizer(
+            self.params, self.schedule(0),
+            momentum=float(opt.get("momentum", 0.9)),
+            weight_decay=float(opt.get("weight_decay", 1e-4)))
+        self.step = 0
+        self.generator = torch.Generator(device=engine.device)
+        self.generator.manual_seed(seed)
+        # ``timer.phase(name)`` context manager around each stage of a step
+        self.timer = None
+
+    def _phase(self, name: str):
+        return self.timer.phase(name) if self.timer else \
+            contextlib.nullcontext()
+
+    def apply_update(self) -> float:
+        """Clip the gradients, take one SGD step at ``schedule(step)`` and
+        advance the step; returns that lr."""
+        lr = self.schedule(self.step)
+        clip_grad_global_norm_(self.params, self.clip_norm)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        return lr
+
+    def train_step(self, sample: Dict[str, Any],
+                   noise=None) -> Dict[str, Any]:
+        """One step on a ``collate_train`` sample; returns the logs (device
+        scalars, and ``lr`` the step's learning rate)."""
+        with f32_precision():
+            with self._phase("backbone"):
+                c4 = self.backbone(sample)
+            loss, logs = self.loss_from_c4(c4, sample, noise)
+            with self._phase("backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with self._phase("optimizer"):
+                lr = self.apply_update()
+        logs = {k: v.detach() for k, v in logs.items()}
+        logs.update(loss=loss.detach(), lr=lr)
+        return logs
+
+    @torch.no_grad()
+    def backbone(self, sample: Dict[str, Any]) -> torch.Tensor:
+        """C4 (F, 1024, H/16, W/16) of the sample's (F, H, W, 3)
+        normalised float32 frames, without gradient."""
+        with f32_precision():
+            x = self.engine._to_input(sample["imgs"], None)
+            return self.engine.model.extract_feat(x)
+
+    def loss_from_c4(self, c4, sample, noise=None):
+        raise NotImplementedError
+
+
+class HNMBTrainer(BaseTrainer):
+    """HVRNet triplet-video training (the reference trains the backbone and
+    RPN under no_grad, with no RPN loss)."""
+
+    freeze_backbone = True
+    freeze_rpn = True
+    video_per_cls = 3      # same-class videos at the head of the pool
+
+    def __init__(self, engine, cfg, steps_per_epoch: int = 1000,
+                 seed: int = 0):
+        super().__init__(engine, cfg, steps_per_epoch, seed)
+        bh = engine.model_cfg["bbox_head"]
+        self.ipv = int(bh.get("imgs_per_video", 3))
+        self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
+
+    def select_videos(self, c5: torch.Tensor) -> List[int]:
+        """The chosen videos' indices from the (F, C, h, w) C5 maps of the
+        whole pool: videos 0..video_per_cls-1 share the key video's class,
+        the rest are of other classes."""
+        vpc = self.video_per_cls
+        n_videos = c5.shape[0] // self.ipv
+        if n_videos <= vpc:
+            raise ValueError(f"HVRNet training needs extra-class videos "
+                             f"beyond the {vpc} same-class ones (got "
+                             f"{n_videos} videos)")
+        frame_desc = c5.mean(dim=(2, 3))
+        video_desc = frame_desc.reshape(n_videos, self.ipv, -1).amax(dim=1)
+        root_d = math.sqrt(video_desc.shape[-1])
+        sim = torch.softmax(video_desc[:1] @ video_desc[:vpc].T / root_d,
+                            dim=1)
+        hard_same = int(sim[0, 1:].argmin()) + 1
+        pair = video_desc[[0, hard_same]]
+        esim = torch.softmax(pair @ video_desc[vpc:].T / root_d,
+                             dim=1).sum(0)
+        return [0, hard_same, int(esim.argmax()) + vpc]
+
+    def loss_from_c4(self, c4: torch.Tensor, sample: Dict[str, Any],
+                     noise: Optional[Sequence[torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, logs) of one step from the pool's C4 maps.
+
+        ``noise``: (pos_noise, neg_noise), each (chosen·ipv, G + P) U(0, 1)
+        sampler priorities for the chosen frames in order (G ground-truth
+        slots, then P proposals); drawn from the trainer's generator when
+        absent."""
+        eng = self.engine
+        model = eng.model
+        tcfg = eng.train_cfg
+        rcnn = tcfg["rcnn"]
+        assigner, sampler = rcnn["assigner"], rcnn["sampler"]
+        S, ipv, kd = int(sampler["num"]), self.ipv, eng.key_dim
+        stride = eng.anchor_stride
+        canvas = eng._canvas(c4.shape[2] * stride, c4.shape[3] * stride)
+
+        with self._phase("selection"), torch.no_grad():
+            chosen = self.select_videos(model.shared(c4))
+        frames = [v * ipv + i for v in chosen for i in range(ipv)]
+        gt = {k: torch.as_tensor(np.asarray(sample[k])[frames],
+                                 device=eng.device)
+              for k in ("gt_bboxes", "gt_labels", "gt_mask")}
+        img_shape = np.asarray(sample["img_shape"])[frames]
+        pad_shape = np.asarray(sample["pad_shape"])[frames]
+        c4_v = c4[frames]
+
+        with self._phase("proposals"), torch.no_grad():
+            cls_map, reg_map = model.rpn(c4_v)
+            rois, valid, keys = [], [], []
+            for j in range(len(frames)):
+                key = j - j % ipv + kd
+                boxes, _, pmask = _rpn_proposals(
+                    cls_map[j], reg_map[j], canvas, pad_shape[j],
+                    img_shape[j], tcfg["rpn_proposal"], eng.rpn_means,
+                    eng.rpn_stds)
+                sr = random_sample_and_target(
+                    boxes, pmask, gt["gt_bboxes"][key], gt["gt_mask"][key],
+                    gt["gt_labels"][key], num=S,
+                    pos_fraction=float(sampler["pos_fraction"]),
+                    add_gt_as_proposals=bool(
+                        sampler.get("add_gt_as_proposals", True)),
+                    pos_iou_thr=float(assigner["pos_iou_thr"]),
+                    neg_iou_thr=float(assigner["neg_iou_thr"]),
+                    min_pos_iou=float(assigner["min_pos_iou"]),
+                    target_means=eng.target_means,
+                    target_stds=eng.target_stds,
+                    pos_weight=float(rcnn.get("pos_weight", -1)),
+                    pos_noise=None if noise is None else noise[0][j],
+                    neg_noise=None if noise is None else noise[1][j],
+                    generator=self.generator)
+                idx = torch.full((S, 1), float(j % ipv), device=eng.device)
+                rois.append(torch.cat([idx, sr.rois], dim=1))
+                valid.append(sr.valid)
+                if j % ipv == kd:
+                    keys.append(sr)
+
+        with self._phase("head"):
+            c5 = model.shared(c4_v)              # the shared head trains
+            per_video = range(0, len(frames), ipv)
+            pooled = torch.stack([
+                eng.roi_extractor(c5[f:f + ipv], torch.cat(rois[f:f + ipv]))
+                for f in per_video])
+            valid_mask = torch.stack([torch.cat(valid[f:f + ipv])
+                                      for f in per_video])
+            labels = torch.cat([k.labels for k in keys])
+            lw = torch.cat([k.label_weights for k in keys])
+            bt = torch.cat([k.bbox_targets for k in keys])
+            bw = torch.cat([k.bbox_weights for k in keys])
+            cls_list, reg_list, loss_trip = model.bbox_head.forward_train(
+                pooled, labels, valid_mask)
+            # cls normalised by the weighted rows, bbox by all key rows
+            navg = (lw > 0).sum().float().clamp_min(1.0)
+            logs = dict(loss_trip=loss_trip)
+            total = loss_trip
+            for b, (cls, reg) in enumerate(zip(cls_list, reg_list), 1):
+                lc = (softmax_cross_entropy(cls, labels) * lw).sum() / navg
+                lb = (smooth_l1(reg.reshape(-1, 4), bt, self.loss_beta)
+                      * bw).sum() / labels.shape[0]
+                logs[f"loss_cls_{b}"] = lc
+                logs[f"loss_bbox_{b}"] = lb
+                logs[f"acc_{b}"] = accuracy(cls.detach(), labels,
+                                            mask=lw > 0)
+                total = total + lc + lb
+        return total, logs

@@ -1,5 +1,13 @@
-"""HRNMP head, test path (counterpart of
-``hvrnet_tpu/models/bbox_heads/hrnmp_bbox_head.py:forward_fc1``).
+"""HRNMP head (counterpart of
+``hvrnet_tpu/models/bbox_heads/hrnmp_bbox_head.py``): the test path
+``forward_fc1``, the streaming ring, and the training path
+``forward_train`` with ``triplet_nonlocal_loss``.
+
+Training graph, per video (its key frame's ``sampler_num`` rows first):
+fc1 → NL1 (all rows) → fc2 → NL2 (key rows) → branch cls/reg → fc3 over
+[NL2 output, fc1 of the other frames] → NL3 (key rows); then the key rows
+of all videos together → fc4 → NL4 with explicit affinities, which also
+feed the margin triplet loss.  NL1–NL3 go through the kernel.
 
 Test graph: fc1 → NL1 (all rows) → fc2 → NL2 (key-frame query rows) →
 branch cls/reg → fc3 over the spliced input [fc1 rows before the key frame,
@@ -26,25 +34,61 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.attention import NEG_INF
 from ...ops.streaming_attention import (THETA, degenerate_rows, finalize,
                                         init_rows, repair, slide)
 from ..registry import HEADS
 from .bbox_head import flatten_roi_feats
 from .selsa_bbox_head import SelsaAttention
 
+POS_INF = 1e30
+
+
+def triplet_nonlocal_loss(aff_scale: torch.Tensor, labels: torch.Tensor,
+                          all_labels: torch.Tensor, margin: float,
+                          key_mask: Optional[torch.Tensor] = None,
+                          compat_inverted_mining: bool = True
+                          ) -> torch.Tensor:
+    """Hardest-proposal mining and the margin triplet loss over (Q, K)
+    scaled affinities.  For each foreground query: the most similar key of
+    another class and the least similar key of its own class (among valid
+    keys); a query counts when it has both.  The reference puts the two in
+    inverted slots (``compat_inverted_mining=True``), so its hinge is
+    max(0, margin + sim_same_min − sim_diff_max)."""
+    diff = labels[:, None] != all_labels[None, :]
+    same = ~diff
+    if key_mask is not None:
+        diff = diff & key_mask[None, :]
+        same = same & key_mask[None, :]
+    sim_dc = torch.where(diff, aff_scale, NEG_INF).amax(dim=1)
+    sim_sc = torch.where(same, aff_scale, POS_INF).amin(dim=1)
+    valid = (labels > 0) & diff.any(dim=1) & same.any(dim=1)
+    if compat_inverted_mining:
+        sim_pos, sim_neg = sim_dc, sim_sc
+    else:
+        sim_pos, sim_neg = sim_sc, sim_dc
+    per_anchor = torch.where(valid, (margin + sim_neg - sim_pos).clamp_min(0),
+                             0.0)
+    return per_anchor.sum() / valid.sum().float().clamp_min(1.0)
+
 
 @HEADS.register_module
 class HRNMPBBoxHead(nn.Module):
 
     def __init__(self, sampler_num: int = 128, t_dim: int = 9,
-                 fc_feat_dim: int = 1024,
+                 imgs_per_video: int = 3, fc_feat_dim: int = 1024,
                  dim: Sequence[int] = (1024, 1024, 1024),
                  roi_feat_size: int = 7, in_channels: int = 256,
                  num_classes: int = 31, reg_class_agnostic: bool = True,
+                 triplet_margin: float = 10.0,
+                 compat_inverted_mining: bool = True,
                  stream_theta: Optional[float] = None):
         super().__init__()
         self.sampler_num = sampler_num
         self.t_dim = t_dim
+        self.imgs_per_video = imgs_per_video
+        self.triplet_margin = triplet_margin
+        self.compat_inverted_mining = compat_inverted_mining
         # the streaming ring's anchor-gap threshold in nats (None: THETA);
         # a config sets it to force the health flag on benign inputs
         self.stream_theta = THETA if stream_theta is None else \
@@ -65,6 +109,48 @@ class HRNMPBBoxHead(nn.Module):
     def precompute_fc1(self, bbox_feat: torch.Tensor) -> torch.Tensor:
         """(N, C, 7, 7) pooled RoIs → (N, fc_feat_dim) fc_new_1 rows."""
         return self.fc_new_1(flatten_roi_feats(bbox_feat))
+
+    def forward_train(self, bbox_feats: torch.Tensor,
+                      labels_key: torch.Tensor,
+                      valid_mask: Optional[torch.Tensor] = None):
+        """bbox_feats: (V, N, C, 7, 7) pooled RoIs of V videos, N =
+        imgs_per_video·sampler_num rows each with the key frame's first;
+        labels_key: (V·sampler_num,) key-frame labels; valid_mask: (V, N).
+        Returns ([cls_branch, cls_final], [reg_branch, reg_final],
+        loss_trip), each over the V·sampler_num key rows."""
+        V, N = bbox_feats.shape[0], bbox_feats.shape[1]
+        S = self.sampler_num
+        nongt = min(self.imgs_per_video * S, N)
+        cls_b, reg_b, feats3, masks3 = [], [], [], []
+        for v in range(V):
+            vmask = valid_mask[v] if valid_mask is not None else None
+            kmask = vmask[:nongt] if vmask is not None else None
+            fc1 = self.fc_new_1(flatten_roi_feats(bbox_feats[v]))
+            fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[:nongt], kmask))
+            fc2 = self.fc_new_2(fc_all_1)
+            fc_all_2 = F.relu(fc2[:S] + self.selsa_2(fc2[:S], fc2[:nongt],
+                                                     kmask))
+            cls_b.append(self.fc_cls(fc_all_2))
+            reg_b.append(self.fc_reg(fc_all_2))
+            fc3 = self.fc_new_3(torch.cat([fc_all_2, fc1[S:]]))
+            feats3.append(F.relu(fc3[:S] + self.selsa_3(fc3[:S], fc3[:nongt],
+                                                        kmask)))
+            masks3.append(vmask[:S] if vmask is not None else
+                          torch.ones(S, dtype=torch.bool,
+                                     device=bbox_feats.device))
+        feats4 = torch.cat(feats3)
+        mask4 = torch.cat(masks3)
+        nongt4 = min(S * self.t_dim, feats4.shape[0])
+        fc4 = self.fc_new_4(feats4)
+        att4, aff4 = self.selsa_4(fc4, fc4[:nongt4], mask4[:nongt4],
+                                  return_aff=True)
+        fc_all_4 = F.relu(fc4 + att4)
+        loss_trip = triplet_nonlocal_loss(
+            aff4, labels_key, labels_key[:nongt4], self.triplet_margin,
+            key_mask=mask4[:nongt4],
+            compat_inverted_mining=self.compat_inverted_mining)
+        return ([torch.cat(cls_b), self.fc_cls_2(fc_all_4)],
+                [torch.cat(reg_b), self.fc_reg_2(fc_all_4)], loss_trip)
 
     def forward_fc1(self, fc1: torch.Tensor, cur_start: int, cur_len: int,
                     valid_mask: Optional[torch.Tensor] = None):

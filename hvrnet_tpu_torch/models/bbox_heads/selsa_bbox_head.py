@@ -44,14 +44,28 @@ class SelsaAttention(nn.Module):
                                  att)
 
     def forward(self, roi_feat: torch.Tensor, nongt_feat: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """roi_feat: (Q, D) queries; nongt_feat: (K, D) keys/values."""
+                key_mask: Optional[torch.Tensor] = None,
+                return_aff: bool = False):
+        """roi_feat: (Q, D) queries; nongt_feat: (K, D) keys/values.
+
+        ``return_aff`` takes the explicit-affinity path the HRNMP mining
+        needs, in plain torch (the JAX package computes it outside its
+        kernel): returns (out, aff) with aff the (Q, K) scaled logits,
+        −1e30 at masked keys."""
         q = self.q_proj(roi_feat)
         k = self.k_proj(nongt_feat)
+        v = nongt_feat.contiguous()
+        if return_aff:
+            aff = (q @ k.T) * self.scale
+            if key_mask is not None:
+                aff = torch.where(key_mask[None, :], aff, NEG_INF)
+            w = torch.softmax(aff, dim=-1)
+            out = w.to(v.dtype) @ v
+            return self.out_proj(out.to(roi_feat.dtype)), aff
         if key_mask is None:
             bias = torch.zeros(k.shape[0], dtype=torch.float32,
                                device=k.device)
         else:
             bias = torch.where(key_mask, 0.0, NEG_INF).float()
-        out = masked_attention(q, k, nongt_feat, bias, self.scale)
+        out = masked_attention(q, k, v, bias, self.scale)
         return self.out_proj(out.to(roi_feat.dtype))

@@ -1,6 +1,7 @@
 """Single-level RoI extractor (counterpart of
 ``hvrnet_tpu/models/roi_extractor.py``): the shipped configs pool one
-stride-16 map with RoIAlign(out 7, sample 2)."""
+stride-16 map with RoIAlign(out 7, sample 2); training pools the frames of
+a video in one call, by the frame index in each RoI."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -25,6 +26,7 @@ class SingleRoIExtractor:
         self.feat_from_shared_head = feat_from_shared_head
 
     def __call__(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-        """feat: (1, C, H, W); rois: (R, 5) → (R, C, out, out)."""
+        """feat: (B, C, H, W); rois: (R, 5) rows of [frame index, x1, y1,
+        x2, y2] → (R, C, out, out), differentiable in ``feat``."""
         return roi_align(feat, rois, self.out_size, 1.0 / self.stride,
                          self.sample_num)

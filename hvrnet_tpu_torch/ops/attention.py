@@ -11,7 +11,13 @@ combine) whose scratch this module allocates; on a CPU tensor it runs
 ``bias`` is 0 for live keys and −1e30 for masked ones.  Inputs are float32
 or bfloat16; logits, softmax and accumulation are float32 (float32 inputs
 as 3xTF32 on the tensor cores); with bfloat16 inputs the softmax weights
-are rounded to bfloat16 before the product with v.
+are rounded to bfloat16 before the product with v.  (The plain versions
+keep float64 inputs in float64, for gradient checks.)
+
+``masked_attention`` is differentiable: a ``torch.autograd.Function`` whose
+forward is the kernel (or the plain version on the CPU) and whose backward
+is ``attention_backward_plain``, the dense recompute of the JAX package's
+``custom_vjp`` backward ``_bwd`` (which is XLA, not a Pallas kernel).
 """
 from __future__ import annotations
 
@@ -32,12 +38,40 @@ _KEYS_PER_STAGE = {torch.float32: 32, torch.bfloat16: 64}   # pass 2
 _TILE_US = {torch.float32: 1.2, torch.bfloat16: 1.05}
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float) -> torch.Tensor:
     """The plain version: (nq, nk) logits, softmax, product with v."""
-    aff = (q.float() @ k.float().T) * scale + bias.float()[None, :]
+    f = _acc_dtype(q)
+    aff = (q.to(f) @ k.to(f).T) * scale + bias.to(f)[None, :]
     w = torch.softmax(aff, dim=-1)
-    return w.to(v.dtype).float() @ v.float()
+    return w.to(v.dtype).to(f) @ v.to(f)
+
+
+def attention_backward_plain(q, k, v, bias, scale: float, g):
+    """(dq, dk, dv, dbias) of ``attention_plain`` for the output cotangent
+    ``g``: the recompute of ``hvrnet_tpu/ops/attention.py:_bwd`` line for
+    line, in float32 (float64 for float64 inputs), each cast back to its
+    input's dtype.  Like ``_bwd``, ``dbias`` sums the scaled logit gradient
+    ``ds``, so it carries a factor ``scale``; nothing differentiates the
+    mask bias."""
+    f = _acc_dtype(q)
+    qf, kf, vf = q.to(f), k.to(f), v.to(f)
+    aff = qf @ kf.T * scale + bias.to(f)[None, :]
+    w = torch.softmax(aff, dim=-1)
+    g = g.to(f)
+    dv = w.T @ g
+    dw = g @ vf.T
+    tmp = (dw * w).sum(dim=-1, keepdim=True)
+    ds = w * (dw - tmp) * scale
+    dq = (ds @ kf).to(q.dtype)
+    dk = (ds.T @ qf).to(k.dtype)
+    dbias = ds.sum(dim=0).to(bias.dtype)
+    return dq, dk, dv.to(v.dtype), dbias
 
 
 def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
@@ -73,17 +107,34 @@ def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                 rounds=(rms(got - w @ vf) / (u * r)).item())
 
 
+class _MaskedAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, bias, scale)
+        if q.device.type != "cuda":
+            raise ValueError(f"masked_attention: unsupported device "
+                             f"{q.device}")
+        return _launch(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = attention_backward_plain(*ctx.saved_tensors, ctx.scale, g)
+        return tuple(d if need else None for d, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float) -> torch.Tensor:
     """q: (nq, d); k, v: (nk, d); bias: (nk,) float32 → (nq, d) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``masked_attention.launches``) or raise."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_attention: unsupported device {q.device}")
-    return _launch(q, k, v, bias, scale)
+    count the launch in ``masked_attention.launches``) or raise.  Gradients
+    reach q, k, v and bias through ``attention_backward_plain``."""
+    return _MaskedAttention.apply(q, k, v, bias, scale)
 
 
 masked_attention.launches = 0

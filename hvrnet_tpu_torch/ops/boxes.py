@@ -8,6 +8,41 @@ import numpy as np
 import torch
 
 
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means: Sequence[float] = (0., 0., 0., 0.),
+               stds: Sequence[float] = (1., 1., 1., 1.)) -> torch.Tensor:
+    """Encode (N, 4) gt boxes relative to (N, 4) proposals."""
+    proposals = proposals.float()
+    gt = gt.float()
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0] + 1.0
+    ph = proposals[..., 3] - proposals[..., 1] + 1.0
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1.0
+    gh = gt[..., 3] - gt[..., 1] + 1.0
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
+    means = torch.tensor(means, dtype=torch.float32, device=deltas.device)
+    stds = torch.tensor(stds, dtype=torch.float32, device=deltas.device)
+    return (deltas - means) / stds
+
+
+def bbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (M, 4) and (N, 4) boxes → (M, N)."""
+    b1 = bboxes1.float()
+    b2 = bboxes2.float()
+    lt = torch.maximum(b1[:, None, :2], b2[None, :, :2])
+    rb = torch.minimum(b1[:, None, 2:4], b2[None, :, 2:4])
+    wh = (rb - lt + 1.0).clamp_min(0.0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area1 = (b1[:, 2] - b1[:, 0] + 1.0) * (b1[:, 3] - b1[:, 1] + 1.0)
+    area2 = (b2[:, 2] - b2[:, 0] + 1.0) * (b2[:, 3] - b2[:, 1] + 1.0)
+    union = area1[:, None] + area2[None, :] - overlap
+    return overlap / union.clamp_min(1e-10)
+
+
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
                means: Sequence[float] = (0., 0., 0., 0.),
                stds: Sequence[float] = (1., 1., 1., 1.),

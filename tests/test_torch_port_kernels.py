@@ -94,6 +94,46 @@ def test_attention_kernel_is_deterministic(dtype):
     assert torch.equal(first, call.out)
 
 
+# the HRNMP head's training calls: NL1 over a video's 3 × 128 RoIs, and
+# NL2/NL3 from its key frame's 128
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nk", [(384, 384), (128, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_function_gradients_on_the_card(nq, nk, dtype):
+    """``masked_attention`` under autograd: the kernel forward (one launch)
+    and ``attention_backward_plain``.  f32: output within 1e-5 of max|plain|
+    and dq/dk/dv within 1e-4 of the plain version's max |grad| under
+    autograd; bf16: the output within ``bf16_agreement``'s limits and the
+    gradients those of ``attention_backward_plain`` on the same inputs."""
+    _card()
+    from hvrnet_tpu_torch.ops.attention import attention_backward_plain
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(nq)
+    q, k, v, bias = _inputs(rng, nq, nk, 1024, "partial")
+    bias = torch.where(torch.from_numpy(rng.random(nk) < 0.1).cuda(),
+                       NEG_INF, 0.0).float()
+    g = torch.from_numpy(rng.normal(size=(nq, 1024)).astype(np.float32)).cuda()
+    ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+    before = masked_attention.launches
+    got = masked_attention(*ins, bias, 1 / 32.)
+    assert masked_attention.launches == before + 1
+    got.backward(g)
+    if dt == torch.float32:
+        ref = [t.detach().clone().requires_grad_() for t in ins]
+        want = attention_plain(*ref, bias, 1 / 32.)
+        want.backward(g)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        for a, b in zip(ins, ref):
+            assert (a.grad - b.grad).abs().max() <= 1e-4 * b.grad.abs().max()
+    else:
+        _assert_bf16_agrees(got.detach(), *[t.detach() for t in ins], bias,
+                            1 / 32., False)
+        want = attention_backward_plain(*[t.detach() for t in ins], bias,
+                                        1 / 32., g)
+        for a, b in zip(ins, want):
+            assert a.grad.dtype == dt and torch.equal(a.grad, b)
+
+
 def _assert_bf16_agrees(got, q, k, v, bias, scale, all_masked):
     a = bf16_agreement(got, q, k, v, bias, scale)
     assert a["worst"] <= 1 and a["rms"] <= 1, a
