@@ -26,14 +26,30 @@ stops the script with a non-zero exit:
    the kernel against the same head with the plain attention.
 5. ``[stream]``: the streaming ring at T=21 (speculative, in-step repair,
    forced rollback) and both rings at T=63, with stage times.
-6. ``[train]``: HVRNet training at the config's full width (27 frames = 9
+6. ``[selsa]``: SELSA (``configs/faster_rcnn_r101_selsa_c5.py``, R101-C5,
+   T = 21, key_dim 10, 300 proposals, f32, seeded random weights,
+   frozen-BN calibration on the first frame) through the same runner over
+   the same video: 2 kernel launches per detection, the window head's
+   logits with the kernel against the plain attention, the head and
+   decode stages alone.
+7. ``[train]``: HVRNet training at the config's full width (27 frames = 9
    videos × 3, 3 chosen videos, 128 RoIs per frame, 608×1008, f32) with
    seeded random weights and frozen-BN calibration on the first batch:
    the kernel under autograd at the training shapes against the plain
    version, then ``train_detector`` for 2 + 5 steps on a synthetic batch
    with a stage split per step, the launch count zeroed before and read
    after, frozen tensors checked bit for bit, and a checkpoint resumed.
-7. One JSON line of per-kernel numbers, then the result line.
+8. ``[selsa-train]``: SELSA training at the config's full width (3 frames
+   of 600×1000 on 608×1008, 300 RoIs per frame, OHEM 128, f32): the kernel
+   under autograd at 900×384 and 300×384, then ``train_detector`` for 2 +
+   5 steps with the backbone (from ``layer2``) and the RPN training, a
+   stage split, 2 launches per step, frozen tensors bit for bit and every
+   trainable one moved.
+9. One JSON line of per-kernel numbers, then the result line.
+
+Every path runs at full width and depth, the SELSA ones included; the
+whole script, kernel builds included, took about 90 s on an H100 80GB
+HBM3.
 
 Exits non-zero without a result when no CUDA device is present, or when the
 ``hvrnet_tpu_torch`` package is not beside this file.
@@ -73,6 +89,15 @@ TRAIN_GT_MAX = 32         # collate_train's ground-truth slots
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 TRAIN_STAGES = ("backbone", "selection", "proposals", "head", "backward",
                 "optimizer")
+SELSA_CONFIG = ROOT / "configs" / "faster_rcnn_r101_selsa_c5.py"
+# SELSA's head calls: at test time NL1 over the window's 21 × 300 rows and
+# NL2 from the key frame's 300 (the 6300² and 300×6300 of ATTN_SHAPES); in
+# training NL1 over 3 × 300 RoIs against the first 384 (sampler_num 128 ×
+# t_dim 3) and NL2 from the key frame's 300
+SELSA_TRAIN_SHAPES = ((900, 384, "selsa train NL1"),
+                      (300, 384, "selsa train NL2"))
+SELSA_TRAIN_STAGES = ("backbone", "rpn", "proposals", "head", "backward",
+                      "optimizer")
 
 
 def log(*args):
@@ -628,17 +653,18 @@ def stage_times(torch, np, engine, feats, fc1, valid, head_out):
             log(f"[stages] {name}: {cuda_ms(torch, fn, iters=3, warmup=1):.3f} ms")
 
 
-def train_attention(torch):
-    """The kernel under autograd at the training shapes, f32 with 10 % of
-    the keys masked: its forward (and ``attention_backward_plain``) against
-    the plain version differentiated by autograd, then its times."""
+def train_attention(torch, shapes=TRAIN_SHAPES, tag="[train]"):
+    """The kernel under autograd at the training ``shapes``, f32 with 10 %
+    of the keys masked: its forward (and ``attention_backward_plain``)
+    against the plain version differentiated by autograd, then its
+    times."""
     import torch.nn.functional as F
     from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
                                                 masked_attention, plan)
     gen = torch.Generator(device="cuda").manual_seed(1)
     scale = D ** -0.5
     cases = []
-    for nq, nk, label in TRAIN_SHAPES:
+    for nq, nk, label in shapes:
         q, k, v = (torch.randn(n, D, device="cuda", generator=gen)
                    for n in (nq, nk, nk))
         bias = torch.where(torch.rand(nk, device="cuda", generator=gen)
@@ -662,7 +688,7 @@ def train_attention(torch):
                         got, masked_attention(q, k, v, bias, scale))))
         case.update(attention_times(torch, F, plan, attention_plain,
                                     masked_attention, q, k, v, bias, scale))
-        log("[train] attention " + json.dumps(case))
+        log(f"{tag} attention " + json.dumps(case))
         if not (rel <= 1e-5 and grad_rel <= 1e-4 and case["bitwise_repeat"]
                 and bool(torch.isfinite(got).all())):
             raise RuntimeError(f"masked_attention under autograd disagrees "
@@ -671,21 +697,21 @@ def train_attention(torch):
     return cases
 
 
-def synthetic_train_batch(np, seed=0):
+def synthetic_train_batch(np, seed=0, videos=TRAIN_VIDEOS):
     """A ``collate_train`` batch as the triplet loader lays it out: 27
     frames, 9 videos × 3, of 600×1000 smooth random content panning on the
     608×1008 canvas, normalised float32 NHWC; 1-4 ground-truth boxes per
     video drifting across its frames; videos 0-2 of one class, 3-5 and 6-8
-    of two others."""
+    of two others.  ``videos=1``: SELSA's 3 frames of one video."""
     rng = np.random.default_rng(seed)
-    F = TRAIN_VIDEOS * TRAIN_IPV
+    F = videos * TRAIN_IPV
     mean = np.array([103.06, 115.90, 123.15], np.float32)
     imgs = np.zeros((F,) + CANVAS + (3,), np.float32)
     gt_bboxes = np.zeros((F, TRAIN_GT_MAX, 4), np.float32)
     gt_labels = np.zeros((F, TRAIN_GT_MAX), np.int64)
     gt_mask = np.zeros((F, TRAIN_GT_MAX), bool)
     classes = rng.choice(np.arange(1, 31), 3, replace=False)
-    for v in range(TRAIN_VIDEOS):
+    for v in range(videos):
         scene = rng.integers(0, 256, size=(48, 80, 3), dtype=np.uint8)
         scene = np.repeat(np.repeat(scene, 16, axis=0), 16, axis=1)
         n = int(rng.integers(1, 5))
@@ -711,50 +737,103 @@ def synthetic_train_batch(np, seed=0):
 class StepTimer(PhaseTimer):
     """PhaseTimer that also reads each training step's peak device memory
     (the allocator's host-side count: no synchronisation), from the first
-    stage of a step to the end of its last."""
+    of a step's ``stages`` to the end of its last."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, stages):
         super().__init__(torch)
+        self.stages = stages
         self.peaks = []
 
     @contextlib.contextmanager
     def phase(self, name):
-        if name == TRAIN_STAGES[0]:
+        if name == self.stages[0]:
             self.torch.cuda.reset_peak_memory_stats()
         with super().phase(name):
             yield
-        if name == TRAIN_STAGES[-1]:
+        if name == self.stages[-1]:
             self.peaks.append(self.torch.cuda.max_memory_allocated() / 2**30)
 
 
-def phase_train(torch, np):
-    """HVRNet training at full width through ``train_detector``: 2 warmup
-    and 5 timed steps with a stage split, the launch count, frozen tensors
-    bitwise unchanged, trainable ones moved, and a bitwise resume."""
-    import shutil
-    from hvrnet_tpu_torch.apis import train_detector
-    from hvrnet_tpu_torch.engine import HNMBRCNN
+def phase_selsa(torch, np):
+    """SELSA (``configs/faster_rcnn_r101_selsa_c5.py``: R101-C5, T = 21,
+    key_dim 10, 300 proposals, f32) with seeded random weights and
+    frozen-BN statistics calibrated on the first frame, through
+    ``SlidingWindowRunner`` over the synthetic video: 2 kernel launches
+    per detection (NL1 6300², NL2 300×6300), the window head's logits with
+    the kernel against the same head with the plain attention, and the
+    head and decode stages alone."""
+    from hvrnet_tpu_torch.engine import SelsaRCNN
     from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
-    from hvrnet_tpu_torch.ops.attention import masked_attention
-    from hvrnet_tpu_torch.utils.config import Config
-    cfg = Config.fromfile(str(CONFIG)).as_dict()
-    work_dir = ROOT / "build" / "chip_smoke_train"
-    shutil.rmtree(work_dir, ignore_errors=True)
+    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
+    from hvrnet_tpu_torch.models.bbox_heads.bbox_head import get_det_bboxes
+    from hvrnet_tpu_torch.ops.attention import (attention_plain,
+                                                masked_attention)
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    cfg = Config.fromfile(str(SELSA_CONFIG))
     t0 = time.time()
-    engine = HNMBRCNN(cfg["model"], train_cfg=cfg["train_cfg"],
-                      device="cuda", seed=0)
-    batch = synthetic_train_batch(np)
-    n_bn = calibrate_frozen_bn(engine, [
-        dict(img=batch["imgs"][f:f + 1], img_shape=batch["img_shape"][f])
-        for f in range(4)])
+    engine = SelsaRCNN(unwrap(cfg.model), unwrap(cfg.test_cfg),
+                       device="cuda", seed=0)
+    n_bn = calibrate_frozen_bn(engine, [next(synthetic_video(np, 1))])
     torch.cuda.synchronize()
-    bh = engine.model.bbox_head
-    log(f"[train] HNMBRCNN R101-C5 training engine in {time.time() - t0:.1f}"
-        f" s (seeded random weights, {n_bn} frozen BNs calibrated on the "
-        f"first batch): {len(batch['imgs'])} frames, sampler_num "
-        f"{bh.sampler_num}, t_dim {bh.t_dim}, canvas {CANVAS}")
-    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
-    timer = StepTimer(torch)
+    bh = engine.model_cfg["bbox_head"]
+    log(f"[build] SelsaRCNN R101-C5 in {time.time() - t0:.1f} s (seeded "
+        f"random weights, {n_bn} frozen BNs calibrated): window "
+        f"{engine.window}, t_dim {bh['t_dim']}, key_dim {engine.key_dim}, "
+        f"{engine.proposal_num} proposals/frame")
+    run = run_video(torch, np, engine, "[selsa]")
+    if run["launches"] != 2 * run["detections"]:
+        raise RuntimeError("the SELSA path did not run the attention kernel "
+                           "2 times per detection")
+
+    # the window head on a full window, with the kernel and with the plain
+    # attention (these launches are not part of the counts above)
+    feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
+             for f in synthetic_video(np, engine.window, seed=1)]
+    fc1 = torch.cat([f["fc1"] for f in feats])
+    valid = torch.cat([f["mask"] for f in feats])
+    kd, P = engine.key_dim, engine.proposal_num
+    head = engine.model.bbox_head
+    with torch.no_grad():
+        got = head.forward_fc1(fc1, kd * P, P, valid)
+        selsa_bbox_head.masked_attention = attention_plain
+        try:
+            want = head.forward_fc1(fc1, kd * P, P, valid)
+        finally:
+            selsa_bbox_head.masked_attention = masked_attention
+        worst = logit_err(([got[0]], [got[1]]), ([want[0]], [want[1]]))
+        log(f"[selsa] window head logits, kernel vs plain attention: max "
+            f"|Δ|/max(|ref|, 1) = {worst:.3g} (limit 1e-4)")
+        if not worst <= 1e-4:
+            raise RuntimeError("SELSA window head with the kernel disagrees "
+                               "with the plain attention")
+        frame = next(synthetic_video(np, 1, seed=2))
+        run["head_ms"] = cuda_ms(torch, lambda: head.forward_fc1(
+            fc1, kd * P, P, valid), iters=3, warmup=1)
+        run["decode_ms"] = cuda_ms(torch, lambda: get_det_bboxes(
+            feats[kd]["boxes"], got[0], got[1], frame["img_shape"],
+            frame["scale_factor"], engine.target_means, engine.target_stds,
+            rescale=True, cfg=engine.test_cfg["rcnn"],
+            valid=feats[kd]["mask"]), iters=3, warmup=1)
+    log(f"[selsa] T={engine.window} window step {run['step_ms']:.3f} "
+        f"ms/detection; stages alone: window head (NL1, NL2, fcs) "
+        f"{run['head_ms']:.3f} ms, decode + class-wise NMS "
+        f"{run['decode_ms']:.3f} ms; peak device memory over the video "
+        f"{run['peak_gib']:.2f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return run
+
+
+def timed_training(torch, np, engine, batch, cfg, work_dir, stages, tag,
+                   launches_per_step):
+    """``train_detector`` for TRAIN_WARMUP + TRAIN_TIMED steps on
+    ``batch`` with the kernel's launch count set to 0 just before and read
+    just after: per-step stage times (CUDA events), peak memory and
+    losses, the mean over the timed steps, finite losses and
+    ``launches_per_step`` launches checked.  Returns (trainer, summary)."""
+    from hvrnet_tpu_torch.apis import train_detector
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    timer = StepTimer(torch, stages)
     steps = TRAIN_WARMUP + TRAIN_TIMED
     torch.cuda.synchronize()
     masked_attention.launches = 0
@@ -769,22 +848,22 @@ def phase_train(torch, np):
     logs = [json.loads(line) for line in
             (work_dir / "train_log.jsonl").read_text().splitlines()]
     spans = timer.spans
-    step_ms = [spans["backbone"][i][0].elapsed_time(spans["optimizer"][i][1])
+    step_ms = [spans[stages[0]][i][0].elapsed_time(spans[stages[-1]][i][1])
                for i in range(steps)]
     for i, (ms, gib, lg) in enumerate(zip(step_ms, timer.peaks, logs)):
-        stages = {name: spans[name][i][0].elapsed_time(spans[name][i][1])
-                  for name in TRAIN_STAGES}
-        tag = "warmup" if i < TRAIN_WARMUP else "timed"
-        log(f"[train] step {i} ({tag}) {ms:.3f} ms (CUDA events), peak "
+        times = {name: spans[name][i][0].elapsed_time(spans[name][i][1])
+                 for name in stages}
+        kind = "warmup" if i < TRAIN_WARMUP else "timed"
+        log(f"{tag} step {i} ({kind}) {ms:.3f} ms (CUDA events), peak "
             f"device memory {gib:.2f} GiB; stages ms "
-            + json.dumps({k: round(v, 3) for k, v in stages.items()})
+            + json.dumps({k: round(v, 3) for k, v in times.items()})
             + "; losses " + json.dumps(
                 {k: lg[k] for k in lg if k.startswith(("loss", "acc"))}))
     timed = slice(TRAIN_WARMUP, steps)
     mean = {name: sum(a.elapsed_time(b) for a, b in spans[name][timed])
-            / TRAIN_TIMED for name in TRAIN_STAGES}
+            / TRAIN_TIMED for name in stages}
     step_mean = sum(step_ms[timed]) / TRAIN_TIMED
-    log(f"[train] {TRAIN_TIMED} timed steps: {step_mean:.3f} ms/step; "
+    log(f"{tag} {TRAIN_TIMED} timed steps: {step_mean:.3f} ms/step; "
         f"stages ms " + json.dumps({k: round(v, 3) for k, v in mean.items()})
         + f"; peak device memory {peak:.2f} GiB; kernel launches {launches}"
         f" over {steps} steps; {steps / wall:.3f} steps/s wall")
@@ -792,14 +871,58 @@ def phase_train(torch, np):
            if not all(np.isfinite(v) for k, v in lg.items()
                       if k.startswith(("loss", "acc")))]
     if len(logs) != steps or bad:
-        raise RuntimeError(f"training logged {len(logs)} steps, non-finite "
+        raise RuntimeError(f"{tag} logged {len(logs)} steps, non-finite "
                            f"losses in {bad}")
-    if launches != 9 * steps:
-        raise RuntimeError(f"training launched the kernel {launches} times, "
-                           f"not 9 per step over {steps} steps")
-    check_train_weights(torch, engine, before)
+    if launches != launches_per_step * steps:
+        raise RuntimeError(f"{tag} launched the kernel {launches} times, "
+                           f"not {launches_per_step} per step over {steps} "
+                           "steps")
+    return trainer, dict(launches=launches, step_ms=step_mean,
+                         stages_ms=mean, peak_gib=peak)
+
+
+def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
+    """A training engine on seeded random weights with its frozen BNs
+    calibrated on the batch's first (up to) four frames."""
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    t0 = time.time()
+    engine = engine_cls(cfg["model"], train_cfg=cfg["train_cfg"],
+                        device="cuda", seed=0)
+    n_bn = calibrate_frozen_bn(engine, [
+        dict(img=batch["imgs"][f:f + 1], img_shape=batch["img_shape"][f])
+        for f in range(min(4, len(batch["imgs"])))])
+    torch.cuda.synchronize()
+    bh = engine.model.bbox_head
+    log(f"{tag} {engine_cls.__name__} R101-C5 training engine in "
+        f"{time.time() - t0:.1f} s (seeded random weights, {n_bn} frozen "
+        f"BNs calibrated on the first batch): {len(batch['imgs'])} frames, "
+        f"head sampler_num {bh.sampler_num}, t_dim {bh.t_dim}, canvas "
+        f"{CANVAS}")
+    return engine
+
+
+def phase_train(torch, np):
+    """HVRNet training at full width through ``train_detector``: 2 warmup
+    and 5 timed steps with a stage split, the launch count, frozen tensors
+    bitwise unchanged, trainable ones moved, and a bitwise resume."""
+    import shutil
+    from hvrnet_tpu_torch.apis import train_detector
+    from hvrnet_tpu_torch.engine import HNMBRCNN
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(CONFIG)).as_dict()
+    work_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    batch = synthetic_train_batch(np)
+    engine = calibrated_training_engine(torch, HNMBRCNN, cfg, batch,
+                                        "[train]")
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    trainer, summary = timed_training(torch, np, engine, batch, cfg,
+                                      work_dir, TRAIN_STAGES, "[train]", 9)
+    check_train_weights(torch, engine, before, "[train]",
+                        ("shared_head.", "bbox_head."))
 
     # a resume from the checkpoint restores the step and the weights
+    steps = TRAIN_WARMUP + TRAIN_TIMED
     resumed = HNMBRCNN(cfg["model"], train_cfg=cfg["train_cfg"],
                        device="cuda", seed=1)
     again = train_detector(resumed, [batch], cfg, str(work_dir),
@@ -818,15 +941,42 @@ def phase_train(torch, np):
     shutil.rmtree(work_dir, ignore_errors=True)
     del engine, resumed, trainer, again
     torch.cuda.empty_cache()
-    return dict(launches=launches, step_ms=step_mean, stages_ms=mean,
-                peak_gib=peak)
+    return summary
 
 
-def check_train_weights(torch, engine, before):
-    """Backbone, RPN and every frozen-BN tensor (the model's buffers) bit
-    for bit as before; every trainable tensor moved, except the key
-    projections' biases, whose gradient is 0 (a constant per softmax row)
-    and whose decay of 0 is 0."""
+def phase_selsa_train(torch, np):
+    """SELSA training at the config's full width through
+    ``train_detector``: 3 frames of one video, 300 RoIs per frame, OHEM
+    128, the backbone from ``layer2``, the RPN, the shared head and the
+    SELSA head trained; 2 warmup and 5 timed steps with a stage split, 2
+    launches per step, frozen tensors bitwise unchanged and every
+    trainable one moved."""
+    import shutil
+    from hvrnet_tpu_torch.engine import SelsaRCNN
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(SELSA_CONFIG)).as_dict()
+    work_dir = ROOT / "build" / "chip_smoke_selsa_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    batch = synthetic_train_batch(np, seed=1, videos=1)
+    engine = calibrated_training_engine(torch, SelsaRCNN, cfg, batch,
+                                        "[selsa-train]")
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    _, summary = timed_training(torch, np, engine, batch, cfg, work_dir,
+                                SELSA_TRAIN_STAGES, "[selsa-train]", 2)
+    check_train_weights(torch, engine, before, "[selsa-train]",
+                        ("backbone.layer2.", "backbone.layer3.",
+                         "rpn_head.", "shared_head.", "bbox_head."))
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def check_train_weights(torch, engine, before, tag, trained):
+    """Every tensor outside the ``trained`` prefixes (the frozen stages and
+    every frozen-BN buffer) bit for bit as before; every trainable tensor
+    moved, except the key projections' biases, whose gradient is 0 (a
+    constant per softmax row) and whose decay of 0 is 0."""
     params = dict(engine.model.named_parameters())
     frozen_moved, still = [], []
     for name, t in engine.model.state_dict().items():
@@ -837,14 +987,15 @@ def check_train_weights(torch, engine, before):
                 ".k_data_fc_" in name and name.endswith(".bias")):
             still.append(name)
     n_train = sum(p.requires_grad for p in params.values())
-    log(f"[train] {len(before) - n_train} frozen tensors (backbone, RPN, "
-        f"frozen BNs) bitwise unchanged: {not frozen_moved}; {n_train} "
-        f"trainable tensors (shared head, HRNMP head) moved: {not still}")
+    log(f"{tag} {len(before) - n_train} frozen tensors bitwise unchanged: "
+        f"{not frozen_moved}; {n_train} trainable tensors "
+        f"({', '.join(p.rstrip('.') for p in trained)}) moved: {not still}")
     if frozen_moved or still or any(
-            not n.startswith(("shared_head.", "bbox_head."))
-            for n, p in params.items() if p.requires_grad):
-        raise RuntimeError(f"training moved frozen tensors {frozen_moved} "
-                           f"or left trainable ones {still}")
+            p.requires_grad != n.startswith(trained)
+            for n, p in params.items()):
+        raise RuntimeError(f"{tag} moved frozen tensors {frozen_moved} or "
+                           f"left trainable ones {still}, or trains another "
+                           "set than its prefixes")
 
 
 def kernel_summary(cases, runs):
@@ -886,13 +1037,23 @@ def kernel_summary(cases, runs):
             calls * f32[label][key] for calls, (*_, label) in
             zip((1, 2), TRAIN_SHAPES))
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        per_frame_selsa={key: per_frame(lambda c: c[key]) / 2
+                         for key in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms")},
+        per_step_selsa_train={key: sum(f32[label][key] for *_, label in
+                                       SELSA_TRAIN_SHAPES)
+                              for key in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")},
         unit="per detected frame of the exact ring at T=21: 2 calls at "
              "6300x6300 + 2 at 300x6300, d 1024, float32 (3xTF32 bound); "
              "per_frame_t63 the same at 18900x18900 and 300x18900; "
              "per_step_train one training step's 9 calls: per chosen "
-             "video 1 at 384x384 and 2 at 128x384; launches summed over "
-             "the paths in launches_by_path, each counted from 0 over its "
-             "run (30 frames; train: the 2 + 5 steps)",
+             "video 1 at 384x384 and 2 at 128x384; per_frame_selsa one "
+             "SELSA detection's 2 calls, 6300x6300 and 300x6300; "
+             "per_step_selsa_train one SELSA training step's 2 calls, "
+             "900x384 and 300x384; launches summed over the paths in "
+             "launches_by_path, each counted from 0 over its run (30 "
+             "frames; train: the 2 + 5 steps)",
         cases=cases)]}
 
 
@@ -915,12 +1076,16 @@ def main() -> int:
     exact63, stream63 = phase_63(torch, np, engine)
     del engine
     torch.cuda.empty_cache()
+    selsa = phase_selsa(torch, np)
     cases += train_attention(torch)
     train = phase_train(torch, np)
+    cases += train_attention(torch, SELSA_TRAIN_SHAPES, "[selsa-train]")
+    selsa_train = phase_selsa_train(torch, np)
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
-            "stream T=63": stream63, "train": train}
+            "stream T=63": stream63, "selsa T=21": selsa, "train": train,
+            "selsa train": selsa_train}
     print(json.dumps(kernel_summary(cases, runs)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

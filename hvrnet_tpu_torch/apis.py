@@ -5,12 +5,14 @@
     train_detector(engine, batches, cfg, work_dir="work_dirs/hvrnet",
                    calibrate_bn=True)
 
-``batches`` yields ``collate_train`` batches (``hvrnet_tpu/engine/stream.py``
-format): ``imgs`` (F, H, W, 3) normalised float32 NHWC canvases,
-``gt_bboxes`` (F, G, 4), ``gt_labels`` (F, G), ``gt_mask`` (F, G),
-``img_shape`` and ``pad_shape`` (F, 2); for HVRNet F = 27, 9 videos × 3
-frames with videos 0-2 of the key video's class.  The trainer moves them to
-the engine's device as NCHW.
+The engine's type picks the trainer: ``HNMBRCNN`` → ``HNMBTrainer``,
+``SelsaRCNN`` → ``SelsaTrainer``.  ``batches`` yields ``collate_train``
+batches (``hvrnet_tpu/engine/stream.py`` format): ``imgs`` (F, H, W, 3)
+normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
+(F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
+HVRNet F = 27, 9 videos × 3 frames with videos 0-2 of the key video's
+class; for SELSA F = 3 frames of one video.  The trainer moves them to the
+engine's device as NCHW.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import time
 from typing import Any, Dict, Iterable, Iterator, Optional
 
 from .engine.calibrate import calibrate_frozen_bn
-from .engine.detector import HNMBRCNN
-from .engine.train import HNMBTrainer
+from .engine.detector import HNMBRCNN, SelsaRCNN
+from .engine.train import HNMBTrainer, SelsaTrainer
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 logger = logging.getLogger("hvrnet_tpu_torch")
@@ -61,12 +63,16 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
     the stand-in for pretrained statistics when the weights are random.
     ``timer``: an object whose ``phase(name)`` context wraps each stage of a
     step.  Returns the trainer."""
-    if not isinstance(engine, HNMBRCNN):
+    if isinstance(engine, HNMBRCNN):
+        trainer_cls = HNMBTrainer
+    elif isinstance(engine, SelsaRCNN):
+        trainer_cls = SelsaTrainer
+    else:
         raise NotImplementedError(f"no port trainer for "
                                   f"{type(engine).__name__}")
     os.makedirs(work_dir, exist_ok=True)
     steps_per_epoch = steps_per_epoch or len(batches)
-    trainer = HNMBTrainer(engine, cfg, steps_per_epoch, seed)
+    trainer = trainer_cls(engine, cfg, steps_per_epoch, seed)
     trainer.timer = timer
     if load_from:
         missing, unexpected = engine.model.load_state_dict(

@@ -1,8 +1,9 @@
-"""RoI assignment, sampling and targets (counterpart of
+"""RoI and anchor assignment, sampling and targets (counterpart of
 ``hvrnet_tpu/core/targets.py``): mmdet's ``MaxIoUAssigner`` →
 ``RandomSampler(add_gt_as_proposals)`` → ``bbox_target`` chain with fixed
 shapes, validity masks for padded boxes and ground truths, and positives in
-the leading slots.
+the leading slots; the RPN's ``anchor_target`` over the whole anchor grid;
+and the OHEM re-weighting of a sampled RoI set to its hardest members.
 
 Random subsets use uniform priorities: eligible items get iid U(0, 1)
 noise and the top k win.  The JAX package draws that noise from
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops.boxes import bbox2delta, bbox_overlaps
@@ -68,6 +70,26 @@ def max_iou_assign(bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
     return AssignResult(assigned, max_overlaps, labels.long())
 
 
+def _noise(pos_noise, neg_noise, n, generator, device, who):
+    """The two U(0, 1) priority vectors, drawn from ``generator`` where the
+    caller gave none."""
+    if generator is None and (pos_noise is None or neg_noise is None):
+        raise ValueError(f"{who} draws its noise from an explicit "
+                         "torch.Generator: pass generator= or both noise "
+                         "vectors")
+    if pos_noise is None:
+        pos_noise = torch.rand(n, generator=generator, device=device)
+    if neg_noise is None:
+        neg_noise = torch.rand(n, generator=generator, device=device)
+    return pos_noise.float(), neg_noise.float()
+
+
+def _rank(priority: torch.Tensor) -> torch.Tensor:
+    """Each item's place in descending order, ties to the lower index
+    (``jnp.argsort(jnp.argsort(-priority))``)."""
+    return torch.argsort(torch.argsort(-priority, stable=True), stable=True)
+
+
 class SampleResult(NamedTuple):
     rois: torch.Tensor           # (num, 4) sampled boxes
     labels: torch.Tensor         # (num,) int64 gt label (0 = background)
@@ -109,26 +131,17 @@ def random_sample_and_target(proposals: torch.Tensor,
     ar = max_iou_assign(cand, gt_bboxes, gt_mask, gt_labels, pos_iou_thr,
                         neg_iou_thr, min_pos_iou, box_mask=cand_mask)
 
-    n = cand.shape[0]
-    dev = cand.device
-    if generator is None and (pos_noise is None or neg_noise is None):
-        raise ValueError("random_sample_and_target draws its noise from an "
-                         "explicit torch.Generator: pass generator= or both "
-                         "noise vectors")
-    if pos_noise is None:
-        pos_noise = torch.rand(n, generator=generator, device=dev)
-    if neg_noise is None:
-        neg_noise = torch.rand(n, generator=generator, device=dev)
+    pos_noise, neg_noise = _noise(pos_noise, neg_noise, cand.shape[0],
+                                  generator, cand.device,
+                                  "random_sample_and_target")
     k_pos = int(num * pos_fraction)
     eligible_pos = ar.gt_inds > 0
     # rank positives by their noise; the first k_pos win
-    pos_noise = torch.where(eligible_pos, pos_noise.float(), NEG_INF)
-    pos_rank = torch.argsort(torch.argsort(-pos_noise, stable=True))
-    chosen_pos = eligible_pos & (pos_rank < k_pos)
+    pos_noise = torch.where(eligible_pos, pos_noise, NEG_INF)
+    chosen_pos = eligible_pos & (_rank(pos_noise) < k_pos)
     # chosen positives first, then random negatives
     score = torch.where(chosen_pos, 2.0 + pos_noise,
-                        torch.where(ar.gt_inds == 0, neg_noise.float(),
-                                    NEG_INF))
+                        torch.where(ar.gt_inds == 0, neg_noise, NEG_INF))
     top = torch.sort(score, descending=True, stable=True)
     vals, idx = top.values[:num], top.indices[:num]
     valid = vals > NEG_INF / 2
@@ -145,3 +158,92 @@ def random_sample_and_target(proposals: torch.Tensor,
     bbox_weights = pos_sel[:, None].float().expand(-1, 4).contiguous()
     return SampleResult(rois, labels, label_weights, bbox_targets,
                         bbox_weights, valid, pos_sel, gi)
+
+
+class AnchorTargets(NamedTuple):
+    labels: torch.Tensor         # (A,) int64: 1 sampled positive, else 0
+    label_weights: torch.Tensor  # (A,) float32
+    bbox_targets: torch.Tensor   # (A, 4)
+    bbox_weights: torch.Tensor   # (A, 4)
+    num_total_samples: torch.Tensor  # () float32
+
+
+def anchor_target_single(anchors: torch.Tensor, valid_flags: torch.Tensor,
+                         gt_bboxes: torch.Tensor, gt_mask: torch.Tensor,
+                         img_shape, cfg: dict,
+                         target_means=(0., 0., 0., 0.),
+                         target_stds=(1., 1., 1., 1.),
+                         pos_noise: Optional[torch.Tensor] = None,
+                         neg_noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> AnchorTargets:
+    """The RPN's targets for one image over the whole (A, 4) anchor grid
+    (mmdet ``anchor_target_single`` after its ``unmap``): anchors inside the
+    image (``valid_flags`` and ``allowed_border``) are assigned by max IoU
+    (``cfg.assigner``), and ``cfg.sampler.num`` of them sampled, at most
+    ``num·pos_fraction`` positives and negatives filling the rest.
+    ``pos_noise`` / ``neg_noise``: (A,) U(0, 1) priorities, drawn from
+    ``generator`` when absent."""
+    border = float(cfg.get("allowed_border", 0))
+    h, w = (float(np.float32(x)) for x in (img_shape[0], img_shape[1]))
+    inside = valid_flags
+    if border >= 0:
+        inside = (valid_flags & (anchors[:, 0] >= -border)
+                  & (anchors[:, 1] >= -border)
+                  & (anchors[:, 2] < w + border)
+                  & (anchors[:, 3] < h + border))
+    acfg = cfg["assigner"]
+    ar = max_iou_assign(anchors, gt_bboxes, gt_mask, None,
+                        float(acfg["pos_iou_thr"]), float(acfg["neg_iou_thr"]),
+                        float(acfg["min_pos_iou"]), box_mask=inside)
+    scfg = cfg["sampler"]
+    num = int(scfg["num"])
+    k_pos = int(num * float(scfg["pos_fraction"]))
+    pos_noise, neg_noise = _noise(pos_noise, neg_noise, anchors.shape[0],
+                                  generator, anchors.device,
+                                  "anchor_target_single")
+    eligible_pos = ar.gt_inds > 0
+    chosen_pos = eligible_pos & (
+        _rank(torch.where(eligible_pos, pos_noise, NEG_INF)) < k_pos)
+    n_pos = chosen_pos.sum()
+    eligible_neg = ar.gt_inds == 0
+    chosen_neg = eligible_neg & (
+        _rank(torch.where(eligible_neg, neg_noise, NEG_INF)) < num - n_pos)
+    n_neg = chosen_neg.sum()
+
+    gi = (ar.gt_inds - 1).clamp_min(0)
+    pos_weight = float(cfg.get("pos_weight", -1))
+    pw = 1.0 if pos_weight <= 0 else pos_weight
+    label_weights = torch.where(chosen_pos, pw, chosen_neg.float())
+    t = bbox2delta(anchors, gt_bboxes[gi][:, :4], target_means, target_stds)
+    bbox_targets = torch.where(chosen_pos[:, None], t, 0.0)
+    bbox_weights = chosen_pos[:, None].float().expand(-1, 4).contiguous()
+    num_total = (n_pos.clamp_min(1) + n_neg.clamp_min(1)).float()
+    return AnchorTargets(chosen_pos.long(), label_weights, bbox_targets,
+                         bbox_weights, num_total)
+
+
+def ohem_weights(labels: torch.Tensor, loss_per_roi: torch.Tensor,
+                 valid: torch.Tensor, num: int, pos_fraction: float):
+    """``OHEMHNLSampler.get_ohem_weights``: re-weight a sampled RoI set to
+    its ``num`` hardest members by ``loss_per_roi`` (detached), at most
+    ``num·pos_fraction`` positives and negatives filling the rest, ties to
+    the lower index.  Returns (label_weights (N,), bbox_weights (N, 4),
+    selected, positive selected); the reference also takes the sampler's
+    weights, which it only replaces."""
+    loss = loss_per_roi.detach().float()
+    k_pos = int(num * pos_fraction)
+    pos_elig = (labels > 0) & valid
+    neg_elig = (labels == 0) & valid
+    chosen_pos = pos_elig & (
+        _rank(torch.where(pos_elig, loss, NEG_INF)) < k_pos)
+    # float32 as in the reference: 1e9 + loss rounds, so the chosen
+    # positives tie among themselves and keep index order
+    score = torch.where(chosen_pos, 1e9 + loss,
+                        torch.where(neg_elig, loss, NEG_INF))
+    top = torch.sort(score, descending=True, stable=True)
+    sel = torch.zeros_like(labels, dtype=torch.bool)
+    sel[top.indices[:num]] = top.values[:num] > NEG_INF / 2
+    pos_sel = sel & chosen_pos
+    new_bw = pos_sel[:, None].float().expand(-1, 4).contiguous()
+    return sel.float(), new_bw, sel, pos_sel

@@ -1,13 +1,13 @@
-"""Detector engine for HVRNet inference (counterpart of
-``hvrnet_tpu/engine/detector.py``: ``BaseEngine`` frame program,
-``_RingMixin`` exact ring, ``HNMBRCNN`` single-pass window).
+"""Detector engines (counterpart of ``hvrnet_tpu/engine/detector.py``:
+``BaseEngine`` frame program, ``_RingMixin`` exact ring, ``SelsaRCNN`` and
+``HNMBRCNN`` single-pass windows).
 
 Per frame, ``frame_features`` runs once: backbone C4 → dilated C5 shared
 head → RPN → static-NMS proposals → RoIAlign → ``fc_new_1``.  Per-frame
 quantities do not depend on the window, so the window keeps only their
 (fc1, boxes, mask) caches.  ``ring_step`` pushes a frame into the ring and
-detects the window centre: the 4-block HRNMP head over all T·P cached rows,
-then class-wise NMS.
+detects the window centre: the relation head (SELSA's 2 blocks, HRNMP's 4)
+over all T·P cached rows, then class-wise NMS.
 
 The ring lives on the device as (T, …) tensors updated in place (the JAX
 package's pure version allocates a new ring per push); a detect reads it in
@@ -252,6 +252,43 @@ class _RingMixin:
         state = self.ring_push(state, feats)
         return state, self.ring_detect(state, img_shape, scale_factor,
                                        branch)
+
+
+@DETECTORS.register_module
+class SelsaRCNN(_RingMixin, BaseEngine):
+    """SELSA video detector: the 2-block SELSA head over the window's rows,
+    one prediction per detection (exact ring only)."""
+
+    stream = False     # SELSA has no streaming ring
+
+    def __init__(self, model_cfg, test_cfg=None, device="cuda",
+                 seed: int = 0, train_cfg=None):
+        super().__init__(model_cfg, test_cfg, device, seed, train_cfg)
+        if self.train_cfg is not None:
+            self.key_dim = int(self.train_cfg["rcnn"]["key_dim"])
+        else:
+            self.key_dim = int(
+                self.test_cfg["relation_setup"]["frame_interval"])
+        self.window = (2 * int(
+            self.test_cfg["relation_setup"]["frame_interval"]) + 1
+            if self.test_cfg else None)
+
+    @torch.no_grad()
+    @f32_precision()
+    def window_detect(self, fc1_stack, boxes, masks, img_shape, scale_factor,
+                      branch=None):
+        """fc1_stack: (T, P, D), boxes: (T, P, 4), masks: (T, P), oldest
+        frame first.  Decodes the centre frame ``key_dim``: (dets (max, 5),
+        labels (max,), mask (max,)) in original-image coords; ``branch`` is
+        ignored (one branch)."""
+        kd = self.key_dim
+        T, P = fc1_stack.shape[0], self.proposal_num
+        cls, reg = self.model.bbox_head.forward_fc1(
+            fc1_stack.reshape(T * P, -1), kd * P, P, masks.reshape(T * P))
+        return get_det_bboxes(boxes[kd], cls, reg, img_shape, scale_factor,
+                              self.target_means, self.target_stds,
+                              rescale=True, cfg=self.test_cfg["rcnn"],
+                              valid=masks[kd])
 
 
 @DETECTORS.register_module

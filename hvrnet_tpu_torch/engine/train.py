@@ -1,7 +1,23 @@
-"""HVRNet training step (counterpart of ``hvrnet_tpu/engine/train.py``:
-``BaseTrainer`` on one device in float32, and ``HNMBTrainer``).
+"""Training steps (counterpart of ``hvrnet_tpu/engine/train.py``:
+``BaseTrainer`` on one device in float32, ``SelsaTrainer`` and
+``HNMBTrainer``).
 
-One step, in the reference's order (``hnmb_rcnn.py:224-569``):
+SELSA, one step (``selsa_rcnn.py:85-246``) over F frames of one video, the
+key frame ``key_dim`` among them:
+  1. the backbone over the F frames with gradient (stem and ``layer1``
+     frozen), the RPN with gradient, and its loss on the key frame's
+     sampled anchors (``core/targets.py:anchor_target_single``);
+  2. per frame, proposals from the detached RPN maps
+     (``train_cfg.rpn_proposal``) and ``sampler[0].num`` RoIs sampled
+     against the key frame's ground truth;
+  3. the shared head (C5) with gradient, RoIAlign over the F frames and the
+     SELSA head over their F·num rows (NL1 and NL2 through the attention
+     kernel), the key frame's rows out;
+  4. cross entropy re-weighted to the ``sampler[1].num`` hardest RoIs
+     (OHEM) and smooth-L1;
+  5. backward, the global-norm clip and SGD (``engine/optim.py``).
+
+HVRNet, one step, in the reference's order (``hnmb_rcnn.py:224-569``):
   1. the frozen backbone over every frame (V videos × ``imgs_per_video``),
      without gradient;
   2. triplet-video selection from max-pooled C5 descriptors: the key video
@@ -18,7 +34,7 @@ One step, in the reference's order (``hnmb_rcnn.py:224-569``):
 All of it runs under ``f32_precision``: no TF32 in any forward or backward
 convolution or matmul.
 
-The sampler's noise comes from the trainer's ``torch.Generator`` unless
+The samplers' noise comes from the trainer's ``torch.Generator`` unless
 the caller hands it in (the tests hand both packages the same noise).
 """
 from __future__ import annotations
@@ -29,8 +45,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.targets import random_sample_and_target
+from ..core.targets import (anchor_target_single, ohem_weights,
+                            random_sample_and_target)
+from ..models.anchor_heads.rpn_head import rpn_flat_logits_deltas
 from ..models.losses import accuracy, smooth_l1, softmax_cross_entropy
 from .detector import _rpn_proposals, f32_precision
 from .optim import (clip_grad_global_norm_, default_trainable_mask,
@@ -71,6 +90,9 @@ class BaseTrainer:
             self.params, self.schedule(0),
             momentum=float(opt.get("momentum", 0.9)),
             weight_decay=float(opt.get("weight_decay", 1e-4)))
+        bh = engine.model_cfg["bbox_head"]
+        # the head's smooth-L1 β (the RPN's is 1/9, as in the reference)
+        self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
         self.step = 0
         self.generator = torch.Generator(device=engine.device)
         self.generator.manual_seed(seed)
@@ -109,16 +131,123 @@ class BaseTrainer:
         logs.update(loss=loss.detach(), lr=lr)
         return logs
 
-    @torch.no_grad()
     def backbone(self, sample: Dict[str, Any]) -> torch.Tensor:
         """C4 (F, 1024, H/16, W/16) of the sample's (F, H, W, 3)
-        normalised float32 frames, without gradient."""
-        with f32_precision():
+        normalised float32 frames; without gradient when the trainer
+        freezes the backbone."""
+        with f32_precision(), torch.set_grad_enabled(
+                not self.freeze_backbone):
             x = self.engine._to_input(sample["imgs"], None)
             return self.engine.model.extract_feat(x)
 
     def loss_from_c4(self, c4, sample, noise=None):
         raise NotImplementedError
+
+
+def _rpn_loss(cls_map: torch.Tensor, reg_map: torch.Tensor, tgt,
+              beta: float = 1.0 / 9.0):
+    """One image's RPN loss over its sampled anchors: sigmoid binary cross
+    entropy and smooth-L1 (``beta`` 1/9), each summed and divided by the
+    sampled count.  cls_map: (A, H, W) logits, reg_map: (4A, H, W)."""
+    logits, reg = rpn_flat_logits_deltas(cls_map, reg_map)
+    n = tgt.num_total_samples
+    ce = F.binary_cross_entropy_with_logits(
+        logits, (tgt.labels > 0).to(logits.dtype), reduction="none")
+    loss_cls = (ce * tgt.label_weights).sum() / n
+    loss_bbox = (smooth_l1(reg, tgt.bbox_targets, beta)
+                 * tgt.bbox_weights).sum() / n
+    return loss_cls, loss_bbox
+
+
+class SelsaTrainer(BaseTrainer):
+    """SELSA training: backbone (from ``layer2``), RPN, shared head and
+    SELSA head all train; the RPN loss on the key frame and the head's
+    losses on the key frame's RoIs after OHEM."""
+
+    def loss_from_c4(self, c4: torch.Tensor, sample: Dict[str, Any],
+                     noise=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, logs) of one step from the frames' C4 maps.
+
+        ``noise``: ((pos, neg), (pos, neg)) U(0, 1) priorities, the first
+        pair (A,) over the anchors of the RPN sampler, the second (F, G + P)
+        over each frame's RoI candidates (G ground-truth slots, then P
+        proposals); drawn from the trainer's generator when absent."""
+        eng = self.engine
+        model = eng.model
+        tcfg = eng.train_cfg
+        rcnn = tcfg["rcnn"]
+        assigner = rcnn["assigner"]
+        samplers = rcnn["sampler"]
+        if not isinstance(samplers, (list, tuple)) or len(samplers) != 2:
+            raise ValueError("SelsaTrainer needs train_cfg.rcnn.sampler as "
+                             "[first-stage sampler, OHEM sampler]")
+        first, ohem = samplers
+        kd, P = eng.key_dim, int(first["num"])
+        n_frames = c4.shape[0]
+        stride = eng.anchor_stride
+        canvas = eng._canvas(c4.shape[2] * stride, c4.shape[3] * stride)
+        img_shape = np.asarray(sample["img_shape"])
+        pad_shape = np.asarray(sample["pad_shape"])
+        gt = {k: torch.as_tensor(np.asarray(sample[k])[kd],
+                                 device=eng.device)
+              for k in ("gt_bboxes", "gt_labels", "gt_mask")}
+        (apos, aneg), (rpos, rneg) = noise or ((None, None), (None, None))
+
+        with self._phase("rpn"):
+            cls_map, reg_map = model.rpn(c4)
+            tgt = anchor_target_single(
+                canvas.anchors, canvas.anchor_valid(pad_shape[kd]),
+                gt["gt_bboxes"], gt["gt_mask"], img_shape[kd], tcfg["rpn"],
+                eng.rpn_means, eng.rpn_stds, pos_noise=apos, neg_noise=aneg,
+                generator=self.generator)
+            loss_rpn_cls, loss_rpn_bbox = _rpn_loss(cls_map[kd], reg_map[kd],
+                                                    tgt)
+
+        with self._phase("proposals"), torch.no_grad():
+            rois, valid, srs = [], [], []
+            for i in range(n_frames):
+                boxes, _, pmask = _rpn_proposals(
+                    cls_map[i], reg_map[i], canvas, pad_shape[i],
+                    img_shape[i], tcfg["rpn_proposal"], eng.rpn_means,
+                    eng.rpn_stds)
+                sr = random_sample_and_target(
+                    boxes, pmask, gt["gt_bboxes"], gt["gt_mask"],
+                    gt["gt_labels"], num=P,
+                    pos_fraction=float(first["pos_fraction"]),
+                    add_gt_as_proposals=bool(
+                        first.get("add_gt_as_proposals", True)),
+                    pos_iou_thr=float(assigner["pos_iou_thr"]),
+                    neg_iou_thr=float(assigner["neg_iou_thr"]),
+                    min_pos_iou=float(assigner["min_pos_iou"]),
+                    target_means=eng.target_means,
+                    target_stds=eng.target_stds,
+                    pos_weight=float(rcnn.get("pos_weight", -1)),
+                    pos_noise=None if rpos is None else rpos[i],
+                    neg_noise=None if rneg is None else rneg[i],
+                    generator=self.generator)
+                idx = torch.full((P, 1), float(i), device=eng.device)
+                rois.append(torch.cat([idx, sr.rois], dim=1))
+                valid.append(sr.valid)
+                srs.append(sr)
+
+        with self._phase("head"):
+            c5 = model.shared(c4)
+            pooled = eng.roi_extractor(c5, torch.cat(rois))
+            cls, reg = model.bbox_head(pooled, kd * P, P, torch.cat(valid))
+            key = srs[kd]
+            ce = softmax_cross_entropy(cls, key.labels)
+            lw, bw, sel, _ = ohem_weights(
+                key.labels, ce, key.valid, int(ohem["num"]),
+                float(ohem["pos_fraction"]))
+            navg = sel.sum().float().clamp_min(1.0)
+            loss_cls = (ce * lw).sum() / navg
+            loss_bbox = (smooth_l1(reg.reshape(-1, 4), key.bbox_targets,
+                                   self.loss_beta) * bw).sum() / navg
+            logs = dict(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox,
+                        loss_cls=loss_cls, loss_bbox=loss_bbox,
+                        acc=accuracy(cls.detach(), key.labels, mask=lw > 0))
+        return loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox, logs
 
 
 class HNMBTrainer(BaseTrainer):
@@ -132,9 +261,8 @@ class HNMBTrainer(BaseTrainer):
     def __init__(self, engine, cfg, steps_per_epoch: int = 1000,
                  seed: int = 0):
         super().__init__(engine, cfg, steps_per_epoch, seed)
-        bh = engine.model_cfg["bbox_head"]
-        self.ipv = int(bh.get("imgs_per_video", 3))
-        self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
+        self.ipv = int(engine.model_cfg["bbox_head"].get("imgs_per_video",
+                                                         3))
 
     def select_videos(self, c5: torch.Tensor) -> List[int]:
         """The chosen videos' indices from the (F, C, h, w) C5 maps of the

@@ -33,7 +33,8 @@ from ..ops.boxes import bbox2result_np
 
 
 class SlidingWindowRunner:
-    """Runs an HVRNet engine over a sequential frame stream."""
+    """Runs a video engine (``HNMBRCNN`` or ``SelsaRCNN``) over a sequential
+    frame stream."""
 
     def __init__(self, engine, branch: int = -1, progress_hook=None,
                  timer=None, prepad_provider=None, flush_every: int = 16,

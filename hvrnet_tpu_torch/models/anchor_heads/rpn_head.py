@@ -29,13 +29,19 @@ class RPNHead(nn.Module):
         return self.rpn_cls(h), self.rpn_reg(h)
 
 
-def rpn_flat_scores_deltas(cls: torch.Tensor, reg: torch.Tensor):
-    """Flatten one image's (A, H, W) / (4A, H, W) maps to anchor order.
+def rpn_flat_logits_deltas(cls: torch.Tensor, reg: torch.Tensor):
+    """Flatten one image's (A, H, W) / (4A, H, W) maps to anchor order:
+    logits (H·W·A,), deltas (H·W·A, 4).
 
     Anchor index = ((y·W) + x)·A + a, the order of the canvas anchors (and of
     the JAX package's NHWC flattening), so the maps are permuted to (H, W, ·)
     before they are reshaped.
     """
-    scores = torch.sigmoid(cls.permute(1, 2, 0).reshape(-1).float())
-    deltas = reg.permute(1, 2, 0).reshape(-1, 4).float()
-    return scores, deltas
+    return (cls.permute(1, 2, 0).reshape(-1),
+            reg.permute(1, 2, 0).reshape(-1, 4))
+
+
+def rpn_flat_scores_deltas(cls: torch.Tensor, reg: torch.Tensor):
+    """Sigmoid scores and deltas of one image in anchor order, float32."""
+    logits, deltas = rpn_flat_logits_deltas(cls, reg)
+    return torch.sigmoid(logits.float()), deltas.float()

@@ -1,22 +1,32 @@
-"""SELSA non-local block (counterpart of
-``hvrnet_tpu/models/bbox_heads/selsa_bbox_head.py:SelsaAttention``).
+"""SELSA non-local block and head (counterparts of
+``hvrnet_tpu/models/bbox_heads/selsa_bbox_head.py:SelsaAttention`` and
+``SelsaBBoxHead``).
 
 One block: q/k linear → scaled masked softmax → ·V (V = the block's
 key-side input) → 1×1 ``linear_out`` conv.  Padded proposal slots leave the
 key set through a −1e30 additive bias.  Parameter names follow mmdet
 (``q_data_fc_<i>``, ``k_data_fc_<i>``, ``linear_out_<i>`` inside
 ``selsa_<i>``).
+
+The head: fc_new_1 → NL1 (every row) → fc_new_2 → NL2 (the key frame's
+rows) → fc_cls / class-agnostic fc_reg.  Both blocks take their keys from
+the first ``nongt_dim = min(sampler_num·t_dim, N)`` rows, as the reference
+does: at test time every cached row; in training (sampler_num 128, t_dim 3,
+900 rows of 300 RoIs per frame) the first 384.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import NEG_INF, masked_attention
 from ..layers import conv1x1_as_linear
+from ..registry import HEADS
+from .bbox_head import flatten_roi_feats
 
 
 class SelsaAttention(nn.Module):
@@ -69,3 +79,52 @@ class SelsaAttention(nn.Module):
             bias = torch.where(key_mask, 0.0, NEG_INF).float()
         out = masked_attention(q, k, v, bias, self.scale)
         return self.out_proj(out.to(roi_feat.dtype))
+
+
+@HEADS.register_module
+class SelsaBBoxHead(nn.Module):
+    """Two stacked SELSA blocks over the RoI rows of several frames."""
+
+    def __init__(self, sampler_num: int = 128, t_dim: int = 3,
+                 fc_feat_dim: int = 1024,
+                 dim: Sequence[int] = (1024, 1024, 1024),
+                 roi_feat_size: int = 7, in_channels: int = 256,
+                 num_classes: int = 31, reg_class_agnostic: bool = True):
+        super().__init__()
+        self.sampler_num = sampler_num
+        self.t_dim = t_dim
+        F_ = fc_feat_dim
+        self.fc_new_1 = nn.Linear(in_channels * roi_feat_size ** 2, F_)
+        self.selsa_1 = SelsaAttention(1, tuple(dim), F_)
+        self.fc_new_2 = nn.Linear(F_, F_)
+        self.selsa_2 = SelsaAttention(2, tuple(dim), F_)
+        self.fc_cls = nn.Linear(F_, num_classes)
+        self.fc_reg = nn.Linear(F_, 4 if reg_class_agnostic
+                                else 4 * num_classes)
+
+    def precompute_fc1(self, bbox_feat: torch.Tensor) -> torch.Tensor:
+        """(N, C, 7, 7) pooled RoIs → (N, fc_feat_dim) fc_new_1 rows."""
+        return self.fc_new_1(flatten_roi_feats(bbox_feat))
+
+    def forward_fc1(self, fc1: torch.Tensor, cur_start: int, cur_len: int,
+                    valid_mask: Optional[torch.Tensor] = None,
+                    output_all: bool = False):
+        """fc1: (N, D) rows, oldest frame first; the key frame's rows are
+        [cur_start, cur_start + cur_len); ``valid_mask`` (N,) takes padded
+        rows out of the keys.  Returns (cls, reg) for the key rows, or for
+        every row with ``output_all``."""
+        nongt = min(self.sampler_num * self.t_dim, fc1.shape[0])
+        kmask = valid_mask[:nongt] if valid_mask is not None else None
+        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[:nongt], kmask))
+        fc2 = self.fc_new_2(fc_all_1)
+        q2 = fc2 if output_all else fc2[cur_start:cur_start + cur_len]
+        fc_all_2 = F.relu(q2 + self.selsa_2(q2, fc2[:nongt], kmask))
+        return self.fc_cls(fc_all_2), self.fc_reg(fc_all_2)
+
+    def forward(self, bbox_feat: torch.Tensor, cur_start: int, cur_len: int,
+                valid_mask: Optional[torch.Tensor] = None,
+                output_all: bool = False):
+        """The head from (N, C, 7, 7) pooled RoIs (training, and the
+        reference's test loop): ``precompute_fc1`` then ``forward_fc1``."""
+        return self.forward_fc1(self.precompute_fc1(bbox_feat), cur_start,
+                                cur_len, valid_mask, output_all)

@@ -95,9 +95,12 @@ def test_attention_kernel_is_deterministic(dtype):
 
 
 # the HRNMP head's training calls: NL1 over a video's 3 × 128 RoIs, and
-# NL2/NL3 from its key frame's 128
+# NL2/NL3 from its key frame's 128; SELSA's: NL1 over 3 × 300 RoIs (a
+# ragged query tail of 4 rows past 7 × 128) against the first 384, NL2
+# from the key frame's 300
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nk", [(384, 384), (128, 384)])
+@pytest.mark.parametrize("nq,nk", [(384, 384), (128, 384), (900, 384),
+                                   (300, 384)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_function_gradients_on_the_card(nq, nk, dtype):
     """``masked_attention`` under autograd: the kernel forward (one launch)
@@ -166,7 +169,7 @@ def _matmul_tf32(a, b):
 
 def _kernel_emulated(q, k, v, bias, scale, matmul=None, key_tile=64,
                      nsplit=3, skip_rounding=False, drop_tile=None,
-                     drop_split=None):
+                     drop_split=None, live_rows=None):
     """The kernel's arithmetic on the CPU.  Pass 1: S = scale·q·kᵀ + bias,
     and per 128-key tile its max and Σ exp(s − max); statistics: the row
     max m and l = Σ_t exp(m_t − m)·l_t; pass 2: P = exp(S − m) (rounded to
@@ -175,7 +178,10 @@ def _kernel_emulated(q, k, v, bias, scale, matmul=None, key_tile=64,
     divided by l.  ``matmul`` forms the products (plain f32 by default).
     ``skip_rounding``, ``drop_tile`` (a key tile left out of P·v) and
     ``drop_split`` (one split's partial lost) are faults the bf16 limits
-    must catch."""
+    must catch.  ``live_rows``: q rows past it are a tile's tail beyond
+    nq, whose logits and statistics the kernel never writes: pass 2 reads
+    zeros and a row max of 0 there and never normalises or stores those
+    rows (the emulation divides them by 1)."""
     matmul = matmul or (lambda a, b: a.float() @ b.float().T)
     nk = k.shape[0]
     s = matmul(q.float(), k.float()) * scale + bias[None, :]
@@ -185,6 +191,8 @@ def _kernel_emulated(q, k, v, bias, scale, matmul=None, key_tile=64,
                           for t, tm in zip(tiles, tile_m.T)], 1)
     m = tile_m.max(1).values
     l = (torch.exp(tile_m - m[:, None]) * tile_l).sum(1)
+    if live_rows is not None:
+        s[live_rows:], m[live_rows:], l[live_rows:] = 0.0, 0.0, 1.0
     p = torch.exp(s - m[:, None])
     if q.dtype == torch.bfloat16 and not skip_rounding:
         p = p.bfloat16().float()
@@ -249,7 +257,9 @@ def test_3xtf32_keeps_f32_accuracy_and_single_tf32_does_not():
                                          (300, 6300, torch.float32),
                                          (300, 6300, torch.bfloat16),
                                          (5, 70, torch.float32),
-                                         (700, 130, torch.bfloat16)])
+                                         (700, 130, torch.bfloat16),
+                                         (900, 384, torch.float32),
+                                         (300, 384, torch.float32)])
 def test_output_split_covers_every_key_tile(nq, nk, dtype):
     """The output phase's split of the keys over blocks covers every key
     tile once, leaves no split empty, and at NL2/NL4 (24 output tiles)
@@ -262,6 +272,42 @@ def test_output_split_covers_every_key_tile(nq, nk, dtype):
     assert per * nsplit >= ktiles > per * (nsplit - 1)
     if (nq, nk) == (300, 6300):
         assert nsplit >= 4
+
+
+def test_query_tail_at_selsa_training_shape():
+    """SELSA's training NL1, 900 queries (7 full 128-row tiles and a tail
+    of 4) against 384 keys, 10 % masked: the kernel's arithmetic emulated
+    tile by tile as the card runs it (the tail tile's q rows past 900
+    zero-filled by TMA, their logits and statistics never written, so pass
+    2 reads zeros and a row max of 0 there; 3xTF32, 32-key stages, the
+    output split ``_choose_split`` picks).  The 900 rows are the untiled
+    emulation's bit for bit and within 1e-5 of max|plain|; the padded rows
+    are finite and dropped."""
+    rng = np.random.default_rng(11)
+    nq, nk, d = 900, 384, 1024
+    q, k, v, _ = _inputs(rng, nq, nk, d, "partial", device="cpu")
+    bias = torch.from_numpy(np.where(rng.random(nk) < 0.1, NEG_INF,
+                                     0.0).astype(np.float32))
+    scale = d ** -0.5
+    nsplit, _ = _choose_split(-(-nq // 128) * (d // 128),
+                              -(-nk // _KEYS_PER_STAGE[torch.float32]), 132,
+                              _TILE_US[torch.float32], nq * d * 4 / 2.5e6)
+    untiled = _kernel_emulated(q, k, v, bias, scale, _matmul_3xtf32, 32,
+                               nsplit)
+    rows = []
+    for r0 in range(0, nq, 128):
+        tile = torch.zeros(128, d)
+        n = min(128, nq - r0)
+        tile[:n] = q[r0:r0 + n]
+        out = _kernel_emulated(tile, k, v, bias, scale, _matmul_3xtf32, 32,
+                               nsplit, live_rows=n)
+        assert bool(torch.isfinite(out).all())
+        rows.append(out[:n])
+    tiled = torch.cat(rows)
+    assert tiled.shape == (nq, d) and n == 4
+    assert torch.equal(tiled, untiled)
+    want = attention_plain(q, k, v, bias, scale)
+    assert (tiled - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.gpu
