@@ -45,11 +45,24 @@ stops the script with a non-zero exit:
    5 steps with the backbone (from ``layer2``) and the RPN training, a
    stage split, 2 launches per step, frozen tensors bit for bit and every
    trainable one moved.
-9. One JSON line of per-kernel numbers, then the result line.
+9. ``[bf16]``: the precision policy HVRNet's benchmark serves in (bf16
+   compute, float32 parameters, the bbox head's weights pre-cast): on the
+   same seeded, calibrated weights as the f32 phases, the HVRNet streaming
+   ring (speculative) and exact ring at T=21, SELSA at T=21, 2 + 3 steps
+   of each trainer and one HVRNet step under ``fp16=dict(loss_scale=512.)``.
+   Kernel launches per detection and step as in f32; each of the window
+   heads' bf16 kernel calls held to its plain version (``bf16_agreement``)
+   and their logits to the plain attention's; bf16 raw head outputs
+   against f32 on the same fc1, and the streaming ring against the exact
+   one, within the JAX package's bf16 budget (|Δcls| ≤ 0.05·max(max|cls|,
+   1), |Δreg| ≤ 0.05); frozen tensors bit for bit, trainable ones moved,
+   parameters float32.  ``[busy]``: for the f32 and the bf16 HVRNet
+   engine, each stage's device time (``torch.profiler``) against its
+   CUDA-event span, the card's idle share over it.
+10. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+    as two entries), then the result line.
 
-Every path runs at full width and depth, the SELSA ones included; the
-whole script, kernel builds included, took about 90 s on an H100 80GB
-HBM3.
+Every path runs at full width and depth, the SELSA ones included.
 
 Exits non-zero without a result when no CUDA device is present, or when the
 ``hvrnet_tpu_torch`` package is not beside this file.
@@ -98,6 +111,10 @@ SELSA_TRAIN_SHAPES = ((900, 384, "selsa train NL1"),
                       (300, 384, "selsa train NL2"))
 SELSA_TRAIN_STAGES = ("backbone", "rpn", "proposals", "head", "backward",
                       "optimizer")
+BF16_TIMED = 3            # timed bf16 training steps (after TRAIN_WARMUP)
+# the JAX package's bf16 budget for raw head outputs against f32
+# (tests/test_bf16_budget.py:test_hvrnet_bf16_budget_random)
+BF16_CLS_BUDGET, BF16_REG_BUDGET = 0.05, 0.05
 
 
 def log(*args):
@@ -317,6 +334,27 @@ def synthetic_video(np, n, seed=0):
                    frame_offset=i, seg_len=n, frame_start_id=1)
 
 
+def warm_up(torch, np, engine):
+    """One window of frames through the frame program and a detection on
+    each of the engine's rings, so first-use costs (cuBLAS and cuDNN
+    handles and plans for the engine's dtype) stay out of the timed
+    runs."""
+    frames = list(synthetic_video(np, engine.window, seed=3))
+    feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
+             for f in frames]
+    saved = engine.stream
+    for stream in ((False, True) if hasattr(engine, "stream_rebuild")
+                   else (False,)):
+        engine.stream = stream
+        ring = engine.ring_reset(int(feats[0]["fc1"].shape[-1]))
+        for f in feats[:-1]:
+            engine.ring_push(ring, f)
+        engine.ring_step(ring, feats[-1], frames[-1]["img_shape"],
+                         frames[-1]["scale_factor"])
+    engine.stream = saved
+    torch.cuda.synchronize()
+
+
 def run_video(torch, np, engine, tag, **runner_kw):
     """The synthetic video through ``SlidingWindowRunner`` with the
     kernel's launch count set to 0 just before and read just after; checks
@@ -364,12 +402,14 @@ def run_video(torch, np, engine, tag, **runner_kw):
     return run
 
 
-def build_engine(torch, np, window=None, stream_theta=None, weights=None):
+def build_engine(torch, np, window=None, stream_theta=None, weights=None,
+                 dtype=None):
     """HNMBRCNN from the shipped config, optionally at another window
     (frame_interval, t_dim and key_dim set together, as the 63-frame
     cache sets them) or with a head ``stream_theta``; ``weights`` is a
     state_dict to load, else seeded random weights with frozen-BN
-    statistics calibrated on the first frame."""
+    statistics calibrated on the first frame.  ``dtype`` bfloat16: the
+    bf16 policy, with the bbox head's weights pre-cast after the load."""
     from hvrnet_tpu_torch.engine import HNMBRCNN
     from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
     from hvrnet_tpu_torch.utils.config import Config, unwrap
@@ -381,16 +421,19 @@ def build_engine(torch, np, window=None, stream_theta=None, weights=None):
     if stream_theta is not None:
         model_cfg["bbox_head"]["stream_theta"] = stream_theta
     t0 = time.time()
-    engine = HNMBRCNN(model_cfg, test_cfg, device="cuda", seed=0)
+    engine = HNMBRCNN(model_cfg, test_cfg, device="cuda", seed=0,
+                      dtype=dtype or torch.float32)
     if weights is None:
         n_bn = calibrate_frozen_bn(engine, [next(synthetic_video(np, 1))])
         how = f"seeded random weights, {n_bn} frozen BNs calibrated"
     else:
         engine.load_state_dict(weights)
         how = "the T=21 engine's weights"
+    engine.cast_head_params_bf16()
     torch.cuda.synchronize()
     bh = engine.model_cfg["bbox_head"]
-    log(f"[build] HNMBRCNN R101-C5 in {time.time() - t0:.1f} s ({how}): "
+    log(f"[build] HNMBRCNN R101-C5 {str(engine.dtype)[6:]} in "
+        f"{time.time() - t0:.1f} s ({how}): "
         f"window {engine.window}, t_dim {bh['t_dim']}, key_dim "
         f"{engine.key_dim}, {engine.proposal_num} proposals/frame, "
         f"stream_theta {engine.model.bbox_head.stream_theta}")
@@ -406,12 +449,34 @@ def logit_err(got, want):
     return worst
 
 
+def head_outputs(out):
+    """A window head's output as ([cls per branch], [reg per branch]):
+    HRNMP's two branches, SELSA's one."""
+    cls, reg = out
+    if isinstance(cls, (list, tuple)):
+        return list(cls), list(reg)
+    return [cls], [reg]
+
+
+def head_budget(got, want):
+    """(max |Δcls|/max(max|cls|, 1), max |Δreg|) over the branches, the two
+    quantities of the JAX package's bf16 budget."""
+    got, want = head_outputs(got), head_outputs(want)
+    cls = max((a.float() - b.float()).abs().max().item()
+              / max(b.float().abs().max().item(), 1.0)
+              for a, b in zip(got[0], want[0]))
+    reg = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got[1], want[1]))
+    return cls, reg
+
+
 def phase_main_path(torch, np):
     from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
     from hvrnet_tpu_torch.ops.attention import (attention_plain,
                                                 masked_attention)
 
     engine = build_engine(torch, np)
+    warm_up(torch, np, engine)
     run = run_video(torch, np, engine, "[main]")
     if run["launches"] != 4 * run["detections"]:
         raise RuntimeError("the main path did not run the attention kernel "
@@ -467,6 +532,17 @@ def final_window_check(torch, np, engine):
         cls, reg, bad = head.stream_forward(engine.head_state(ring), centre,
                                             rollback=True)
         want = head.forward_fc1(rows[0], kd * P, P, rows[1])
+    if engine.dtype == torch.bfloat16:
+        cls_d, reg_d = head_budget((cls, reg), want)
+        log(f"[bf16] T={T} final window after {len(feats)} pushes (flag "
+            f"{flagged}, decode flag {bool(bad)}): stream_forward vs "
+            f"forward_fc1 in bf16, max |Δcls|/max(|cls|, 1) = {cls_d:.3g}, "
+            f"max |Δreg| = {reg_d:.3g} (limits {BF16_CLS_BUDGET}, "
+            f"{BF16_REG_BUDGET}: the bf16 budget)")
+        if not (cls_d <= BF16_CLS_BUDGET and reg_d <= BF16_REG_BUDGET):
+            raise RuntimeError(f"bf16 streaming ring at T={T} disagrees "
+                               "with the exact head")
+        return ring, feats[-1], rows
     worst = logit_err((cls, reg), want)
     log(f"[stream] T={T} final window after {len(feats)} pushes (flag "
         f"{flagged}, decode flag {bool(bad)}): stream_forward vs forward_fc1 "
@@ -653,14 +729,23 @@ def stage_times(torch, np, engine, feats, fc1, valid, head_out):
             log(f"[stages] {name}: {cuda_ms(torch, fn, iters=3, warmup=1):.3f} ms")
 
 
-def train_attention(torch, shapes=TRAIN_SHAPES, tag="[train]"):
-    """The kernel under autograd at the training ``shapes``, f32 with 10 %
-    of the keys masked: its forward (and ``attention_backward_plain``)
-    against the plain version differentiated by autograd, then its
-    times."""
+def train_attention(torch, shapes=TRAIN_SHAPES, tag="[train]", dtype=None):
+    """The kernel under autograd at the training ``shapes`` with 10 % of
+    the keys masked, then its times.  f32: its forward (and
+    ``attention_backward_plain``) against the plain version differentiated
+    by autograd.  bf16: its forward against the plain version by
+    ``bf16_agreement``, its gradients against autograd of the unrounded
+    attention in float64: within u = 2^-8 of max |grad| (the f32 recompute
+    rounded once to bf16, u/2, and f32 slack)."""
     import torch.nn.functional as F
     from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
+                                                bf16_agreement,
                                                 masked_attention, plan)
+    if dtype == torch.bfloat16:
+        return [bf16_train_attention(torch, F, plan, attention_plain,
+                                     bf16_agreement, masked_attention,
+                                     NEG_INF, nq, nk, label, tag)
+                for nq, nk, label in shapes]
     gen = torch.Generator(device="cuda").manual_seed(1)
     scale = D ** -0.5
     cases = []
@@ -695,6 +780,42 @@ def train_attention(torch, shapes=TRAIN_SHAPES, tag="[train]"):
                                f"with the plain version: {case}")
         cases.append(case)
     return cases
+
+
+def bf16_train_attention(torch, F, plan, attention_plain, bf16_agreement,
+                         masked_attention, neg_inf, nq, nk, label, tag):
+    """One bf16 training shape under autograd (``train_attention``)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scale = D ** -0.5
+    q, k, v = (torch.randn(n, D, device="cuda", generator=gen).bfloat16()
+               for n in (nq, nk, nk))
+    bias = torch.where(torch.rand(nk, device="cuda", generator=gen) >= 0.1,
+                       0.0, neg_inf).float()
+    g = torch.randn(nq, D, device="cuda", generator=gen)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = masked_attention(*ins, bias, scale)
+    got.backward(g)
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    attention_plain(*ref, bias.double(), scale).backward(g.double())
+    grad_rel = max(((a.grad.double() - b.grad).abs().max()
+                    / b.grad.abs().max()).item() for a, b in zip(ins, ref))
+    case = dict(label=label, nq=nq, nk=nk, dtype="bfloat16",
+                masking="10% masked", grad_rel_err=grad_rel,
+                grad_rel_tol=2.0 ** -8,
+                grad_dtypes=[str(t.grad.dtype)[6:] for t in ins],
+                bitwise_repeat=bool(torch.equal(
+                    got, masked_attention(q, k, v, bias, scale))))
+    case.update(bf16_agreement(got.detach(), q, k, v, bias, scale))
+    case.update(attention_times(torch, F, plan, attention_plain,
+                                masked_attention, q, k, v, bias, scale))
+    log(f"{tag} attention " + json.dumps(case))
+    if not (case["worst"] <= 1 and case["rms"] <= 1
+            and case["rounds"] >= 0.1 and grad_rel <= 2.0 ** -8
+            and all(t.grad.dtype == torch.bfloat16 for t in ins)
+            and case["bitwise_repeat"] and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"bf16 masked_attention under autograd disagrees "
+                           f"with the plain version: {case}")
+    return case
 
 
 def synthetic_train_batch(np, seed=0, videos=TRAIN_VIDEOS):
@@ -761,7 +882,7 @@ def phase_selsa(torch, np):
     ``SlidingWindowRunner`` over the synthetic video: 2 kernel launches
     per detection (NL1 6300², NL2 300×6300), the window head's logits with
     the kernel against the same head with the plain attention, and the
-    head and decode stages alone."""
+    head and decode stages alone.  Returns the run and the engine."""
     from hvrnet_tpu_torch.engine import SelsaRCNN
     from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
     from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
@@ -780,6 +901,7 @@ def phase_selsa(torch, np):
         f"random weights, {n_bn} frozen BNs calibrated): window "
         f"{engine.window}, t_dim {bh['t_dim']}, key_dim {engine.key_dim}, "
         f"{engine.proposal_num} proposals/frame")
+    warm_up(torch, np, engine)
     run = run_video(torch, np, engine, "[selsa]")
     if run["launches"] != 2 * run["detections"]:
         raise RuntimeError("the SELSA path did not run the attention kernel "
@@ -819,22 +941,22 @@ def phase_selsa(torch, np):
         f"{run['head_ms']:.3f} ms, decode + class-wise NMS "
         f"{run['decode_ms']:.3f} ms; peak device memory over the video "
         f"{run['peak_gib']:.2f} GiB")
-    del engine
-    torch.cuda.empty_cache()
-    return run
+    return run, engine
 
 
 def timed_training(torch, np, engine, batch, cfg, work_dir, stages, tag,
-                   launches_per_step):
-    """``train_detector`` for TRAIN_WARMUP + TRAIN_TIMED steps on
-    ``batch`` with the kernel's launch count set to 0 just before and read
-    just after: per-step stage times (CUDA events), peak memory and
-    losses, the mean over the timed steps, finite losses and
-    ``launches_per_step`` launches checked.  Returns (trainer, summary)."""
+                   launches_per_step, timed=None):
+    """``train_detector`` for TRAIN_WARMUP + ``timed`` (TRAIN_TIMED) steps
+    on ``batch``
+    with the kernel's launch count set to 0 just before and read just
+    after: per-step stage times (CUDA events), peak memory and losses, the
+    mean over the timed steps, finite losses and ``launches_per_step``
+    launches checked.  Returns (trainer, summary)."""
     from hvrnet_tpu_torch.apis import train_detector
     from hvrnet_tpu_torch.ops.attention import masked_attention
     timer = StepTimer(torch, stages)
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    timed = timed or TRAIN_TIMED
+    steps = TRAIN_WARMUP + timed
     torch.cuda.synchronize()
     masked_attention.launches = 0
     t0 = time.time()
@@ -859,11 +981,11 @@ def timed_training(torch, np, engine, batch, cfg, work_dir, stages, tag,
             + json.dumps({k: round(v, 3) for k, v in times.items()})
             + "; losses " + json.dumps(
                 {k: lg[k] for k in lg if k.startswith(("loss", "acc"))}))
-    timed = slice(TRAIN_WARMUP, steps)
-    mean = {name: sum(a.elapsed_time(b) for a, b in spans[name][timed])
-            / TRAIN_TIMED for name in stages}
-    step_mean = sum(step_ms[timed]) / TRAIN_TIMED
-    log(f"{tag} {TRAIN_TIMED} timed steps: {step_mean:.3f} ms/step; "
+    span = slice(TRAIN_WARMUP, steps)
+    mean = {name: sum(a.elapsed_time(b) for a, b in spans[name][span])
+            / timed for name in stages}
+    step_mean = sum(step_ms[span]) / timed
+    log(f"{tag} {timed} timed steps: {step_mean:.3f} ms/step; "
         f"stages ms " + json.dumps({k: round(v, 3) for k, v in mean.items()})
         + f"; peak device memory {peak:.2f} GiB; kernel launches {launches}"
         f" over {steps} steps; {steps / wall:.3f} steps/s wall")
@@ -904,7 +1026,8 @@ def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
 def phase_train(torch, np):
     """HVRNet training at full width through ``train_detector``: 2 warmup
     and 5 timed steps with a stage split, the launch count, frozen tensors
-    bitwise unchanged, trainable ones moved, and a bitwise resume."""
+    bitwise unchanged, trainable ones moved, and a bitwise resume.
+    Returns the summary and the calibrated weights it started from."""
     import shutil
     from hvrnet_tpu_torch.apis import train_detector
     from hvrnet_tpu_torch.engine import HNMBRCNN
@@ -941,7 +1064,7 @@ def phase_train(torch, np):
     shutil.rmtree(work_dir, ignore_errors=True)
     del engine, resumed, trainer, again
     torch.cuda.empty_cache()
-    return summary
+    return summary, before
 
 
 def phase_selsa_train(torch, np):
@@ -950,7 +1073,8 @@ def phase_selsa_train(torch, np):
     128, the backbone from ``layer2``, the RPN, the shared head and the
     SELSA head trained; 2 warmup and 5 timed steps with a stage split, 2
     launches per step, frozen tensors bitwise unchanged and every
-    trainable one moved."""
+    trainable one moved.  Returns the summary and the calibrated weights
+    it started from."""
     import shutil
     from hvrnet_tpu_torch.engine import SelsaRCNN
     from hvrnet_tpu_torch.utils.config import Config
@@ -969,7 +1093,7 @@ def phase_selsa_train(torch, np):
     shutil.rmtree(work_dir, ignore_errors=True)
     del engine
     torch.cuda.empty_cache()
-    return summary
+    return summary, before
 
 
 def check_train_weights(torch, engine, before, tag, trained):
@@ -998,63 +1122,329 @@ def check_train_weights(torch, engine, before, tag, trained):
                            "set than its prefixes")
 
 
-def kernel_summary(cases, runs):
-    """Per-kernel numbers for one detected frame of the exact ring at T=21:
-    NL1..NL4 at f32 (two calls at each shape); launches on each path."""
-    f32 = {c["label"]: c for c in cases
-           if c["dtype"] == "float32" and "ms" in c}
+def device_ms(torch, fn):
+    """Device time of one call of ``fn`` (after a warm call): the summed
+    durations of the kernels and copies ``torch.profiler`` traces on the
+    card (one stream: they do not overlap); 0.0 when it traced none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def busy_report(torch, np, engine, tag):
+    """Where the card waits on the host: for each stage of one frame and
+    one detection, the device time ``torch.profiler`` traces against the
+    stage's CUDA-event span (``cuda_ms``); 1 − device/span is the card's
+    idle share over the stage."""
+    from hvrnet_tpu_torch.models.bbox_heads.bbox_head import get_det_bboxes
+    T, P, kd = engine.window, engine.proposal_num, engine.key_dim
+    frames = list(synthetic_video(np, T + 1, seed=4))
+    feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
+             for f in frames]
+    f0 = frames[0]
+    ish, psh, sf = f0["img_shape"], f0["pad_shape"], f0["scale_factor"]
+    maps = engine.backbone_maps(f0["img"], ish)
+    fc1 = torch.cat([f["fc1"] for f in feats[:T]])
+    valid = torch.cat([f["mask"] for f in feats[:T]])
+    head = engine.model.bbox_head
+    saved = engine.stream, engine.stream_rollback
+    engine.stream = engine.stream_rollback = True
+    ring = engine.ring_reset(int(fc1.shape[-1]))
+    for f in feats[:T]:
+        engine.ring_push(ring, f)
+    with torch.no_grad():
+        cls, reg = head.forward_fc1(fc1, kd * P, P, valid)
+        stages = {
+            "backbone: C4, C5, RPN maps": lambda: engine.backbone_maps(
+                f0["img"], ish),
+            "frame post: proposals, RoIAlign, fc_new_1":
+                lambda: engine.frame_post(*maps, ish, psh),
+            "exact window head": lambda: head.forward_fc1(fc1, kd * P, P,
+                                                          valid),
+            "streaming ring_step, speculative": lambda: engine.ring_step(
+                ring, feats[T], ish, sf, branch=-1),
+            "decode + class-wise NMS": lambda: get_det_bboxes(
+                feats[kd]["boxes"], cls[-1], reg[-1], ish, sf,
+                engine.target_means, engine.target_stds, rescale=True,
+                cfg=engine.test_cfg["rcnn"], valid=feats[kd]["mask"]),
+        }
+        for name, fn in stages.items():
+            span = cuda_ms(torch, fn, iters=3, warmup=1)
+            busy = device_ms(torch, fn)
+            idle = (f"idle {1 - busy / span:.2f}" if busy > 0
+                    else "device time not traced")
+            log(f"{tag} {name}: device {busy:.3f} ms of a {span:.3f} ms "
+                f"span, {idle}")
+    engine.stream, engine.stream_rollback = saved
+
+
+def bf16_window_checks(torch, np, engine, engine32, tag):
+    """The bf16 window head on one full window of the f32 engine's fc1
+    rows: every kernel call held to its plain version (``bf16_agreement``'s
+    elementwise ``worst`` ≤ 1; its ``rms`` is printed, not held: it assumes
+    the weights' roundings independent, and the near-uniform softmax rows
+    of random-weight projections round coherently), its logits to the same
+    head with the plain attention and to the f32 head on the same rows (the
+    bf16 budget).
+    Returns the bf16 engine's own caches of that window and its head
+    output on them, for the stage times."""
+    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
+    from hvrnet_tpu_torch.ops.attention import (attention_plain,
+                                                bf16_agreement,
+                                                masked_attention)
+    frames = list(synthetic_video(np, engine.window, seed=1))
+    feats = [engine32.frame_features(f["img"], f["img_shape"],
+                                     f["pad_shape"]) for f in frames]
+    fc1 = torch.cat([f["fc1"] for f in feats])
+    valid = torch.cat([f["mask"] for f in feats])
+    kd, P = engine.key_dim, engine.proposal_num
+    head = engine.model.bbox_head
+    agreements = []
+
+    def probed(q, k, v, bias, scale):
+        out = masked_attention(q, k, v, bias, scale)
+        agreements.append(bf16_agreement(out, q, k, v, bias, scale))
+        return out
+
+    with torch.no_grad():
+        want32 = engine32.model.bbox_head.forward_fc1(fc1, kd * P, P, valid)
+        try:
+            selsa_bbox_head.masked_attention = probed
+            got = head.forward_fc1(fc1.bfloat16(), kd * P, P, valid)
+            selsa_bbox_head.masked_attention = attention_plain
+            plain = head.forward_fc1(fc1.bfloat16(), kd * P, P, valid)
+        finally:
+            selsa_bbox_head.masked_attention = masked_attention
+    worst = max(a["worst"] for a in agreements)
+    rms = max(a["rms"] for a in agreements)
+    kernel = head_budget(got, plain)
+    f32 = head_budget(got, want32)
+    log(f"{tag} window head, {len(agreements)} bf16 kernel calls against "
+        f"their plain version: worst {worst:.3g} (limit 1), rms {rms:.3g}; "
+        f"logits with the kernel vs the plain attention: max "
+        f"|Δcls|/max(|cls|, 1) {kernel[0]:.3g}, max |Δreg| {kernel[1]:.3g}; "
+        f"bf16 vs f32 head on the same fc1: {f32[0]:.3g}, {f32[1]:.3g} "
+        f"(limits {BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
+    if not (worst <= 1 and all(
+            c <= BF16_CLS_BUDGET and r <= BF16_REG_BUDGET
+            for c, r in (kernel, f32))):
+        raise RuntimeError(f"{tag} bf16 window head out of its limits")
+    if not all(t.dtype == torch.bfloat16 for t in sum(
+            head_outputs(got), [])):
+        raise RuntimeError(f"{tag} the bf16 head did not compute in bf16")
+    feats16 = [engine.frame_features(f["img"], f["img_shape"],
+                                     f["pad_shape"]) for f in frames]
+    fc1_16 = torch.cat([f["fc1"] for f in feats16])
+    valid16 = torch.cat([f["mask"] for f in feats16])
+    with torch.no_grad():
+        out16 = head.forward_fc1(fc1_16, kd * P, P, valid16)
+    return feats16, fc1_16, valid16, out16
+
+
+def count_agreement(a_results, b_results):
+    """Frames whose per-class detection counts all agree, of all frames."""
+    same = sum(all(ca.shape == cb.shape for ca, cb in zip(fa, fb))
+               for fa, fb in zip(a_results, b_results))
+    return same, len(a_results)
+
+
+def phase_bf16_hvrnet(torch, np, engine32, exact32, stream32):
+    """HVRNet in bf16 on the f32 engine's weights: the streaming ring
+    (speculative) and the exact ring at T=21 through the runner, the
+    window head's checks, streaming against exact, stage times."""
+    engine = build_engine(torch, np, weights=engine32.model.state_dict(),
+                          dtype=torch.bfloat16)
+    warm_up(torch, np, engine)
+    engine.stream = True
+    stream = run_video(torch, np, engine, "[bf16] stream T=21")
+    want = 2 * stream["detections"] + 4 * stream["replayed"]
+    if stream["launches"] != want:
+        raise RuntimeError(f"bf16 streaming ring launched the kernel "
+                           f"{stream['launches']} times, not {want}")
+    engine.stream = False
+    exact = run_video(torch, np, engine, "[bf16] exact T=21")
+    if exact["launches"] != 4 * exact["detections"]:
+        raise RuntimeError("the bf16 exact ring did not run the kernel 4 "
+                           "times per detection")
+    for name, r16, r32 in (("streaming", stream, stream32),
+                           ("exact", exact, exact32)):
+        log(f"[bf16] T=21 {name} ring: window step {r16['step_ms']:.3f} "
+            f"ms/detection against {r32['step_ms']:.3f} in f32; "
+            f"frame_features {r16['frame_ms']:.3f} against "
+            f"{r32['frame_ms']:.3f}; peak {r16['peak_gib']:.2f} GiB against "
+            f"{r32['peak_gib']:.2f}")
+    log("[bf16] T=21 frames with the same per-class detection counts: "
+        "streaming vs exact %d of %d, bf16 vs f32 exact %d of %d (no limit)"
+        % (count_agreement(exact["results"], stream["results"])
+           + count_agreement(exact32["results"], exact["results"])))
+    feats, fc1, valid, out = bf16_window_checks(torch, np, engine, engine32,
+                                                "[bf16] T=21")
+    stage_times(torch, np, engine, feats, fc1, valid, out)
+    engine.stream = True
+    stream_stages(torch, engine, *final_window_check(torch, np, engine))
+    busy_report(torch, np, engine32, "[busy] f32")
+    busy_report(torch, np, engine, "[busy] bf16")
+    del engine
+    torch.cuda.empty_cache()
+    return stream, exact
+
+
+def phase_bf16_selsa(torch, np, engine32):
+    """SELSA in bf16 on the f32 engine's weights through the runner: 2
+    launches per detection, the window head's checks, head and decode
+    times."""
+    from hvrnet_tpu_torch.engine import SelsaRCNN
+    from hvrnet_tpu_torch.models.bbox_heads.bbox_head import get_det_bboxes
+    engine = SelsaRCNN(engine32.model_cfg, engine32.test_cfg, device="cuda",
+                       dtype=torch.bfloat16)
+    engine.load_state_dict(engine32.model.state_dict())
+    engine.cast_head_params_bf16()
+    warm_up(torch, np, engine)
+    run = run_video(torch, np, engine, "[bf16] selsa T=21")
+    if run["launches"] != 2 * run["detections"]:
+        raise RuntimeError("the bf16 SELSA path did not run the attention "
+                           "kernel 2 times per detection")
+    feats, fc1, valid, (cls, reg) = bf16_window_checks(
+        torch, np, engine, engine32, "[bf16] selsa")
+    kd, P = engine.key_dim, engine.proposal_num
+    head = engine.model.bbox_head
+    frame = next(synthetic_video(np, 1, seed=2))
+    with torch.no_grad():
+        run["head_ms"] = cuda_ms(torch, lambda: head.forward_fc1(
+            fc1, kd * P, P, valid), iters=3, warmup=1)
+        run["decode_ms"] = cuda_ms(torch, lambda: get_det_bboxes(
+            feats[kd]["boxes"], cls, reg, frame["img_shape"],
+            frame["scale_factor"], engine.target_means, engine.target_stds,
+            rescale=True, cfg=engine.test_cfg["rcnn"],
+            valid=feats[kd]["mask"]), iters=3, warmup=1)
+    log(f"[bf16] selsa T={engine.window} window step {run['step_ms']:.3f} "
+        f"ms/detection; stages alone: window head {run['head_ms']:.3f} ms, "
+        f"decode + class-wise NMS {run['decode_ms']:.3f} ms; frame_features "
+        f"{run['frame_ms']:.3f} ms; peak device memory {run['peak_gib']:.2f} "
+        "GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_bf16_train(torch, np, engine_cls, config, weights, batch, stages,
+                     tag, launches_per_step, trained, fp16_step=False):
+    """A bf16 training engine of ``engine_cls`` on the f32 phase's
+    calibrated ``weights``: ``train_detector`` for TRAIN_WARMUP +
+    BF16_TIMED steps, float32 parameters, frozen tensors bitwise unchanged
+    and trainable ones moved; with ``fp16_step`` one more step under
+    ``fp16=dict(loss_scale=512.)``."""
+    import shutil
+    from hvrnet_tpu_torch.apis import build_detector, train_detector
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(config)).as_dict()
+    work_dir = ROOT / "build" / "chip_smoke_bf16_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    engine = build_detector(cfg["model"], train_cfg=cfg["train_cfg"],
+                            dtype=torch.bfloat16)
+    if not isinstance(engine, engine_cls):
+        raise RuntimeError(f"{tag} build_detector gave {type(engine)}")
+    engine.load_state_dict(weights)
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    _, summary = timed_training(torch, np, engine, batch, cfg, work_dir,
+                                stages, tag, launches_per_step,
+                                timed=BF16_TIMED)
+    check_train_weights(torch, engine, before, tag, trained)
+    if any(p.dtype != torch.float32 for p in engine.model.parameters()):
+        raise RuntimeError(f"{tag} parameters left float32")
+    if fp16_step:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        masked_attention.launches = 0
+        train_detector(engine, [batch],
+                       dict(cfg, fp16=dict(loss_scale=512.0)), str(work_dir),
+                       total_epochs=1, steps_per_epoch=1, log_interval=1)
+        torch.cuda.synchronize()
+        lg = json.loads((work_dir / "train_log.jsonl").read_text())
+        log(f"{tag} one step under fp16=dict(loss_scale=512.): loss "
+            f"{lg['loss']:.6g}, loss_scale {lg['loss_scale']}, overflow "
+            f"{lg['overflow']}, kernel launches {masked_attention.launches}")
+        if not (np.isfinite(lg["loss"]) and lg["loss_scale"] == 512.0
+                and lg["overflow"] == 0.0
+                and masked_attention.launches == launches_per_step):
+            raise RuntimeError(f"{tag} the loss-scaled step failed: {lg}")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def kernel_summary(cases, runs, runs16):
+    """Per-kernel numbers, one entry per precision route of the one kernel:
+    one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
+    each shape) at f32 (``runs``, its paths' launches) and at bf16
+    (``runs16``)."""
+    return {"kernels": [route_summary(cases, runs, "float32"),
+                        route_summary(cases, runs16, "bfloat16")]}
+
+
+def route_summary(cases, runs, dtype):
+    """One route's entry: the cases of ``dtype`` with times, keyed by
+    label, summed per detected frame and per training step."""
+    timed = {c["label"]: c for c in cases
+             if c["dtype"] == dtype and "ms" in c}
+    f32 = dtype == "float32"
 
     def per_frame(get, shapes=ATTN_SHAPES):
-        return sum(2 * get(f32[label]) for *_, label in shapes)
+        return sum(2 * get(timed[label]) for *_, label in shapes)
 
-    sums = {key: per_frame(lambda c: c[key])
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "cuda_core_bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {key: per_frame(lambda c: c[key]) for key in keys}
     names = dict.fromkeys(name for *_, label in ATTN_SHAPES
-                          for name in f32[label]["phases_ms"])
+                          for name in timed[label]["phases_ms"])
     phases = {name: per_frame(lambda c: c["phases_ms"].get(name, 0.0))
               for name in names}
-    bound_by = {f32[label]["bound_by"] for *_, label in ATTN_SHAPES}
+    bound_by = {timed[label]["bound_by"] for *_, label in ATTN_SHAPES}
     launches = {path: run["launches"] for path, run in runs.items()}
-    return {"kernels": [dict(
-        name="masked_attention", route="cuda",
+    entry = dict(
+        name="masked_attention" if f32 else "masked_attention_bf16",
+        route="cuda",
         source="hvrnet_tpu_torch/csrc/masked_attention.cu",
         replaces="hvrnet_tpu/ops/attention.py:42",
         launches=sum(launches.values()),
         launches_by_path=launches,
         max_abs_err=max(c["max_abs_err"] for c in cases
-                        if c["dtype"] == "float32"),
+                        if c["dtype"] == dtype and "max_abs_err" in c),
         ms=sums["ms"], plain_ms=sums["plain_ms"],
         bound_ms=sums["bound_ms"], bound_by="/".join(sorted(bound_by)),
         library_ms=sums["library_ms"],
         phases_ms=phases,
-        cuda_core_bound_ms=sums["cuda_core_bound_ms"],
         bound_fraction=sums["bound_ms"] / sums["ms"],
         per_frame_t63={key: per_frame(lambda c: c[key], ATTN_SHAPES_63)
-                       for key in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms")},
+                       for key in keys},
         per_step_train={key: 3 * sum(
-            calls * f32[label][key] for calls, (*_, label) in
-            zip((1, 2), TRAIN_SHAPES))
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            calls * timed[label][key] for calls, (*_, label) in
+            zip((1, 2), TRAIN_SHAPES)) for key in keys},
         per_frame_selsa={key: per_frame(lambda c: c[key]) / 2
-                         for key in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms")},
-        per_step_selsa_train={key: sum(f32[label][key] for *_, label in
-                                       SELSA_TRAIN_SHAPES)
-                              for key in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms")},
-        unit="per detected frame of the exact ring at T=21: 2 calls at "
-             "6300x6300 + 2 at 300x6300, d 1024, float32 (3xTF32 bound); "
-             "per_frame_t63 the same at 18900x18900 and 300x18900; "
+                         for key in keys},
+        per_step_selsa_train={key: sum(timed[label][key] for *_, label in
+                                       SELSA_TRAIN_SHAPES) for key in keys},
+        unit=f"per detected frame of the exact ring at T=21: 2 calls at "
+             f"6300x6300 + 2 at 300x6300, d 1024, {dtype} "
+             + ("(3xTF32 bound)" if f32 else
+                "(bound at 989 TFLOP/s dense bf16, or bytes at 3.35 TB/s)")
+             + "; per_frame_t63 the same at 18900x18900 and 300x18900; "
              "per_step_train one training step's 9 calls: per chosen "
              "video 1 at 384x384 and 2 at 128x384; per_frame_selsa one "
              "SELSA detection's 2 calls, 6300x6300 and 300x6300; "
              "per_step_selsa_train one SELSA training step's 2 calls, "
              "900x384 and 300x384; launches summed over the paths in "
              "launches_by_path, each counted from 0 over its run (30 "
-             "frames; train: the 2 + 5 steps)",
-        cases=cases)]}
+             "frames; train: the warmup + timed steps)",
+        cases=[c for c in cases if c["dtype"] == dtype])
+    if f32:
+        entry["cuda_core_bound_ms"] = per_frame(
+            lambda c: c["cuda_core_bound_ms"])
+    return entry
 
 
 def main() -> int:
@@ -1068,25 +1458,49 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from hvrnet_tpu_torch.engine import HNMBRCNN, SelsaRCNN
     kind = phase_device(torch)
     phase_build()
     cases = phase_attention(torch)
     engine, exact = phase_main_path(torch, np)
     stream, repair, forced = phase_stream(torch, np, engine, exact)
     exact63, stream63 = phase_63(torch, np, engine)
+    stream16, exact16 = phase_bf16_hvrnet(torch, np, engine, exact, stream)
     del engine
     torch.cuda.empty_cache()
-    selsa = phase_selsa(torch, np)
+    selsa, selsa_engine = phase_selsa(torch, np)
+    selsa16 = phase_bf16_selsa(torch, np, selsa_engine)
+    del selsa_engine
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
     cases += train_attention(torch)
-    train = phase_train(torch, np)
+    cases += train_attention(torch, dtype=bf16)
+    train, weights = phase_train(torch, np)
+    train16 = phase_bf16_train(
+        torch, np, HNMBRCNN, CONFIG, weights,
+        synthetic_train_batch(np), TRAIN_STAGES, "[bf16] train", 9,
+        ("shared_head.", "bbox_head."), fp16_step=True)
+    del weights
     cases += train_attention(torch, SELSA_TRAIN_SHAPES, "[selsa-train]")
-    selsa_train = phase_selsa_train(torch, np)
+    cases += train_attention(torch, SELSA_TRAIN_SHAPES, "[selsa-train]",
+                             dtype=bf16)
+    selsa_train, weights = phase_selsa_train(torch, np)
+    selsa_train16 = phase_bf16_train(
+        torch, np, SelsaRCNN, SELSA_CONFIG, weights,
+        synthetic_train_batch(np, seed=1, videos=1), SELSA_TRAIN_STAGES,
+        "[bf16] selsa-train", 2,
+        ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
+         "shared_head.", "bbox_head."))
+    del weights
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train}
-    print(json.dumps(kernel_summary(cases, runs)), flush=True)
+    runs16 = {"stream T=21": stream16, "exact T=21": exact16,
+              "selsa T=21": selsa16, "train": train16,
+              "selsa train": selsa_train16}
+    print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,15 @@
-"""The training entry point (counterpart of ``hvrnet_tpu/apis.py``:
-``train_detector``), on one device in float32.
+"""The entry points (counterparts of ``hvrnet_tpu/apis.py:train_detector``
+and ``hvrnet_tpu/models/builder.py:build_detector``), on one device.
 
-    engine = HNMBRCNN(cfg.model, train_cfg=cfg.train_cfg)     # on the card
+    engine = build_detector(cfg.model, train_cfg=cfg.train_cfg,
+                            dtype=torch.bfloat16)              # on the card
     train_detector(engine, batches, cfg, work_dir="work_dirs/hvrnet",
                    calibrate_bn=True)
 
-The engine's type picks the trainer: ``HNMBRCNN`` → ``HNMBTrainer``,
-``SelsaRCNN`` → ``SelsaTrainer``.  ``batches`` yields ``collate_train``
+The engine's dtype is the training's compute dtype (float32 parameters
+either way); the config's ``fp16`` and ``optimizer.paramwise_options``
+keys reach the trainer.  The engine's type picks the trainer:
+``HNMBRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` → ``SelsaTrainer``.  ``batches`` yields ``collate_train``
 batches (``hvrnet_tpu/engine/stream.py`` format): ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
 (F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
@@ -23,12 +26,31 @@ import os
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional
 
+import torch
+
+from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
 from .engine.detector import HNMBRCNN, SelsaRCNN
 from .engine.train import HNMBTrainer, SelsaTrainer
+from .models.registry import DETECTORS
 from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.config import unwrap
 
 logger = logging.getLogger("hvrnet_tpu_torch")
+
+
+def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
+                   dtype: torch.dtype = torch.float32, device="cuda",
+                   seed: int = 0):
+    """The engine of ``model_cfg['type']`` (``HNMBRCNN`` or ``SelsaRCNN``)
+    computing in ``dtype``, with seeded random weights: a serving engine
+    with a ``test_cfg``, a training engine with a ``train_cfg``."""
+    model_cfg = unwrap(model_cfg)
+    cls = DETECTORS.get(model_cfg["type"])
+    if cls is None:
+        raise NotImplementedError(f"no port engine for {model_cfg['type']}")
+    return cls(model_cfg, test_cfg, device=device, seed=seed,
+               train_cfg=train_cfg, dtype=dtype)
 
 
 def _endless(batches: Iterable[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:
@@ -55,6 +77,8 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
     checkpoint ``epoch_<n>.pth`` and ``latest.pth`` after each epoch (and
     ``latest.pth`` every ``checkpoint_config.iter_interval`` steps).
 
+    ``engine``: a training engine (``build_detector`` with a
+    ``train_cfg``), float32 or bfloat16.
     ``load_from``: weights to start from (the port's checkpoint or a
     reference ``.pth`` state_dict; tensors it lacks keep their values).
     ``resume_from``: a checkpoint of this loop, whose weights, optimizer
@@ -98,6 +122,13 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
         trainer.step = int(state["step"])
         if state.get("rng") is not None:
             trainer.generator.set_state(state["rng"])
+        scale = state["meta"].get("loss_scale")
+        if trainer.loss_scale is not None and scale is not None:
+            trainer.scale_state = LossScaleState(
+                torch.tensor(scale[0], dtype=torch.float32,
+                             device=engine.device),
+                torch.tensor(scale[1], dtype=torch.int32,
+                             device=engine.device))
         start_epoch = int(state["meta"].get("epoch", 0))
         logger.info("resumed from %s at epoch %d, step %d", resume_from,
                     start_epoch, trainer.step)
@@ -107,6 +138,9 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
     log_path = os.path.join(work_dir, "train_log.jsonl")
 
     def save(name, **meta):
+        if trainer.scale_state is not None:
+            meta["loss_scale"] = [float(trainer.scale_state.scale),
+                                  int(trainer.scale_state.good_steps)]
         save_checkpoint(os.path.join(work_dir, name), engine.model,
                         trainer.optimizer, trainer.step, meta,
                         trainer.generator)

@@ -17,6 +17,11 @@ oldest→newest order, so the centre frame sits at ``key_dim``.
 NL1/NL3 softmax accumulators (``ops/streaming_attention.py``), and a
 detection costs a slide of one frame plus NL2/NL4 instead of the whole
 window head.
+
+``dtype`` is the engine's compute dtype (``core/precision.py``): float32,
+or bfloat16 with float32 parameters, as ``bench.py`` serves.  In bf16 the
+ring's row caches are bf16; boxes, scores, the streaming accumulators, the
+softmaxes and the decode stay float32.  TF32 stays off either way.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ def resolve_device(device) -> torch.device:
 
 @contextlib.contextmanager
 def f32_precision():
-    """The engine computes in float32, as the shipped configs run: no TF32 in
+    """The engine's float32 work (all of it in a float32 engine, the
+    softmaxes, accumulators and box math in a bf16 one) runs without TF32 in
     its convolutions and matmuls, whatever the process-wide flags say (they
     are restored on exit)."""
     flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
@@ -123,7 +129,11 @@ class BaseEngine:
 
     def __init__(self, model_cfg: Dict[str, Any],
                  test_cfg: Optional[Dict[str, Any]] = None, device="cuda",
-                 seed: int = 0, train_cfg: Optional[Dict[str, Any]] = None):
+                 seed: int = 0, train_cfg: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"an engine computes in float32 or bfloat16, "
+                             f"not {dtype}")
         model_cfg = unwrap(model_cfg)
         self.test_cfg = unwrap(test_cfg) if test_cfg else None
         self.train_cfg = unwrap(train_cfg) if train_cfg else None
@@ -133,7 +143,8 @@ class BaseEngine:
             bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
         self.model_cfg = model_cfg = dict(model_cfg, bbox_head=bh)
         self.device = resolve_device(device)
-        self.model = build_model_module(model_cfg).eval()
+        self.dtype = dtype
+        self.model = build_model_module(model_cfg, dtype).eval()
         init_weights(self.model, seed)
         self.model.to(self.device)
         self.roi_extractor = build_roi_extractor(
@@ -159,6 +170,19 @@ class BaseEngine:
         """Load mmdet-named weights (a reference checkpoint's ``state_dict``
         or ``utils.weights.state_dict_from_jax``), all keys required."""
         self.model.load_state_dict(state_dict, strict=True)
+
+    @torch.no_grad()
+    def cast_head_params_bf16(self) -> None:
+        """Store the bbox head's weights of rank ≥ 2 in bf16, for inference:
+        a bf16 head would otherwise cast them at every call (fc_new_1 alone
+        is 205 MB per frame).  The same cast done once, so bit for bit the
+        same outputs; biases and the backbone keep float32.  A no-op on a
+        float32 engine; a training engine must not call it."""
+        if self.dtype != torch.bfloat16:
+            return
+        for p in self.model.bbox_head.parameters():
+            if p.dtype == torch.float32 and p.ndim >= 2:
+                p.data = p.data.to(torch.bfloat16)
 
     def _canvas(self, h: int, w: int) -> Canvas:
         key = (h, w)
@@ -226,7 +250,8 @@ class _RingMixin:
     def ring_reset(self, fc1_dim: int) -> Dict[str, Any]:
         T, P = self.window, self.proposal_num
         dev = self.device
-        return dict(fc1=torch.zeros((T, P, fc1_dim), device=dev),
+        return dict(fc1=torch.zeros((T, P, fc1_dim), dtype=self.dtype,
+                                    device=dev),
                     boxes=torch.zeros((T, P, 4), device=dev),
                     masks=torch.zeros((T, P), dtype=torch.bool, device=dev),
                     pos=-1)
@@ -262,8 +287,9 @@ class SelsaRCNN(_RingMixin, BaseEngine):
     stream = False     # SELSA has no streaming ring
 
     def __init__(self, model_cfg, test_cfg=None, device="cuda",
-                 seed: int = 0, train_cfg=None):
-        super().__init__(model_cfg, test_cfg, device, seed, train_cfg)
+                 seed: int = 0, train_cfg=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(model_cfg, test_cfg, device, seed, train_cfg, dtype)
         if self.train_cfg is not None:
             self.key_dim = int(self.train_cfg["rcnn"]["key_dim"])
         else:
@@ -317,8 +343,9 @@ class HNMBRCNN(_RingMixin, BaseEngine):
                     "m1", "l1", "a1", "m3", "l3", "a3", "M1", "M3")
 
     def __init__(self, model_cfg, test_cfg=None, device="cuda",
-                 seed: int = 0, train_cfg=None):
-        super().__init__(model_cfg, test_cfg, device, seed, train_cfg)
+                 seed: int = 0, train_cfg=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(model_cfg, test_cfg, device, seed, train_cfg, dtype)
         if self.test_cfg is None:
             # training: the key frame of each sampled video
             self.key_dim = int(self.train_cfg["rcnn"].get("key_dim", 0))
@@ -369,15 +396,17 @@ class HNMBRCNN(_RingMixin, BaseEngine):
         def zeros(*shape):
             return torch.zeros(shape, device=dev)
 
+        def rows(width):          # row caches, in the compute dtype
+            return torch.zeros((R, width), dtype=self.dtype, device=dev)
+
         def neg_inf(*shape):
             return torch.full(shape, -torch.inf, device=dev)
 
         state = dict(boxes=zeros(T, P, 4),
                      masks=torch.zeros((T, P), dtype=torch.bool, device=dev),
                      pos=-1,
-                     fc1=zeros(R, fc1_dim), q1=zeros(R, dim[0]),
-                     k1=zeros(R, dim[1]), fc3s=zeros(R, fc_feat),
-                     q3=zeros(R, dim[0]), k3=zeros(R, dim[1]),
+                     fc1=rows(fc1_dim), q1=rows(dim[0]), k1=rows(dim[1]),
+                     fc3s=rows(fc_feat), q3=rows(dim[0]), k3=rows(dim[1]),
                      m1=neg_inf(R), l1=zeros(R), a1=zeros(R, fc1_dim),
                      m3=neg_inf(R), l3=zeros(R), a3=zeros(R, fc_feat),
                      M1=neg_inf(R, T), M3=neg_inf(R, T))

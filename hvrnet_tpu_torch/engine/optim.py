@@ -7,10 +7,16 @@ only; mmcv's step policy with linear warmup.  Frozen tensors (every
 FrozenBN buffer, the stem and stages ≤ ``frozen_stages``, and for HVRNet the
 whole backbone and RPN) get ``requires_grad=False`` and stay out of the
 optimizer, so neither the clip nor the weight decay sees them.
+
+``optimizer.paramwise_options`` (``bias_lr_mult``, ``bias_decay_mult``,
+``norm_decay_mult``) become parameter groups with their own lr multiplier
+and weight decay, as mmdet's ``build_optimizer`` makes them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+import re
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -65,11 +71,55 @@ def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter],
     return norm
 
 
+# mmdet's norm-layer rule (``mmdet/apis/train.py:155``) on mmdet names; the
+# JAX package matches flax keys ``bn*`` / ``gn*`` the same way
+_NORM_PARAM = re.compile(r"(bn|gn)(\d+)?.(weight|bias)")
+
+
+def paramwise_mults(name: str,
+                    paramwise_options: dict) -> Tuple[float, float]:
+    """(lr multiplier, weight-decay multiplier) of the parameter ``name``:
+    ``norm_decay_mult`` for every tensor of a norm layer, ``bias_lr_mult``
+    and ``bias_decay_mult`` for the other layers' biases.  (Every norm
+    layer of the shipped configs is a frozen BN, whose tensors are buffers
+    and never train.)"""
+    if _NORM_PARAM.search(name):
+        return 1.0, float(paramwise_options.get("norm_decay_mult", 1.0))
+    if name.endswith(".bias"):
+        return (float(paramwise_options.get("bias_lr_mult", 1.0)),
+                float(paramwise_options.get("bias_decay_mult", 1.0)))
+    return 1.0, 1.0
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
-                   momentum: float = 0.9,
-                   weight_decay: float = 1e-4) -> torch.optim.SGD:
+                   momentum: float = 0.9, weight_decay: float = 1e-4,
+                   names: Optional[Sequence[str]] = None,
+                   paramwise_options: Optional[dict] = None
+                   ) -> torch.optim.SGD:
     """torch SGD over the trainable parameters: +wd·param → momentum
-    buffer → −lr·buffer, after the caller clipped the gradients."""
-    return torch.optim.SGD(list(params), lr=lr, momentum=momentum,
+    buffer → −lr·buffer, after the caller clipped the gradients.
+
+    With ``paramwise_options`` (and the parameters' ``names``) the
+    parameters fall into groups by their (lr, decay) multipliers; a group's
+    ``lr_mult`` scales the lr the trainer sets (torch applies a group's lr
+    after the momentum buffer, as the JAX chain scales the update) and its
+    weight decay is ``weight_decay`` times the decay multiplier.  Without
+    them there is one group, with ``lr_mult`` 1."""
+    params = list(params)
+    if not paramwise_options:
+        groups = [dict(params=params, lr_mult=1.0)]
+    else:
+        if names is None or len(names) != len(params):
+            raise ValueError("paramwise_options needs the parameters' names")
+        by_mults: Dict[Tuple[float, float], List] = {}
+        for name, p in zip(names, params):
+            by_mults.setdefault(paramwise_mults(name, paramwise_options),
+                                []).append(p)
+        groups = [dict(params=ps, lr_mult=lr_m,
+                       weight_decay=weight_decay * wd_m)
+                  for (lr_m, wd_m), ps in by_mults.items()]
+    for g in groups:
+        g["lr"] = lr * g["lr_mult"]
+    return torch.optim.SGD(groups, lr=lr, momentum=momentum,
                            dampening=0.0, nesterov=False,
                            weight_decay=weight_decay)

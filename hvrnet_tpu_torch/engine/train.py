@@ -1,6 +1,5 @@
 """Training steps (counterpart of ``hvrnet_tpu/engine/train.py``:
-``BaseTrainer`` on one device in float32, ``SelsaTrainer`` and
-``HNMBTrainer``).
+``BaseTrainer`` on one device, ``SelsaTrainer`` and ``HNMBTrainer``).
 
 SELSA, one step (``selsa_rcnn.py:85-246``) over F frames of one video, the
 key frame ``key_dim`` among them:
@@ -32,7 +31,15 @@ HVRNet, one step, in the reference's order (``hnmb_rcnn.py:224-569``):
   5. branch and final cross-entropy and smooth-L1 losses;
   6. backward, the global-norm clip and SGD (``engine/optim.py``).
 All of it runs under ``f32_precision``: no TF32 in any forward or backward
-convolution or matmul.
+convolution or matmul.  A bf16 engine trains with float32 parameters: its
+modules compute in bf16, its gradients reach the float32 weights, and the
+losses are computed in float32 from the widened logits and deltas.
+
+The config's ``fp16 = dict(loss_scale=...)`` (mmdet's
+``Fp16OptimizerHook``) scales the loss before the backward and unscales
+the gradients before the clip; on non-finite gradients the step leaves the
+weights and the momentum untouched and still advances
+(``core/precision.py:DynamicLossScale``).
 
 The samplers' noise comes from the trainer's ``torch.Generator`` unless
 the caller hands it in (the tests hand both packages the same noise).
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.precision import DynamicLossScale, widen
 from ..core.targets import (anchor_target_single, ohem_weights,
                             random_sample_and_target)
 from ..models.anchor_heads.rpn_head import rpn_flat_logits_deltas
@@ -57,7 +65,8 @@ from .optim import (clip_grad_global_norm_, default_trainable_mask,
 
 
 class BaseTrainer:
-    """The optimizer side: trainable mask, schedule, clip, SGD step."""
+    """The optimizer side: trainable mask, schedule, loss scale, clip, SGD
+    step."""
 
     freeze_backbone = False
     freeze_rpn = False
@@ -82,14 +91,21 @@ class BaseTrainer:
                 "frozen_stages", 1)),
             freeze_backbone=self.freeze_backbone, freeze_rpn=self.freeze_rpn)
         self.params: List[torch.nn.Parameter] = []
+        names = []
         for name, p in engine.model.named_parameters():
             p.requires_grad_(mask[name])
             if mask[name]:
                 self.params.append(p)
+                names.append(name)
         self.optimizer = make_optimizer(
             self.params, self.schedule(0),
             momentum=float(opt.get("momentum", 0.9)),
-            weight_decay=float(opt.get("weight_decay", 1e-4)))
+            weight_decay=float(opt.get("weight_decay", 1e-4)), names=names,
+            paramwise_options=opt.get("paramwise_options"))
+        fp16 = cfg.get("fp16")
+        self.loss_scale = DynamicLossScale.from_config(fp16) if fp16 else None
+        self.scale_state = (self.loss_scale.init(engine.device)
+                            if self.loss_scale else None)
         bh = engine.model_cfg["bbox_head"]
         # the head's smooth-L1 β (the RPN's is 1/9, as in the reference)
         self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
@@ -103,16 +119,29 @@ class BaseTrainer:
         return self.timer.phase(name) if self.timer else \
             contextlib.nullcontext()
 
-    def apply_update(self) -> float:
-        """Clip the gradients, take one SGD step at ``schedule(step)`` and
-        advance the step; returns that lr."""
+    def apply_update(self) -> Dict[str, Any]:
+        """Unscale the gradients (under a loss scale), clip them, take one
+        SGD step at ``schedule(step)`` (each group at its ``lr_mult``) and
+        advance the step.  Returns the logs it adds: ``lr``, and under a
+        loss scale the next scale and ``overflow``, 1.0 when the gradients
+        were not finite and the step was skipped."""
         lr = self.schedule(self.step)
-        clip_grad_global_norm_(self.params, self.clip_norm)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        logs: Dict[str, Any] = dict(lr=lr)
+        apply = True
+        if self.loss_scale is not None:
+            finite, self.scale_state = self.loss_scale.unscale_and_check(
+                (p.grad for p in self.params if p.grad is not None),
+                self.scale_state)
+            apply = bool(finite)          # one host read per step
+            logs.update(loss_scale=self.scale_state.scale,
+                        overflow=0.0 if apply else 1.0)
+        if apply:
+            clip_grad_global_norm_(self.params, self.clip_norm)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr * group.get("lr_mult", 1.0)
+            self.optimizer.step()
         self.step += 1
-        return lr
+        return logs
 
     def train_step(self, sample: Dict[str, Any],
                    noise=None) -> Dict[str, Any]:
@@ -124,11 +153,13 @@ class BaseTrainer:
             loss, logs = self.loss_from_c4(c4, sample, noise)
             with self._phase("backward"):
                 self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
+                scaled = (loss if self.loss_scale is None else
+                          self.loss_scale.scale_loss(loss, self.scale_state))
+                scaled.backward()
             with self._phase("optimizer"):
-                lr = self.apply_update()
+                update_logs = self.apply_update()
         logs = {k: v.detach() for k, v in logs.items()}
-        logs.update(loss=loss.detach(), lr=lr)
+        logs.update(loss=loss.detach(), **update_logs)
         return logs
 
     def backbone(self, sample: Dict[str, Any]) -> torch.Tensor:
@@ -148,7 +179,8 @@ def _rpn_loss(cls_map: torch.Tensor, reg_map: torch.Tensor, tgt,
               beta: float = 1.0 / 9.0):
     """One image's RPN loss over its sampled anchors: sigmoid binary cross
     entropy and smooth-L1 (``beta`` 1/9), each summed and divided by the
-    sampled count.  cls_map: (A, H, W) logits, reg_map: (4A, H, W)."""
+    sampled count, in float32 for bf16 maps.  cls_map: (A, H, W) logits,
+    reg_map: (4A, H, W)."""
     logits, reg = rpn_flat_logits_deltas(cls_map, reg_map)
     n = tgt.num_total_samples
     ce = F.binary_cross_entropy_with_logits(
@@ -236,6 +268,7 @@ class SelsaTrainer(BaseTrainer):
             pooled = eng.roi_extractor(c5, torch.cat(rois))
             cls, reg = model.bbox_head(pooled, kd * P, P, torch.cat(valid))
             key = srs[kd]
+            cls, reg = widen(cls), widen(reg)
             ce = softmax_cross_entropy(cls, key.labels)
             lw, bw, sel, _ = ohem_weights(
                 key.labels, ce, key.valid, int(ohem["num"]),
@@ -274,7 +307,7 @@ class HNMBTrainer(BaseTrainer):
             raise ValueError(f"HVRNet training needs extra-class videos "
                              f"beyond the {vpc} same-class ones (got "
                              f"{n_videos} videos)")
-        frame_desc = c5.mean(dim=(2, 3))
+        frame_desc = widen(c5).mean(dim=(2, 3))
         video_desc = frame_desc.reshape(n_videos, self.ipv, -1).amax(dim=1)
         root_d = math.sqrt(video_desc.shape[-1])
         sim = torch.softmax(video_desc[:1] @ video_desc[:vpc].T / root_d,
@@ -362,6 +395,7 @@ class HNMBTrainer(BaseTrainer):
             logs = dict(loss_trip=loss_trip)
             total = loss_trip
             for b, (cls, reg) in enumerate(zip(cls_list, reg_list), 1):
+                cls, reg = widen(cls), widen(reg)
                 lc = (softmax_cross_entropy(cls, labels) * lw).sum() / navg
                 lb = (smooth_l1(reg.reshape(-1, 4), bt, self.loss_beta)
                       * bw).sum() / labels.shape[0]

@@ -1,5 +1,6 @@
 """RPN head (counterpart of ``hvrnet_tpu/models/anchor_heads/rpn_head.py``):
-3×3 conv → ReLU → 1×1 sigmoid cls + 1×1 reg."""
+3×3 conv → ReLU → 1×1 sigmoid cls + 1×1 reg, the convs in ``dtype``; the
+flattened logits and deltas are float32."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -8,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.precision import widen
+from ..layers import Conv2d
 from ..registry import HEADS
 
 
@@ -16,12 +19,14 @@ class RPNHead(nn.Module):
 
     def __init__(self, in_channels: int = 1024, feat_channels: int = 512,
                  anchor_scales: Sequence[float] = (4, 8, 16, 32),
-                 anchor_ratios: Sequence[float] = (0.5, 1.0, 2.0)):
+                 anchor_ratios: Sequence[float] = (0.5, 1.0, 2.0),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         a = len(anchor_scales) * len(anchor_ratios)
-        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
-        self.rpn_cls = nn.Conv2d(feat_channels, a, 1)
-        self.rpn_reg = nn.Conv2d(feat_channels, a * 4, 1)
+        self.rpn_conv = Conv2d(in_channels, feat_channels, 3, padding=1,
+                               compute_dtype=dtype)
+        self.rpn_cls = Conv2d(feat_channels, a, 1, compute_dtype=dtype)
+        self.rpn_reg = Conv2d(feat_channels, a * 4, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, C, Hf, Wf) → cls (B, A, Hf, Wf), reg (B, 4A, Hf, Wf)."""
@@ -35,10 +40,10 @@ def rpn_flat_logits_deltas(cls: torch.Tensor, reg: torch.Tensor):
 
     Anchor index = ((y·W) + x)·A + a, the order of the canvas anchors (and of
     the JAX package's NHWC flattening), so the maps are permuted to (H, W, ·)
-    before they are reshaped.
+    before they are reshaped.  bf16 maps come out float32 (float64 stays).
     """
-    return (cls.permute(1, 2, 0).reshape(-1),
-            reg.permute(1, 2, 0).reshape(-1, 4))
+    return (widen(cls.permute(1, 2, 0).reshape(-1)),
+            widen(reg.permute(1, 2, 0).reshape(-1, 4)))
 
 
 def rpn_flat_scores_deltas(cls: torch.Tensor, reg: torch.Tensor):

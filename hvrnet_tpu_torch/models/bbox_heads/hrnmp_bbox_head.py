@@ -25,6 +25,11 @@ and updated by one frame per slide instead of recomputed over the window.
 NL2 and NL4 have fresh key-frame queries at every step and stay exact
 attentions through the kernel.  Valid when every cached row is a key
 (t_dim·sampler_num ≥ T·P, which the engine checks).
+
+Every layer computes in ``dtype`` (``core/precision.py``).  In bf16 the
+ring's row caches are bf16 and its accumulators float32; an attention
+output, float32, goes back to bf16 in ``out_proj`` before it meets the bf16
+rows it is added to.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from torch import nn
 from ...ops.attention import NEG_INF
 from ...ops.streaming_attention import (THETA, degenerate_rows, finalize,
                                         init_rows, repair, slide)
+from ..layers import Linear
 from ..registry import HEADS
 from .bbox_head import flatten_roi_feats
 from .selsa_bbox_head import SelsaAttention
@@ -82,7 +88,8 @@ class HRNMPBBoxHead(nn.Module):
                  num_classes: int = 31, reg_class_agnostic: bool = True,
                  triplet_margin: float = 10.0,
                  compat_inverted_mining: bool = True,
-                 stream_theta: Optional[float] = None):
+                 stream_theta: Optional[float] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sampler_num = sampler_num
         self.t_dim = t_dim
@@ -94,17 +101,22 @@ class HRNMPBBoxHead(nn.Module):
         self.stream_theta = THETA if stream_theta is None else \
             float(stream_theta)
         F_ = fc_feat_dim
-        self.fc_new_1 = nn.Linear(in_channels * roi_feat_size ** 2, F_)
-        self.fc_new_2 = nn.Linear(F_, F_)
-        self.fc_new_3 = nn.Linear(F_, F_)
-        self.fc_new_4 = nn.Linear(F_, F_)
+
+        def linear(n_in, n_out):
+            return Linear(n_in, n_out, compute_dtype=dtype)
+
+        self.fc_new_1 = linear(in_channels * roi_feat_size ** 2, F_)
+        self.fc_new_2 = linear(F_, F_)
+        self.fc_new_3 = linear(F_, F_)
+        self.fc_new_4 = linear(F_, F_)
         for i in (1, 2, 3, 4):
-            self.add_module(f"selsa_{i}", SelsaAttention(i, tuple(dim), F_))
+            self.add_module(f"selsa_{i}",
+                            SelsaAttention(i, tuple(dim), F_, dtype))
         out_dim = 4 if reg_class_agnostic else 4 * num_classes
-        self.fc_cls = nn.Linear(F_, num_classes)
-        self.fc_cls_2 = nn.Linear(F_, num_classes)
-        self.fc_reg = nn.Linear(F_, out_dim)
-        self.fc_reg_2 = nn.Linear(F_, out_dim)
+        self.fc_cls = linear(F_, num_classes)
+        self.fc_cls_2 = linear(F_, num_classes)
+        self.fc_reg = linear(F_, out_dim)
+        self.fc_reg_2 = linear(F_, out_dim)
 
     def precompute_fc1(self, bbox_feat: torch.Tensor) -> torch.Tensor:
         """(N, C, 7, 7) pooled RoIs → (N, fc_feat_dim) fc_new_1 rows."""

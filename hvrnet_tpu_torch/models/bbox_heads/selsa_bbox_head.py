@@ -13,6 +13,10 @@ rows) → fc_cls / class-agnostic fc_reg.  Both blocks take their keys from
 the first ``nongt_dim = min(sampler_num·t_dim, N)`` rows, as the reference
 does: at test time every cached row; in training (sampler_num 128, t_dim 3,
 900 rows of 300 RoIs per frame) the first 384.
+
+Every layer computes in ``dtype`` (``core/precision.py``); the attention's
+logits and softmax are float32 whatever the dtype, and its float32 output
+goes back to ``dtype`` before ``linear_out``.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.precision import widen
 from ...ops.attention import NEG_INF, masked_attention
-from ..layers import conv1x1_as_linear
+from ..layers import Conv2d, Linear, conv1x1_as_linear
 from ..registry import HEADS
 from .bbox_head import flatten_roi_feats
 
@@ -32,14 +37,16 @@ from .bbox_head import flatten_roi_feats
 class SelsaAttention(nn.Module):
 
     def __init__(self, index: int, dim=(1024, 1024, 1024),
-                 fc_feat_dim: int = 1024):
+                 fc_feat_dim: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.index = index
         self.scale = 1.0 / math.sqrt(float(dim[1]))
-        self.add_module(f"q_data_fc_{index}", nn.Linear(fc_feat_dim, dim[0]))
-        self.add_module(f"k_data_fc_{index}", nn.Linear(fc_feat_dim, dim[1]))
-        self.add_module(f"linear_out_{index}",
-                        nn.Conv2d(fc_feat_dim, dim[2], 1))
+        self.add_module(f"q_data_fc_{index}", Linear(
+            fc_feat_dim, dim[0], compute_dtype=dtype))
+        self.add_module(f"k_data_fc_{index}", Linear(
+            fc_feat_dim, dim[1], compute_dtype=dtype))
+        self.add_module(f"linear_out_{index}", Conv2d(
+            fc_feat_dim, dim[2], 1, compute_dtype=dtype))
 
     # the block's projections one by one, for the streaming ring's caches
     # of stationary rows (ops/streaming_attention.py)
@@ -60,17 +67,18 @@ class SelsaAttention(nn.Module):
 
         ``return_aff`` takes the explicit-affinity path the HRNMP mining
         needs, in plain torch (the JAX package computes it outside its
-        kernel): returns (out, aff) with aff the (Q, K) scaled logits,
-        −1e30 at masked keys."""
+        kernel): returns (out, aff) with aff the (Q, K) scaled float32
+        logits, −1e30 at masked keys; the softmax weights are rounded to
+        v's dtype before their float32 product with v."""
         q = self.q_proj(roi_feat)
         k = self.k_proj(nongt_feat)
         v = nongt_feat.contiguous()
         if return_aff:
-            aff = (q @ k.T) * self.scale
+            aff = (widen(q) @ widen(k).T) * self.scale
             if key_mask is not None:
                 aff = torch.where(key_mask[None, :], aff, NEG_INF)
             w = torch.softmax(aff, dim=-1)
-            out = w.to(v.dtype) @ v
+            out = widen(w.to(v.dtype)) @ widen(v)
             return self.out_proj(out.to(roi_feat.dtype)), aff
         if key_mask is None:
             bias = torch.zeros(k.shape[0], dtype=torch.float32,
@@ -89,18 +97,23 @@ class SelsaBBoxHead(nn.Module):
                  fc_feat_dim: int = 1024,
                  dim: Sequence[int] = (1024, 1024, 1024),
                  roi_feat_size: int = 7, in_channels: int = 256,
-                 num_classes: int = 31, reg_class_agnostic: bool = True):
+                 num_classes: int = 31, reg_class_agnostic: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sampler_num = sampler_num
         self.t_dim = t_dim
         F_ = fc_feat_dim
-        self.fc_new_1 = nn.Linear(in_channels * roi_feat_size ** 2, F_)
-        self.selsa_1 = SelsaAttention(1, tuple(dim), F_)
-        self.fc_new_2 = nn.Linear(F_, F_)
-        self.selsa_2 = SelsaAttention(2, tuple(dim), F_)
-        self.fc_cls = nn.Linear(F_, num_classes)
-        self.fc_reg = nn.Linear(F_, 4 if reg_class_agnostic
-                                else 4 * num_classes)
+
+        def linear(n_in, n_out):
+            return Linear(n_in, n_out, compute_dtype=dtype)
+
+        self.fc_new_1 = linear(in_channels * roi_feat_size ** 2, F_)
+        self.selsa_1 = SelsaAttention(1, tuple(dim), F_, dtype)
+        self.fc_new_2 = linear(F_, F_)
+        self.selsa_2 = SelsaAttention(2, tuple(dim), F_, dtype)
+        self.fc_cls = linear(F_, num_classes)
+        self.fc_reg = linear(F_, 4 if reg_class_agnostic
+                             else 4 * num_classes)
 
     def precompute_fc1(self, bbox_feat: torch.Tensor) -> torch.Tensor:
         """(N, C, 7, 7) pooled RoIs → (N, fc_feat_dim) fc_new_1 rows."""

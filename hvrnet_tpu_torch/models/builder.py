@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
 from ..utils.config import unwrap
 from .roi_extractor import SingleRoIExtractor
 from .two_stage import TwoStageModule
@@ -14,8 +16,12 @@ def build_roi_extractor(cfg: Dict[str, Any]) -> SingleRoIExtractor:
     return SingleRoIExtractor(**cfg)
 
 
-def build_model_module(model_cfg: Dict[str, Any]) -> TwoStageModule:
+def build_model_module(model_cfg: Dict[str, Any],
+                       dtype: torch.dtype = torch.float32) -> TwoStageModule:
+    """The detector's modules, computing in ``dtype`` with float32
+    parameters."""
     m = unwrap(model_cfg)
     return TwoStageModule(backbone=m["backbone"],
                           shared_head=m["shared_head"],
-                          rpn_head=m["rpn_head"], bbox_head=m["bbox_head"])
+                          rpn_head=m["rpn_head"], bbox_head=m["bbox_head"],
+                          dtype=dtype)

@@ -5,6 +5,10 @@ Every BatchNorm in the shipped configs is frozen (``requires_grad=False`` +
 from the four stored tensors.  It keeps mmdet's BatchNorm names (``weight``,
 ``bias``, ``running_mean``, ``running_var``) so a reference ``state_dict``
 loads by name.
+
+Every module computes in the ``dtype`` it was built with and keeps float32
+parameters (``core/precision.py``): ``Conv2d`` and ``Linear`` are torch's
+layers with flax's ``dtype=`` / ``param_dtype=float32`` split.
 """
 from __future__ import annotations
 
@@ -12,14 +16,50 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.precision import to_compute
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that casts its input, weight and bias to
+    ``compute_dtype`` at the call."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else to_compute(self.bias, dt)
+        return self._conv_forward(to_compute(x, dt),
+                                  to_compute(self.weight, dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that casts its input, weight and bias to
+    ``compute_dtype`` at the call."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else to_compute(self.bias, dt)
+        return F.linear(to_compute(x, dt), to_compute(self.weight, dt), bias)
+
 
 class FrozenBN(nn.Module):
     """BatchNorm with frozen statistics and affine params (inference form):
-    ``scale = γ·rsqrt(var + eps)``, ``bias = β − mean·scale``."""
+    ``scale = γ·rsqrt(var + eps)``, ``bias = β − mean·scale``, computed in
+    float32 and applied in ``dtype``."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.register_buffer("weight", torch.ones(num_features))
         self.register_buffer("bias", torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -34,7 +74,9 @@ class FrozenBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         bias = self.bias - self.running_mean * scale
-        return x * scale[None, :, None, None] + bias[None, :, None, None]
+        scale = to_compute(scale, self.dtype)[None, :, None, None]
+        bias = to_compute(bias, self.dtype)[None, :, None, None]
+        return x * scale + bias
 
 
 class ConvModule(nn.Module):
@@ -42,9 +84,10 @@ class ConvModule(nn.Module):
     head's ``external_conv``; its parameters live under ``.conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 1):
+                 kernel_size: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.conv(x))
@@ -56,6 +99,9 @@ def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
 
 def conv1x1_as_linear(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1×1 Conv2d applied to (N, C) rows — the reference's ``linear_out``
-    runs on (N, C, 1, 1) maps, which is a dense layer."""
+    runs on (N, C, 1, 1) maps, which is a dense layer), in the conv's
+    compute dtype."""
+    dt = conv.compute_dtype
     w = conv.weight.reshape(conv.weight.shape[0], conv.weight.shape[1])
-    return F.linear(x, w, conv.bias)
+    return F.linear(to_compute(x, dt), to_compute(w, dt),
+                    to_compute(conv.bias, dt))

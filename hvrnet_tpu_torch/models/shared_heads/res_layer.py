@@ -19,16 +19,17 @@ class ResLayer(nn.Module):
 
     def __init__(self, depth: int = 101, stage: int = 3, stride: int = 1,
                  dilation: int = 2, style: str = "caffe",
-                 external_conv: bool = False):
+                 external_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         planes = 64 * 2 ** stage
         inplanes = planes * Bottleneck.expansion // 2
         self.stage = stage
         self.add_module(f"layer{stage + 1}", make_res_layer(
             inplanes, planes, ARCH_SETTINGS[depth][stage], stride, dilation,
-            style))
-        self.new_layer_1 = (ConvModule(planes * Bottleneck.expansion, 256, 1)
-                            if external_conv else None)
+            style, dtype))
+        self.new_layer_1 = (ConvModule(planes * Bottleneck.expansion, 256, 1,
+                                       dtype) if external_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = getattr(self, f"layer{self.stage + 1}")(x)

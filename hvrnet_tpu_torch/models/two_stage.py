@@ -5,39 +5,45 @@ The C5 configuration both shipped configs use: ``feat_from_shared_head``
 moves the dilated stage 4 and its 1×1→256 conv before RoI pooling.  The
 submodule names (``backbone``, ``shared_head``, ``rpn_head``, ``bbox_head``)
 are mmdet's, so the module's ``state_dict`` is a reference checkpoint's.
+Every submodule computes in the module's ``dtype`` (float32 parameters).
 """
 from __future__ import annotations
 
 import inspect
 from typing import Any, Dict
 
+import torch
 from torch import nn
 
 from .registry import BACKBONES, HEADS, SHARED_HEADS
 
 
-def build_submodule(cfg: Dict[str, Any], registry):
+def build_submodule(cfg: Dict[str, Any], registry,
+                    dtype: torch.dtype = torch.float32):
     """Instantiate ``cfg['type']`` from ``registry`` with the config keys its
-    constructor takes; the others (losses, norm settings the frozen modules
-    need not see) are dropped, as the JAX builder drops them."""
+    constructor takes and the compute ``dtype``; the other keys (losses,
+    norm settings the frozen modules need not see) are dropped, as the JAX
+    builder drops them."""
     cls = registry.get(cfg["type"])
     if cls is None:
         raise KeyError(f"{cfg['type']} not registered in {registry.name}")
     params = inspect.signature(cls.__init__).parameters
     kwargs = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in cfg.items() if k != "type" and k in params}
-    return cls(**kwargs)
+              for k, v in cfg.items() if k not in ("type", "dtype")
+              and k in params}
+    return cls(**kwargs, dtype=dtype)
 
 
 class TwoStageModule(nn.Module):
 
     def __init__(self, backbone: dict, shared_head: dict, rpn_head: dict,
-                 bbox_head: dict):
+                 bbox_head: dict, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.backbone = build_submodule(backbone, BACKBONES)
-        self.shared_head = build_submodule(shared_head, SHARED_HEADS)
-        self.rpn_head = build_submodule(rpn_head, HEADS)
-        self.bbox_head = build_submodule(bbox_head, HEADS)
+        self.dtype = dtype
+        self.backbone = build_submodule(backbone, BACKBONES, dtype)
+        self.shared_head = build_submodule(shared_head, SHARED_HEADS, dtype)
+        self.rpn_head = build_submodule(rpn_head, HEADS, dtype)
+        self.bbox_head = build_submodule(bbox_head, HEADS, dtype)
 
     def extract_feat(self, img):
         """(B, 3, H, W) → C4 (B, 1024, H/16, W/16)."""

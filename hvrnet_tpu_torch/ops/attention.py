@@ -84,7 +84,9 @@ def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
 
     * ``worst`` = max |Δ| / (2u·Σ_j w_j·|v_j|) ≤ 1, elementwise;
     * ``rms`` = rms(Δ) / (u·R), R² = mean of Σ_j w_j²·v_j²: independent
-      roundings give ≈ 0.6, so ≤ 1 holds with margin;
+      roundings give ≈ 0.6, so ≤ 1 holds with margin (rows of near-equal
+      weights, whose p_j share a value and round alike, are not
+      independent: there only ``worst`` bounds Δ);
     * ``rounds`` = rms(got − w·v) / (u·R): the kernel's own rounding leaves
       ≈ 0.4 between it and the unrounded product, and a kernel that skips
       the rounding ≈ 1e-4.  (With every key masked the weights are exactly 1

@@ -17,10 +17,20 @@ into the row axis: a RoI's row weights sit at its image's B·H rows
 (``_sep_pooled_weights`` of the JAX package), which is the one-image form
 exactly when B = 1.  Autograd through the two products gives the features
 their gradient; the RoIs get none, as in the reference.
+
+The feature dtype picks the arithmetic, as in the JAX package.  bf16
+features of one image take its bf16 branch: the axis weights are rounded to
+bf16, the first product is rounded to bf16 from its float32 accumulation,
+and the second accumulates and returns float32.  bf16 features of several
+images take its gather branch, which computes in float32 on the bf16
+values: here the float32 form on the widened features.  The result is
+float32 either way.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.precision import widen
 
 
 def _axis_weights(start: torch.Tensor, bin_size: torch.Tensor, dim: int,
@@ -61,9 +71,12 @@ def roi_align(feats: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
         rois: (R, 5) rows of [batch_idx, x1, y1, x2, y2] in image coords.
 
     Returns:
-        (R, C, out_size, out_size) pooled features.
+        (R, C, out_size, out_size) pooled features (float32 for bf16
+        features).
     """
     B, C, H, W = feats.shape
+    if feats.dtype == torch.bfloat16 and B > 1:
+        feats = widen(feats)
     R = rois.shape[0]
     s = out_size
     rois = rois.detach().float()
@@ -78,5 +91,5 @@ def roi_align(feats: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
     f = feats.permute(0, 2, 1, 3).reshape(B * H, C * W)
     t = (wy.reshape(R * s, B * H) @ f).reshape(R, s * C, W)
     # columns: (R, s·C, W) @ (R, W, s) → (R, s, C, s)
-    val = torch.bmm(t, wx.transpose(1, 2)).reshape(R, s, C, s)
+    val = torch.bmm(widen(t), widen(wx).transpose(1, 2)).reshape(R, s, C, s)
     return val.permute(0, 2, 1, 3).contiguous()

@@ -28,10 +28,12 @@ gap exceeds ``theta`` nats or whose mass collapsed, and ``repair`` rebuilds
 every row exactly when any is flagged.
 
 Every function is mask-aware (an invalid key contributes exactly zero, as
-the −1e30 bias of ``ops/attention.py`` does) and takes float32 tensors;
-accumulators are dicts with keys ``m``, ``l`` and ``a``.  The products are
-plain ``torch.matmul``: the callers keep TF32 off (``f32_precision``) since
-they decide a 10-nat health test.
+the −1e30 bias of ``ops/attention.py`` does); accumulators are dicts with
+keys ``m``, ``l`` and ``a``, always float32.  q, k and v are float32 or
+bf16 (a bf16 engine's row caches): bf16 operands are widened, so the logits
+are the float32 products of the bf16 values and v enters the accumulators
+unrounded.  The products are plain ``torch.matmul``: the callers keep TF32
+off (``f32_precision``) since they decide a 10-nat health test.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ def acc_init(rows: int, d: int, device=None) -> Acc:
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    return (q @ k.T) * scale
+    return (q.float() @ k.float().T) * scale
 
 
 def _anchor_rescale(m_old: torch.Tensor, m_new: torch.Tensor) -> torch.Tensor:

@@ -166,7 +166,8 @@ def test_port_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'flax', 'hvrnet_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import hvrnet_tpu_torch.engine, hvrnet_tpu_torch.utils.weights\n"
-            "import hvrnet_tpu_torch.engine.calibrate, hvrnet_tpu_torch.apis\n")
+            "import hvrnet_tpu_torch.engine.calibrate, hvrnet_tpu_torch.apis\n"
+            "import hvrnet_tpu_torch.core.precision\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
