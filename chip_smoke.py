@@ -59,7 +59,23 @@ stops the script with a non-zero exit:
    parameters float32.  ``[busy]``: for the f32 and the bf16 HVRNet
    engine, each stage's device time (``torch.profiler``) against its
    CUDA-event span, the card's idle share over it.
-10. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+10. ``[cli]``: the port's whole-video CLIs from disk.  A synthetic VID
+    tree (videos of 40 and 17 frames at 1280×720 and 12 portrait frames at
+    540×960, one or two moving boxes of VID classes, a VOC XML per frame;
+    binary PPM frames under VID's ``.JPEG`` names, read by ``read_ppm``)
+    and the f32 engines' weights saved as ``.pth`` files: ``hnl_test`` at
+    T=21 on the exact and the streaming ring, at T=63 streaming over the
+    40-frame video, in bf16 at T=21; SELSA's ``test`` with float and with
+    uint8 frames; ``vid_eval`` on a results pickle.  Checked: every frame
+    a 30-class result with finite boxes, the kernel's launches per
+    detection and per replay, an mAP in [0, 1] equal to ``vid_eval``'s, the
+    exact-ring CLI against ``SlidingWindowRunner`` over
+    ``test_frame_stream`` in this process, and the uint8 SELSA run's engine
+    inputs (bitwise) and detections against the float run's.  Printed: the
+    host data time per frame by pipeline step, the frame program and
+    window step (CUDA events), the CLI's frames/s and the share of its
+    wall time the runner waited on the frame stream.
+11. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -71,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -165,6 +182,8 @@ def phase_device(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    global CARD
+    CARD = smi
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
     # for the plain references the kernels are held against (the engine
     # turns TF32 off for its own work)
@@ -1378,6 +1397,405 @@ def phase_bf16_train(torch, np, engine_cls, config, weights, batch, stages,
     return summary
 
 
+# the [cli] phase's synthetic VID tree: (video, frames, (height, width));
+# a 1280×720 video longer than the 63-frame cache's half, one shorter than a
+# T=21 window, and a portrait one
+CLI_VIDEOS = (("val/ILSVRC2015_val_00000000", 40, (720, 1280)),
+              ("val/ILSVRC2015_val_00000001", 17, (720, 1280)),
+              ("val/ILSVRC2015_val_00000002", 12, (960, 540)))
+# (wnid, box colour BGR) per moving box; the last video has two boxes
+CLI_OBJECTS = (("n02691156", (40, 40, 220)), ("n02958343", (220, 160, 40)))
+CARD = ""                 # nvidia-smi's name and power limit, for the lines
+
+
+def write_ppm(path, img_bgr):
+    """A binary PPM (P6, RGB) of a BGR image."""
+    h, w = img_bgr.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(img_bgr[..., ::-1].tobytes())
+
+
+def read_ppm(path):
+    """The CLIs' decoder here: the card machine has no JPEG codec (neither
+    cv2 nor PIL), so the synthetic tree stores binary PPM under VID's
+    ``.JPEG`` names and this reader hands the pipeline (H, W, 3) uint8 BGR,
+    what ``cv2.imread`` gives."""
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:            # magic, width, height, maxval
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        end = pos
+        while not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    if fields[0] != b"P6" or fields[3] != b"255":
+        raise ValueError(f"{path}: not an 8-bit binary PPM")
+    w, h = int(fields[1]), int(fields[2])
+    rgb = np.frombuffer(data, np.uint8, count=h * w * 3, offset=pos + 1)
+    return np.ascontiguousarray(rgb.reshape(h, w, 3)[..., ::-1])
+
+
+def write_cli_tree(np, root, videos, seed=0):
+    """A VID tree of ``videos`` (``CLI_VIDEOS``' form): each frame a smooth random scene panning
+    under one or two moving boxes of VID classes, a VOC XML per frame, and
+    ``ImageSets/VID_val_videos.txt``.  Returns the imageset's path and each
+    frame's truth in dataset order, as (wnid, 0-based box) pairs."""
+    import xml.etree.ElementTree as ET
+    rng = np.random.default_rng(seed)
+    lines, frame_id, truth = [], 1, []
+    for v, (vpath, n, (h, w)) in enumerate(videos):
+        scene = rng.integers(0, 256, size=(h // 16 + 8, w // 16 + 8, 3),
+                             dtype=np.uint8)
+        scene = np.repeat(np.repeat(scene, 16, axis=0), 16, axis=1)
+        objects = CLI_OBJECTS[:2 if v == len(videos) - 1 else 1]
+        for i in range(n):
+            img = np.ascontiguousarray(scene[i % 64:i % 64 + h,
+                                             2 * i % 64:2 * i % 64 + w])
+            truth.append([])
+            ann = ET.Element("annotation")
+            size = ET.SubElement(ann, "size")
+            ET.SubElement(size, "width").text = str(w)
+            ET.SubElement(size, "height").text = str(h)
+            for k, (wnid, colour) in enumerate(objects):
+                x1 = w // 8 + 6 * i + k * w // 3
+                y1 = h // 5 + 3 * i + k * h // 4
+                box = (x1, y1, x1 + w // 4, y1 + h // 3)
+                img[box[1]:box[3], box[0]:box[2]] = colour
+                truth[-1].append((wnid, [c - 1 for c in box]))
+                obj = ET.SubElement(ann, "object")
+                ET.SubElement(obj, "name").text = wnid
+                bnd = ET.SubElement(obj, "bndbox")
+                for key, val in zip(("xmin", "ymin", "xmax", "ymax"), box):
+                    ET.SubElement(bnd, key).text = str(val)
+            for kind, ext in (("JPEGImages", ".JPEG"),
+                              ("Annotations", ".xml")):
+                (root / kind / vpath).mkdir(parents=True, exist_ok=True)
+            write_ppm(root / "JPEGImages" / vpath / f"{i:06d}.JPEG", img)
+            ET.ElementTree(ann).write(root / "Annotations" / vpath
+                                      / f"{i:06d}.xml")
+        lines.append(f"{vpath} {frame_id} 0 {n}")
+        frame_id += n
+    (root / "ImageSets").mkdir(exist_ok=True)
+    imageset = root / "ImageSets" / f"VID_val_{len(videos)}_videos.txt"
+    imageset.write_text("\n".join(lines) + "\n")
+    return imageset, truth
+
+
+def truth_results(np, truth):
+    """Per frame the 30-class results that are the frame's truth, each box
+    at score 1."""
+    from hvrnet_tpu_torch.data.vid_dataset import VID_WNIDS
+    results = []
+    for objects in truth:
+        frame = [np.zeros((0, 5), np.float32) for _ in VID_WNIDS]
+        for wnid, box in objects:
+            c = VID_WNIDS.index(wnid)
+            frame[c] = np.concatenate(
+                [frame[c], np.float32([box + [1.0]])])
+        results.append(frame)
+    return results
+
+
+def cli_config(config, root, imageset, out):
+    """The shipped config with its ``data.test`` pointed at the tree."""
+    out.write_text(Path(config).read_text()
+                   + f"\ndata['test']['ann_file'] = {str(imageset)!r}\n"
+                   f"data['test']['img_prefix'] = {str(root)!r}\n")
+    return str(out)
+
+
+class CliTimer(PhaseTimer):
+    """The CLIs' ``timer``: host wall time of every phase (the stream's
+    ``pipeline`` and ``canvas`` on its thread, the runner's wait for a
+    frame), CUDA events around the runner's device stages."""
+    DEVICE = ("frame_features", "window_detect")
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.host = {}
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.perf_counter()
+        with (super().phase(name) if name in self.DEVICE
+              else contextlib.nullcontext()):
+            yield
+        self.host.setdefault(name, []).append(time.perf_counter() - t0)
+
+    def host_s(self, name):
+        return sum(self.host.get(name, ()))
+
+
+def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
+    """One CLI run in this process with the PPM decoder and a timer, the
+    kernel's launch count set to 0 just before and read just after.
+    Checks a 30-class result with finite boxes for every frame, the
+    launches (``per_det`` per detection, ``per_replay`` per replayed one)
+    and an mAP in [0, 1].  Returns the run's record."""
+    import importlib
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    main = importlib.import_module(f"hvrnet_tpu_torch.tools.{module}").main
+    timer = CliTimer(torch)
+    torch.cuda.synchronize()
+    masked_attention.launches = 0
+    run = main(argv, imread=read_ppm, timer=timer)
+    torch.cuda.synchronize()
+    launches = masked_attention.launches
+    runner = run.pop("runner")
+    run.update(launches=launches, replayed=runner.replayed,
+               rebuilds=runner.rebuilds, timer=timer,
+               dtype=str(runner.engine.dtype)[6:])
+    del runner
+    n = run["frames"]
+    for i, res in enumerate(run["results"]):
+        if res is None or len(res) != 30:
+            raise RuntimeError(f"{tag} frame {i} has no 30-class result")
+        for dets in res:
+            if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
+                raise RuntimeError(f"{tag} frame {i}: bad detections")
+    want = per_det * n + per_replay * run["replayed"]
+    if launches != want:
+        raise RuntimeError(f"{tag} launched the kernel {launches} times, "
+                           f"not {want} ({per_det} per detection, "
+                           f"{per_replay} per replayed one)")
+    if run["map"] is not None and not 0.0 <= run["map"] <= 1.0:
+        raise RuntimeError(f"{tag} mAP {run['map']} outside [0, 1]")
+    run["detections"] = n
+    fps = n / run["wall_s"]
+    wait = timer.host_s("stream_wait") / run["wall_s"]
+    pipe = 1e3 * timer.host_s("pipeline") / n
+    log(f"[cli] {tag}: {n} frames, {n} detections, every frame a 30-class "
+        f"result with finite boxes; kernel launches {launches} "
+        f"(replayed detections {run['replayed']}, rebuilds "
+        f"{run['rebuilds']}); mAP {run['map']}")
+    log(f"[cli] {tag} ({CARD}): frame program "
+        f"{timer.mean_ms('frame_features'):.3f} ms/frame, window step "
+        f"{timer.mean_ms('window_detect'):.3f} ms/detection (CUDA "
+        f"events); CLI wall {fps:.3f} frames/s over {run['wall_s']:.3f} s; "
+        f"the runner waited on the stream {wait:.3f} of the wall time; "
+        f"host pipeline on the stream's thread {pipe:.3f} ms/frame")
+    run.update(fps=fps, wait_share=wait, pipeline_ms=pipe)
+    torch.cuda.empty_cache()
+    return run
+
+
+def host_data_probe(np, config, n=12):
+    """Host data time per 1280×720 frame, each step of the test pipeline
+    alone (decode, resize, flip, normalise, pad, collect) and the canvas
+    padding, over the first ``n`` frames of the tree's first video."""
+    from hvrnet_tpu_torch.engine.stream import runner_frame
+    from hvrnet_tpu_torch.tools.test import canvas_of, test_dataset
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(config)
+    ds = test_dataset(cfg, 1, 0, read_ppm)
+    canvas = canvas_of(cfg)
+    video = ds.img_infos[0]
+    n = min(n, video["frame_seg_len"])
+    ms = {}
+    for i in range(n):
+        r = dict(img_info=ds._frame_info(video, i))
+        ds.pre_pipeline(r)
+        for t in ds.pipeline.transforms:
+            t0 = time.perf_counter()
+            r = t(r)
+            name = type(t).__name__
+            ms[name] = ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        runner_frame(r, max(canvas), min(canvas))
+        ms["canvas"] = ms.get("canvas", 0.0) + 1e3 * (time.perf_counter()
+                                                     - t0)
+    ms = {k: v / n for k, v in ms.items()}
+    total = sum(ms.values())
+    log(f"[cli] ({CARD}) host data per {video['width']}x{video['height']} "
+        f"frame, ms (mean of {n}; decode = LoadImageFromFile of a binary "
+        f"PPM): " + json.dumps({k: round(v, 3) for k, v in ms.items()})
+        + f"; total {total:.3f} ms")
+    return ms
+
+
+def engine_inputs(torch, store, indices):
+    """Wrap ``BaseEngine._to_input`` to keep a host copy of the engine
+    input of the calls numbered in ``indices``; returns the restore
+    function."""
+    from hvrnet_tpu_torch.engine import detector
+    original = detector.BaseEngine._to_input
+    count = [0]
+
+    def recording(self, img, img_shape):
+        x = original(self, img, img_shape)
+        if count[0] in indices:
+            store.append(x.cpu())
+        count[0] += 1
+        return x
+
+    detector.BaseEngine._to_input = recording
+    return lambda: setattr(detector.BaseEngine, "_to_input", original)
+
+
+def compare_cli(tag, got, want, box_tol, score_tol=1e-4):
+    """Per frame and class the same number of detections, and each of
+    ``want``'s within ``box_tol`` / ``score_tol`` of a distinct one of
+    ``got``'s (rows of near-equal score may swap); returns whether the
+    results were also bitwise equal."""
+    import numpy as np
+    bitwise, worst_box, worst_score = True, 0.0, 0.0
+    for i, (fg, fw) in enumerate(zip(got, want)):
+        for cg, cw in zip(fg, fw):
+            if cg.shape != cw.shape:
+                raise RuntimeError(f"{tag} frame {i}: {cg.shape} detections "
+                                   f"against {cw.shape}")
+            bitwise = bitwise and cg.tobytes() == cw.tobytes()
+            free = list(range(len(cg)))
+            for row in cw:
+                cost = [max(abs(cg[j, :4] - row[:4]).max() / box_tol,
+                            abs(cg[j, 4] - row[4]) / score_tol)
+                        for j in free]
+                if not cost or min(cost) > 1:
+                    raise RuntimeError(f"{tag} frame {i}: detection {row} "
+                                       f"has no counterpart within the "
+                                       f"limits")
+                j = free.pop(int(np.argmin(cost)))
+                worst_box = max(worst_box, float(abs(cg[j, :4]
+                                                     - row[:4]).max()))
+                worst_score = max(worst_score, float(abs(cg[j, 4] - row[4])))
+    log(f"[cli] {tag}: per frame and class the same detections, boxes "
+        f"within {worst_box:.3g} px (limit {box_tol:.3g}), scores within "
+        f"{worst_score:.3g} (limit {score_tol:.3g}); bitwise equal: "
+        f"{bitwise}")
+    return bitwise
+
+
+def host_state_dict(engine):
+    """A host copy of an engine's weights."""
+    return {k: v.detach().cpu().clone()
+            for k, v in engine.model.state_dict().items()}
+
+
+def phase_cli(torch, np, hvr_weights, selsa_weights):
+    """The port's CLIs over a synthetic VID tree on disk (1280×720 and a
+    portrait 540×960 video, PPM frames read by ``read_ppm``) with the f32
+    engines' seeded, calibrated weights saved as ``.pth`` files: HVRNet's
+    ``hnl_test`` on the exact and streaming rings at T=21, the streaming
+    ring at T=63 over the 40-frame video, bf16 at T=21; SELSA's ``test``
+    in f32 with and without ``--u8-transfer``; ``vid_eval`` on a results
+    pickle.  Returns the runs whose launches the kernels line counts."""
+    import shutil
+    from hvrnet_tpu_torch.engine import HNMBRCNN, SlidingWindowRunner
+    from hvrnet_tpu_torch.engine.stream import test_frame_stream
+    from hvrnet_tpu_torch.tools import vid_eval
+    from hvrnet_tpu_torch.tools.test import (canvas_of, set_window,
+                                             test_dataset)
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "VID"
+    t0 = time.time()
+    imageset, truth = write_cli_tree(np, root, CLI_VIDEOS)
+    # a tree of its own: its one video is its last, which has two boxes
+    root63 = work / "VID63"
+    long_only, _ = write_cli_tree(np, root63, CLI_VIDEOS[:1])
+    hvr_ckpt, selsa_ckpt = work / "hvrnet.pth", work / "selsa.pth"
+    torch.save({"state_dict": hvr_weights}, hvr_ckpt)
+    torch.save({"state_dict": selsa_weights}, selsa_ckpt)
+    hvr_cfg = cli_config(CONFIG, root, imageset, work / "hvrnet.py")
+    hvr63_cfg = cli_config(CONFIG, root63, long_only, work / "hvrnet63.py")
+    selsa_cfg = cli_config(SELSA_CONFIG, root, imageset, work / "selsa.py")
+    n_frames = sum(n for _, n, _ in CLI_VIDEOS)
+    sizes = ", ".join(f"{n} of {w}x{h}" for _, n, (h, w) in CLI_VIDEOS)
+    log(f"[cli] tree of {len(CLI_VIDEOS)} videos, {n_frames} PPM frames "
+        f"({sizes}), and the two .pth files in {time.time() - t0:.1f} s")
+    host_data_probe(np, hvr_cfg)
+
+    def argv(cfg, ckpt, name, *extra):
+        return [cfg, str(ckpt), "--out", str(work / f"{name}.pkl"),
+                "--tmpdir", str(work / name), *extra]
+
+    hnl = ("--window", "21", "--pre-padding", "repeat", "--eval")
+    runs = {}
+    runs["cli exact T=21"] = cli_run(torch, np, "hnl_test", argv(
+        hvr_cfg, hvr_ckpt, "exact", *hnl), "hnl_test exact T=21", 4)
+    runs["cli stream T=21"] = cli_run(torch, np, "hnl_test", argv(
+        hvr_cfg, hvr_ckpt, "stream", *hnl, "--stream"),
+        "hnl_test stream T=21", 2, 4)
+    runs["cli stream T=63"] = cli_run(torch, np, "hnl_test", argv(
+        hvr63_cfg, hvr_ckpt, "stream63", "--window", "63", "--pre-padding",
+        "repeat", "--stream", "--eval"), "hnl_test stream T=63", 2, 4)
+    bf16 = cli_run(torch, np, "hnl_test", argv(
+        hvr_cfg, hvr_ckpt, "bf16", *hnl, "--bf16"),
+        "hnl_test bf16 exact T=21", 4)
+
+    # mAP against vid_eval on the same pickle
+    exact = runs["cli exact T=21"]
+    mean_ap, _ = vid_eval.main([str(work / "exact.pkl"), hvr_cfg])
+    log(f"[cli] vid_eval on the exact run's pickle: mAP {mean_ap} (the CLI "
+        f"printed {exact['map']})")
+    if mean_ap != exact["map"]:
+        raise RuntimeError("the CLI's mAP differs from vid_eval's")
+    # random weights score 0 above; the tree's own truth as results must
+    # score 1 at IoU 0.99, which a frame read out of order misses (the
+    # boxes move 6 px a frame)
+    with open(work / "truth.pkl", "wb") as f:
+        pickle.dump(truth_results(np, truth), f)
+    truth_ap, _ = vid_eval.main([str(work / "truth.pkl"), hvr_cfg,
+                                 "--iou-thr", "0.99"])
+    log(f"[cli] vid_eval of the tree's own truth at IoU 0.99: mAP "
+        f"{truth_ap} (1.0 expected)")
+    if truth_ap != 1.0:
+        raise RuntimeError("vid_eval scores the tree's truth below 1")
+
+    # the exact-ring CLI against SlidingWindowRunner over the port's
+    # test_frame_stream in this process, on the same weights
+    cfg = Config.fromfile(hvr_cfg)
+    set_window(cfg, 21)
+    test_cfg = unwrap(cfg.test_cfg)
+    engine = HNMBRCNN(unwrap(cfg.model), test_cfg, device="cuda")
+    engine.load_state_dict(hvr_weights)
+
+    ds = test_dataset(cfg, 1, 0, read_ppm)
+    canvas = canvas_of(cfg)
+    direct = SlidingWindowRunner(engine).run(
+        test_frame_stream(ds, max_long=max(canvas), max_short=min(canvas)),
+        len(ds))
+    del engine
+    torch.cuda.empty_cache()
+    compare_cli("hnl_test exact T=21 against SlidingWindowRunner over "
+                "test_frame_stream in-process", exact["results"], direct,
+                1e-4 * 1280)
+
+    # SELSA: float frames and uint8 frames, the engine input of each
+    # video's first frame kept
+    firsts = [sum(n for _, n, _ in CLI_VIDEOS[:v])
+              for v in range(len(CLI_VIDEOS))]
+    inputs = {}
+    for name, extra in (("selsa", ()), ("selsa u8", ("--u8-transfer",))):
+        inputs[name] = []
+        restore = engine_inputs(torch, inputs[name], firsts)
+        try:
+            runs[f"{name} cli"] = cli_run(torch, np, "test", argv(
+                selsa_cfg, selsa_ckpt, name.replace(" ", "_"), "--eval",
+                *extra), f"test (SELSA) {name} T=21", 2)
+        finally:
+            restore()
+    same = [torch.equal(a, b) for a, b in zip(inputs["selsa"],
+                                               inputs["selsa u8"])]
+    log(f"[cli] SELSA engine inputs of each video's first frame, uint8 "
+        f"frames normalised on the card against host-normalised float "
+        f"frames: bitwise equal {same}")
+    if len(same) != len(firsts) or not all(same):
+        raise RuntimeError("the u8 SELSA run's engine inputs differ from "
+                           "the float run's")
+    compare_cli("test (SELSA) --u8-transfer against float frames",
+                runs["selsa u8 cli"]["results"],
+                runs["selsa cli"]["results"], 1e-4 * 1280)
+    shutil.rmtree(work, ignore_errors=True)
+    return runs, {"cli exact T=21": bf16}
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -1439,7 +1857,8 @@ def route_summary(cases, runs, dtype):
              "per_step_selsa_train one SELSA training step's 2 calls, "
              "900x384 and 300x384; launches summed over the paths in "
              "launches_by_path, each counted from 0 over its run (30 "
-             "frames; train: the warmup + timed steps)",
+             "frames; train: the warmup + timed steps; cli: the CLI's "
+             "run over the [cli] tree, 69 frames, 40 at T=63)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -1466,12 +1885,16 @@ def main() -> int:
     stream, repair, forced = phase_stream(torch, np, engine, exact)
     exact63, stream63 = phase_63(torch, np, engine)
     stream16, exact16 = phase_bf16_hvrnet(torch, np, engine, exact, stream)
+    hvr_weights = host_state_dict(engine)
     del engine
     torch.cuda.empty_cache()
     selsa, selsa_engine = phase_selsa(torch, np)
     selsa16 = phase_bf16_selsa(torch, np, selsa_engine)
+    selsa_weights = host_state_dict(selsa_engine)
     del selsa_engine
     torch.cuda.empty_cache()
+    cli, cli16 = phase_cli(torch, np, hvr_weights, selsa_weights)
+    del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
     cases += train_attention(torch, dtype=bf16)
@@ -1496,10 +1919,10 @@ def main() -> int:
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
-            "selsa train": selsa_train}
+            "selsa train": selsa_train, **cli}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
-              "selsa train": selsa_train16}
+              "selsa train": selsa_train16, **cli16}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,8 @@ and ``hvrnet_tpu/models/builder.py:build_detector``), on one device.
 The engine's dtype is the training's compute dtype (float32 parameters
 either way); the config's ``fp16`` and ``optimizer.paramwise_options``
 keys reach the trainer.  The engine's type picks the trainer:
-``HNMBRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` → ``SelsaTrainer``.  ``batches`` yields ``collate_train``
+``HNMBRCNN`` and ``HNLRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` →
+``SelsaTrainer``.  ``batches`` yields ``collate_train``
 batches (``hvrnet_tpu/engine/stream.py`` format): ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
 (F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
@@ -42,15 +43,47 @@ logger = logging.getLogger("hvrnet_tpu_torch")
 def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    dtype: torch.dtype = torch.float32, device="cuda",
                    seed: int = 0):
-    """The engine of ``model_cfg['type']`` (``HNMBRCNN`` or ``SelsaRCNN``)
-    computing in ``dtype``, with seeded random weights: a serving engine
-    with a ``test_cfg``, a training engine with a ``train_cfg``."""
+    """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN`` or
+    ``SelsaRCNN``) computing in ``dtype``, with seeded random weights: a
+    serving engine with a ``test_cfg``, a training engine with a
+    ``train_cfg``."""
     model_cfg = unwrap(model_cfg)
     cls = DETECTORS.get(model_cfg["type"])
     if cls is None:
         raise NotImplementedError(f"no port engine for {model_cfg['type']}")
     return cls(model_cfg, test_cfg, device=device, seed=seed,
                train_cfg=train_cfg, dtype=dtype)
+
+
+def load_params_for_engine(engine, path: Optional[str]) -> None:
+    """Load a checkpoint's weights onto ``engine``'s model: the port's own
+    checkpoint or a reference mmdet ``.pth`` (both mmdet ``state_dict``
+    names).  Tensors the file lacks keep the engine's values, with a
+    warning that counts them; a tensor of another shape or a name the
+    model does not have raises.  ``path`` None keeps the seeded weights."""
+    if path is None:
+        return
+    state_dict = load_checkpoint(path)["state_dict"]
+    own = engine.model.state_dict()
+    # a reference BatchNorm2d also saves its update counter, which the
+    # frozen BNs drop on load (models/layers.py FrozenBN)
+    counter = "num_batches_tracked"
+    state_dict = {k: v for k, v in state_dict.items()
+                  if not (k.endswith(counter) and
+                          k[:-len(counter)] + "running_var" in own)}
+    unexpected = [k for k in state_dict if k not in own]
+    if unexpected:
+        raise KeyError(f"{path}: {len(unexpected)} tensors the model does "
+                       f"not have, e.g. {unexpected[:5]}")
+    wrong = [f"{k}: {tuple(v.shape)} against {tuple(own[k].shape)}"
+             for k, v in state_dict.items() if v.shape != own[k].shape]
+    if wrong:
+        raise ValueError(f"{path}: shape mismatch, {wrong[:5]}")
+    missing = [k for k in own if k not in state_dict]
+    engine.model.load_state_dict(state_dict, strict=False)
+    if missing:
+        logger.warning("checkpoint %s missing %d tensors (kept the "
+                       "engine's)", path, len(missing))
 
 
 def _endless(batches: Iterable[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:

@@ -7,7 +7,7 @@ are constants; per-frame anchor validity over the true padded extent
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,3 +42,23 @@ class Canvas:
         vw = min(int(np.ceil(np.float32(pad_shape[1]) / stride)), self.feat_w)
         return (self.cell_y < vh) & (self.cell_x < vw)
 
+
+
+def pick_canvas_shape(img_h: int, img_w: int, max_long: int = 1008,
+                      max_short: int = 608) -> Tuple[int, int]:
+    """The landscape canvas for a landscape or square frame, else its
+    portrait twin."""
+    if img_w >= img_h:
+        return (max_short, max_long)
+    return (max_long, max_short)
+
+
+def pad_to_canvas(img: np.ndarray, canvas_hw: Tuple[int, int]) -> np.ndarray:
+    """Zero-pad an (h, w, C) image to the canvas, top-left aligned."""
+    h, w = img.shape[:2]
+    ch, cw = canvas_hw
+    if h > ch or w > cw:
+        raise ValueError(f"a {h}x{w} frame does not fit the {ch}x{cw} canvas")
+    out = np.zeros((ch, cw, img.shape[2]), dtype=img.dtype)
+    out[:h, :w] = img
+    return out

@@ -499,3 +499,10 @@ class HNMBRCNN(_RingMixin, BaseEngine):
         if "flag" in state:
             state["flag"] = torch.zeros_like(state["flag"])
         return state
+
+
+@DETECTORS.register_module
+class HNLRCNN(HNMBRCNN):
+    """The config's intra+inter-video variant (``net_type = 'HNLRCNN'``):
+    HVRNet's engine and trainer under its own name, as in the JAX
+    package."""

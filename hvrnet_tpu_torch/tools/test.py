@@ -1,0 +1,314 @@
+"""Whole-video VID test CLI, single process per rank (counterpart of the
+JAX package's ``tools/test.py`` single-chip path, which ``tools/selsa_test.py``
+runs for SELSA):
+
+    python -m hvrnet_tpu_torch.tools.test configs/faster_rcnn_r101_selsa_c5.py \\
+        work_dirs/selsa.pth --out results.pkl --eval
+
+reads the config's ``data.test`` VID tree, runs the sliding window over
+every video on the card, writes the per-frame results (per class an
+(n, 5) array of x1, y1, x2, y2, score) and, with ``--eval``, prints the
+VID mAP.  ``--rank r --world-size n`` runs one of n processes, each on its
+own whole videos; rank 0 merges the part files.  ``--device cpu`` runs on
+the CPU.  Images are read with ``--decoder``: ``cv2`` (the default, needs
+cv2) or ``module:function``, an importable callable ``path -> (H, W, 3)
+uint8 BGR`` array.
+
+Flags of the JAX CLI that the port does not run yet stop the CLI with the
+ROADMAP item that will port them; none is accepted and ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import logging
+import os
+import pickle
+import time
+from typing import Dict, Tuple
+
+import torch
+
+from ..apis import build_detector, load_params_for_engine
+from ..data.pipelines import resolve_decoder
+from ..data.vid_dataset import build_dataset
+from ..engine.detector import resolve_device
+from ..engine.stream import prefetch_stream, test_frame_stream
+from ..engine.video_runner import SlidingWindowRunner
+from ..utils.config import Config
+from ..utils.dist_io import (collect_results, dump_part, trim_to_local,
+                             wait_for_parts)
+
+logger = logging.getLogger("hvrnet_tpu_torch")
+
+# flags of the JAX CLI that stop this one: flag → (refused when, ROADMAP item)
+REFUSED = {
+    "aug_test": (bool, "Queue 1 item 5 (aug-test)"),
+    "batched": (bool, "Queue 1 item 5 (the lockstep lanes)"),
+    "spmd_lanes": (bool, "Queue 1 item 7 (the SPMD lanes)"),
+    "pair_features": (lambda v: v > 1, "Queue 1 item 5 (pair_features)"),
+    "loader_workers": (lambda v: v > 1,
+                       "Queue 1 item 5 (the threaded loader)"),
+    "trace": (lambda v: v is not None,
+              "Queue 1 item 8 (the CLIs' --trace and --timing)"),
+    "timing": (bool, "Queue 1 item 8 (the CLIs' --trace and --timing)"),
+    "show": (bool, "Queue 1 item 8 (--show, which draws with cv2)"),
+}
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    """The flags both test CLIs share."""
+    p.add_argument("config")
+    p.add_argument("checkpoint", nargs="?", default=None)
+    p.add_argument("--world-size", type=int, default=1,
+                   help="number of video shards (ranks)")
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--tmpdir", default=None,
+                   help="directory for the ranks' part files (default: "
+                        "the directory of --out)")
+    p.add_argument("--eval", action="store_true",
+                   help="print the VID mAP of the merged results")
+    p.add_argument("--json_out", default=None,
+                   help="COCO-results json file name WITHOUT extension: "
+                        "rank 0 writes <json_out>.bbox.json after the merge")
+    p.add_argument("--merge-timeout", type=float, default=3600.0,
+                   help="rank 0's wait (s) for the other ranks' part files")
+    p.add_argument("--branch", type=int, default=-1,
+                   help="which head branch to keep (HVRNet)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute with float32 parameters, the bbox "
+                        "head's weights pre-cast")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the dataset's frame shuffles and flip draws")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--decoder", default="cv2",
+                   help="image decoder: cv2, or module:function taking a "
+                        "path and returning an (H, W, 3) uint8 BGR array")
+    p.add_argument("--show", action="store_true")
+
+
+def refuse(args: argparse.Namespace) -> None:
+    """Stop on a flag whose path is not ported yet."""
+    for name, (when, item) in REFUSED.items():
+        value = getattr(args, name, None)
+        if value is not None and when(value):
+            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet "
+                             f"(ROADMAP {item})")
+
+
+def decoder_from_flag(name: str):
+    """``cv2`` or ``module:function`` → an imread callable."""
+    if name == "cv2":
+        return resolve_decoder(name)
+    module, _, func = name.partition(":")
+    if not func:
+        raise SystemExit(f"--decoder {name!r}: give cv2 or module:function")
+    return getattr(importlib.import_module(module), func)
+
+
+def set_window(cfg, window: int) -> None:
+    """One quantity: the window sets the dataset's frame_interval and the
+    head's t_dim and key_dim together."""
+    if window < 1 or window % 2 == 0:
+        raise SystemExit(f"--window {window}: the window is 2·k + 1 frames")
+    half = (window - 1) // 2
+    cfg.test_cfg["relation_setup"]["frame_interval"] = half
+    cfg.test_cfg["bbox_head"]["t_dim"] = window
+    cfg.test_cfg["bbox_head"]["key_dim"] = half
+
+
+def canvas_of(cfg) -> Tuple[int, int]:
+    """The landscape canvas (H, W) that holds every frame of the test
+    pipeline: its keep-ratio ``Resize`` scale rounded up by its ``Pad``
+    divisor (608 × 1008 for the shipped configs); portrait frames take
+    W × H."""
+    steps = {t["type"]: t for t in cfg.data.test["pipeline"]}
+    resize, pad = steps.get("Resize"), steps.get("Pad")
+    if not (resize and resize.get("keep_ratio", True) and pad
+            and pad.get("size_divisor")):
+        raise SystemExit("the test pipeline needs a keep-ratio Resize and "
+                         "a Pad(size_divisor=...) to size the canvas")
+    d = int(pad["size_divisor"])
+    scale = resize.get("img_scale", (1000, 600))
+    return -(-min(scale) // d) * d, -(-max(scale) // d) * d
+
+
+def test_dataset(cfg, world_size: int, seed: int, imread):
+    """The config's ``data.test`` with its ``relation_setup``, in test
+    mode."""
+    data = dict(cfg.data.test)
+    data.update(dict(cfg.test_cfg.relation_setup))
+    data.pop("frame_stride", None)
+    return build_dataset(data, dict(test_mode=True, world_size=world_size,
+                                    seed=seed, imread=imread))
+
+
+def test_engine(cfg, args):
+    engine = build_detector(
+        cfg.model, None, cfg.test_cfg,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        device=args.device)
+    load_params_for_engine(engine, args.checkpoint)
+    engine.cast_head_params_bf16()      # a no-op without --bf16
+    return engine
+
+
+def setup(args) -> None:
+    logging.basicConfig(format="%(asctime)s - %(levelname)s - %(message)s",
+                        level=logging.INFO)
+    logger.setLevel(logging.INFO if args.rank == 0 else logging.ERROR)
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"no CUDA device is available; pass --device cpu "
+                         f"to run on the CPU ({e})") from e
+
+
+def run_test(args, cfg, dataset, engine, imread, prepad_provider=None,
+             u8_transfer: bool = False, timer=None) -> Dict:
+    """The runner over this rank's videos, its part file, and on rank 0 the
+    merge, ``--json_out`` and ``--eval``.  Returns the run's record:
+    ``results`` (merged on rank 0, else this rank's), ``map`` (with
+    ``--eval``), ``runner``, ``dataset``, ``wall_s`` (the runner's) and
+    ``frames`` (this rank's)."""
+    done = [0]
+
+    def progress(k):
+        done[0] += k
+        if done[0] % 100 < k:
+            logger.info("rank %d: %d frames done", args.rank, done[0])
+
+    h, w = canvas_of(cfg)
+    runner = SlidingWindowRunner(engine, branch=args.branch,
+                                 progress_hook=progress, timer=timer,
+                                 prepad_provider=prepad_provider)
+    stream = prefetch_stream(test_frame_stream(
+        dataset, rank=args.rank, max_long=max(h, w), max_short=min(h, w),
+        u8_transfer=u8_transfer, timer=timer))
+    if timer is not None:
+        stream = _waited(stream, timer)
+    t0 = time.perf_counter()
+    results = runner.run(stream, num_frames=len(dataset))
+    wall = time.perf_counter() - t0
+    tmpdir = args.tmpdir or os.path.dirname(os.path.abspath(args.out)) or "."
+    local = trim_to_local(results, dataset, args.rank)
+    dump_part(local, tmpdir, args.rank)
+    logger.info("rank %d wrote its part file", args.rank)
+    run = dict(results=local, map=None, runner=runner, dataset=dataset,
+               wall_s=wall, frames=len(local))
+    if args.rank != 0:
+        return run
+    parts = [os.path.join(tmpdir, f"part_{r}.pkl")
+             for r in range(args.world_size)]
+    wait_for_parts(parts, timeout=args.merge_timeout)
+    merged = collect_results(tmpdir, args.world_size, len(dataset))
+    with open(args.out, "wb") as f:
+        pickle.dump(merged, f)
+    logger.info("merged results → %s", args.out)
+    run["results"] = merged
+    if args.json_out:
+        path = vid_results2json(dataset, merged, args.json_out + ".bbox.json")
+        logger.info("COCO-json results → %s", path)
+    if args.eval:
+        from .vid_eval import evaluate_results
+        run["map"], _ = evaluate_results(args.out, args.config, imread=imread)
+    return run
+
+
+def _waited(stream, timer):
+    """The stream with the runner's wait for each frame in the
+    ``stream_wait`` phase."""
+    it = iter(stream)
+    while True:
+        with timer.phase("stream_wait"):
+            frame = next(it, None)
+        if frame is None:
+            return
+        yield frame
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="SELSA / HVRNet VID test")
+    add_common_args(p)
+    p.add_argument("--out", default="results.pkl")
+    p.add_argument("--window", type=int, default=None,
+                   help="window length (2·k + 1); sets frame_interval, "
+                        "t_dim and key_dim together")
+    p.add_argument("--u8-transfer", action="store_true",
+                   help="move frames to the device as uint8 and normalise "
+                        "there (4× fewer bytes, the same engine input)")
+    p.add_argument("--aug-test", action="store_true")
+    p.add_argument("--loader-workers", type=int, default=1)
+    p.add_argument("--pair-features", type=int, default=1)
+    p.add_argument("--batched", type=int, default=0)
+    p.add_argument("--spmd-lanes", action="store_true")
+    p.add_argument("--trace", default=None)
+    p.add_argument("--timing", action="store_true")
+    return p.parse_args(argv)
+
+
+def main(argv=None, imread=None, timer=None) -> Dict:
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``).  ``imread``, a
+    decoder callable, overrides ``--decoder``; ``timer.phase(name)``, when
+    given, wraps the runner's stages, the stream's pipeline and canvas
+    steps and the runner's wait for each frame."""
+    args = parse_args(argv)
+    refuse(args)
+    setup(args)
+    imread = imread or decoder_from_flag(args.decoder)
+    cfg = Config.fromfile(args.config)
+    if args.window:
+        set_window(cfg, args.window)
+    dataset = test_dataset(cfg, args.world_size, args.seed, imread)
+    engine = test_engine(cfg, args)
+    if args.u8_transfer:
+        # the device normalises with THIS config's values
+        norm = next((t for t in cfg.data.test["pipeline"]
+                     if t["type"] == "Normalize"), None)
+        if norm is not None:
+            if norm.get("to_rgb", False):
+                raise SystemExit("--u8-transfer supports to_rgb=False "
+                                 "pipelines only (BGR, like both shipped "
+                                 "configs)")
+            engine.img_norm = dict(mean=tuple(norm["mean"]),
+                                   std=tuple(norm["std"]))
+    return run_test(args, cfg, dataset, engine, imread,
+                    u8_transfer=args.u8_transfer, timer=timer)
+
+
+def _iter_frames(dataset):
+    """(global frame index, video info, in-video offset) in dataset order."""
+    fid = 0
+    for vinfo in dataset.img_infos:
+        for off in range(vinfo["frame_seg_len"]):
+            yield fid, vinfo, off
+            fid += 1
+
+
+def vid_results2json(dataset, results, out_file):
+    """Merged per-frame results → COCO results json: xywh with the +1 VOC
+    width, ``category_id`` = label + 1, image ids ``pattern % offset``."""
+    json_results = []
+    for fid, vinfo, off in _iter_frames(dataset):
+        if fid >= len(results) or results[fid] is None:
+            continue
+        res = results[fid]
+        if isinstance(res, list) and len(res) == 2 and isinstance(res[0],
+                                                                  list):
+            res = res[1]      # (branch, final) pairs
+        for label, dets in enumerate(res):
+            for det in dets:
+                x1, y1, x2, y2, score = [float(v) for v in det[:5]]
+                json_results.append(dict(
+                    image_id=vinfo["pattern"] % off,
+                    bbox=[x1, y1, x2 - x1 + 1, y2 - y1 + 1],
+                    score=score, category_id=label + 1))
+    with open(out_file, "w") as f:
+        json.dump(json_results, f)
+    return out_file
+
+
+if __name__ == "__main__":
+    main()

@@ -161,15 +161,71 @@ def test_port_imports_nothing_of_jax():
                 f"{path.relative_to(ROOT)} imports {name}"
 
 
-def test_port_imports_with_jax_blocked():
+def test_port_imports_no_image_library_at_module_level():
+    """cv2 and PIL are not on the card machine: the port imports them only
+    inside a function that a caller chose (the default decoder)."""
+    files = sorted((ROOT / "hvrnet_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            for name in names:
+                assert name.split(".")[0] not in ("cv2", "PIL"), \
+                    f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_port_imports_with_jax_blocked(tmp_path):
+    """With JAX, the JAX package, cv2 and PIL blocked (as on the card
+    machine), every port module imports, and one frame of a VID tree goes
+    through the test pipeline and the stream with an injected numpy
+    decoder."""
+    from tests.test_vid_dataset import TEST_PIPELINE, write_xml
+    root = tmp_path / "VID"
+    write_xml(str(root / "Annotations" / "v" / "000000.xml"), 72, 48,
+              [("n02691156", (10, 8, 40, 32))])
+    (root / "ImageSets").mkdir()
+    (root / "ImageSets" / "VID_val_videos.txt").write_text("v 1 0 1\n")
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'hvrnet_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'hvrnet_tpu', 'cv2', 'PIL'):\n"
             "    sys.modules[m] = None\n"
+            "import numpy as np\n"
             "import hvrnet_tpu_torch.engine, hvrnet_tpu_torch.utils.weights\n"
             "import hvrnet_tpu_torch.engine.calibrate, hvrnet_tpu_torch.apis\n"
-            "import hvrnet_tpu_torch.core.precision\n")
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
-                   timeout=120)
+            "import hvrnet_tpu_torch.core.precision\n"
+            "import hvrnet_tpu_torch.data, hvrnet_tpu_torch.core.evaluation\n"
+            "import hvrnet_tpu_torch.utils.dist_io\n"
+            "from hvrnet_tpu_torch.tools import hnl_test, test, vid_eval\n"
+            "from hvrnet_tpu_torch.data import VIDSeqDataset\n"
+            "from hvrnet_tpu_torch.engine.stream import test_frame_stream\n"
+            "def imread(path):\n"
+            "    return np.full((48, 72, 3), 7, np.uint8)\n"
+            f"ds = VIDSeqDataset(ann_file={str(root / 'ImageSets' / 'VID_val_videos.txt')!r},\n"
+            f"                   img_prefix={str(root)!r}, test_mode=True,\n"
+            f"                   pipeline={TEST_PIPELINE!r}, imread=imread)\n"
+            "frame, = test_frame_stream(ds, max_long=96, max_short=64)\n"
+            "assert frame['img'].shape == (1, 64, 96, 3), frame['img'].shape\n"
+            "assert frame['key_frame_flag'] == 1\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         timeout=120, capture_output=True, text=True)
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("cli", ["hnl_test", "test"])
+def test_clis_need_a_card_unless_told_cpu(cli):
+    """The CLIs run on the card by default and stop without one, before
+    reading any data."""
+    import importlib
+    main = importlib.import_module(f"hvrnet_tpu_torch.tools.{cli}").main
+    config = str(ROOT / "configs" / "faster_rcnn_r101_hrnmp_c5.py")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main([config, "--out", "unused.pkl"])
 
 
 def test_entry_points_default_to_the_card():
