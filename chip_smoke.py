@@ -75,7 +75,21 @@ stops the script with a non-zero exit:
     host data time per frame by pipeline step, the frame program and
     window step (CUDA events), the CLI's frames/s and the share of its
     wall time the runner waited on the frame stream.
-11. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+11. ``[train-cli]``: ``tools/train.py`` from disk at full width in f32.
+    A synthetic training tree (30 classes × 3 videos × 3 frames at
+    1280×720, a portrait 540×960 video, the class lists; 6 distinct PPM
+    scenes linked), 6 DET images and a 20-frame val tree; the configs'
+    whole training pipeline.  HVRNet (27 frames, 128 RoIs, 608×1008)
+    with ``--calibrate-bn --validate`` for 2 epochs × 2 steps, resumed
+    from ``latest.pth`` for a third; SELSA on the VID + DET concatenation
+    for 2 steps.  Checked: finite losses, 9 and 2 launches per step,
+    frozen tensors bitwise and trainable ones moved, the first sample the
+    CLI trained on bitwise equal to ``train_batch_iterator``'s in this
+    process, the step carried on, the hook's mAP per epoch equal to
+    ``hnl_test --eval`` on that epoch's checkpoint.  Printed: each
+    training transform's host ms per frame alone, wall and device ms per
+    step, the wait for samples and its share of the wall, peak memory.
+12. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1796,6 +1810,363 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
     return runs, {"cli exact T=21": bf16}
 
 
+# the [train-cli] phase's synthetic training tree: 30 classes × 3 videos of
+# 3 frames at 1280×720 (hnl=True samples 3 videos of the key class and 3 of
+# each of 2 others), one portrait video of class 1 at 540×960, and DET
+# images of 500×375; the frames link to a few distinct PPM files
+TRAIN_CLI_HW, TRAIN_CLI_PORTRAIT_HW, TRAIN_CLI_DET_HW = ((720, 1280),
+                                                         (960, 540),
+                                                         (375, 500))
+TRAIN_CLI_FRAMES, TRAIN_CLI_SCENES, TRAIN_CLI_DET = 3, 6, 6
+TRAIN_CLI_VAL = (("val/ILSVRC2015_val_00000000", 14, (720, 1280)),
+                 ("val/ILSVRC2015_val_00000001", 6, (960, 540)))
+TRAIN_CLI_DEVICE = "cuda"
+TRAIN_CLI_PROBE_FRAMES = 8
+
+
+def write_train_tree(np, root):
+    """The VID training tree, its class lists and a DET tree beside it;
+    returns (VID imageset, DET imageset)."""
+    import os
+    import xml.etree.ElementTree as ET
+    from hvrnet_tpu_torch.data.vid_dataset import VID_WNIDS
+    rng = np.random.default_rng(5)
+
+    def scene(h, w):
+        s = rng.integers(0, 256, size=(h // 16 + 1, w // 16 + 1, 3),
+                         dtype=np.uint8)
+        return np.repeat(np.repeat(s, 16, axis=0), 16, axis=1)[:h, :w]
+
+    def xml(path, w, h, objects):
+        ann = ET.Element("annotation")
+        size = ET.SubElement(ann, "size")
+        ET.SubElement(size, "width").text = str(w)
+        ET.SubElement(size, "height").text = str(h)
+        for wnid, box in objects:
+            obj = ET.SubElement(ann, "object")
+            ET.SubElement(obj, "name").text = wnid
+            bnd = ET.SubElement(obj, "bndbox")
+            for key, val in zip(("xmin", "ymin", "xmax", "ymax"), box):
+                ET.SubElement(bnd, key).text = str(val)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        ET.ElementTree(ann).write(path)
+
+    scenes = root / "scenes"
+    scenes.mkdir(parents=True)
+    h, w = TRAIN_CLI_HW
+    for k in range(TRAIN_CLI_SCENES):
+        write_ppm(scenes / f"{k}.ppm", scene(h, w))
+    ph, pw = TRAIN_CLI_PORTRAIT_HW
+    write_ppm(scenes / "portrait.ppm", scene(ph, pw))
+    vid = root / "VID"
+    lines, lists, k = [], {c: [] for c in range(1, 31)}, 0
+    videos = [(c, f"train/ILSVRC2015_train_{c:02d}{v}", (h, w))
+              for c in range(1, 31) for v in range(3)]
+    videos.append((1, "train/ILSVRC2015_train_portrait", (ph, pw)))
+    for c, vpath, (vh, vw) in videos:
+        for i in range(TRAIN_CLI_FRAMES):
+            image = vid / "JPEGImages" / vpath / f"{i:06d}.JPEG"
+            image.parent.mkdir(parents=True, exist_ok=True)
+            os.symlink(scenes / ("portrait.ppm" if vh > vw else
+                                 f"{k % TRAIN_CLI_SCENES}.ppm"), image)
+            x1 = vw // 6 + vw // 40 * (2 * i + k % 7)
+            y1 = vh // 5 + vh // 40 * i
+            xml(vid / "Annotations" / vpath / f"{i:06d}.xml", vw, vh,
+                [(VID_WNIDS[c - 1], (x1, y1, x1 + vw // 3, y1 + vh // 3))])
+            k += 1
+        lines.append(f"{vpath} 1 {TRAIN_CLI_FRAMES // 2} {TRAIN_CLI_FRAMES}")
+        lists[c].append(f"{vpath} 1")
+    (vid / "ImageSets" / "VID").mkdir(parents=True)
+    vid_set = vid / "ImageSets" / "VID_train_15frames.txt"
+    vid_set.write_text("\n".join(lines) + "\n")
+    for c, entries in lists.items():
+        (vid / "ImageSets" / "VID" / f"train_{c}.txt").write_text(
+            "\n".join(entries) + "\n")
+    det = root / "DET"
+    dh, dw = TRAIN_CLI_DET_HW
+    ids = []
+    for j in range(TRAIN_CLI_DET):
+        image_id = f"train/ILSVRC2014_train_0000/ILSVRC2014_train_{j:08d}"
+        image = det / "JPEGImages" / f"{image_id}.JPEG"
+        image.parent.mkdir(parents=True, exist_ok=True)
+        write_ppm(image, scene(dh, dw))
+        xml(det / "Annotations" / f"{image_id}.xml", dw, dh,
+            [(VID_WNIDS[j], (dw // 10 + j * dw // 60, dh // 10, dw * 3 // 5,
+                             dh * 2 // 3))])
+        ids.append(f"{image_id} 1")
+    (det / "ImageSets").mkdir(parents=True)
+    det_set = det / "ImageSets" / "DET_train_30classes.txt"
+    det_set.write_text("\n".join(ids) + "\n")
+    return vid_set, det_set
+
+
+def train_cli_config(config, out, train, val_root, val_set):
+    """The shipped config with ``data.train`` entries pointed at
+    ``train`` ((imageset, root) per entry), ``data.val`` and ``data.test``
+    at the val tree, and no ``load_from``."""
+    text = Path(config).read_text()
+    for i, (imageset, root) in enumerate(train):
+        text += (f"\ndata['train'][{i}]['ann_file'] = {str(imageset)!r}\n"
+                 f"data['train'][{i}]['img_prefix'] = {str(root)!r}\n")
+    for split in ("val", "test"):
+        text += (f"data[{split!r}]['ann_file'] = {str(val_set)!r}\n"
+                 f"data[{split!r}]['img_prefix'] = {str(val_root)!r}\n")
+    out.write_text(text + "load_from = None\n")
+    return str(out)
+
+
+class TrainCliTimer(StepTimer):
+    """``StepTimer`` that also keeps each step's host times: the wait for
+    its sample ("data") and the step's wall time from that wait's start to
+    the end of its last stage (synchronised there), and the kernel's
+    launches within each step."""
+
+    def __init__(self, torch, stages):
+        super().__init__(torch, stages)
+        from hvrnet_tpu_torch.ops.attention import masked_attention
+        self.kernel = masked_attention
+        self.data_s, self.wall_s, self.step_launches = [], [], []
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.perf_counter()
+        if name == self.stages[0]:
+            self._launches = self.kernel.launches
+        with super().phase(name):
+            yield
+        if name == "data":
+            self._start = t0
+            self.data_s.append(time.perf_counter() - t0)
+        elif name == self.stages[-1]:
+            self.torch.cuda.synchronize()
+            self.wall_s.append(time.perf_counter() - self._start)
+            self.step_launches.append(self.kernel.launches - self._launches)
+
+
+def train_cli_run(torch, np, argv, tag, stages, per_step):
+    """``tools/train.py``'s ``main`` in this process with the PPM decoder,
+    the kernel's launch count set to 0 just before and read just after.
+    Keeps the first sample trained on, each step's losses and the weights
+    before the first step (after the frozen-BN calibration); checks finite
+    losses and ``per_step`` launches in every step; prints the per-step
+    wall, data and device times.  Returns the run's record."""
+    from hvrnet_tpu_torch.engine import train as train_module
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    from hvrnet_tpu_torch.tools import train as train_cli
+    timer = TrainCliTimer(torch, stages)
+    kept = dict(losses=[], first=None, before=None)
+    step = train_module.BaseTrainer.train_step
+
+    def recording(self, sample, noise=None):
+        if kept["before"] is None:
+            kept["before"] = {k: t.clone() for k, t in
+                              self.engine.model.state_dict().items()}
+            kept["first"] = {k: v.copy() for k, v in sample.items()}
+        logs = step(self, sample, noise)
+        kept["losses"].append({k: float(v) for k, v in logs.items()
+                               if k.startswith(("loss", "acc"))})
+        return logs
+
+    torch.cuda.synchronize()
+    masked_attention.launches = 0
+    train_module.BaseTrainer.train_step = recording
+    try:
+        run = train_cli.main(argv, imread=read_ppm, timer=timer)
+    finally:
+        train_module.BaseTrainer.train_step = step
+    torch.cuda.synchronize()
+    run.update(launches=masked_attention.launches, timer=timer, **kept)
+    n = len(kept["losses"])
+    bad = [lg for lg in kept["losses"]
+           if not all(np.isfinite(v) for v in lg.values())]
+    if n == 0 or bad:
+        raise RuntimeError(f"{tag} {n} steps, non-finite losses in {bad}")
+    if timer.step_launches != [per_step] * n:
+        raise RuntimeError(f"{tag} kernel launches per step "
+                           f"{timer.step_launches}, not {per_step}")
+    spans = timer.spans
+    for i in range(n):
+        times = {s: spans[s][i][0].elapsed_time(spans[s][i][1])
+                 for s in stages}
+        device = spans[stages[0]][i][0].elapsed_time(spans[stages[-1]][i][1])
+        log(f"{tag} step {i}: wall {1e3 * timer.wall_s[i]:.3f} ms, of it "
+            f"waiting for the sample {1e3 * timer.data_s[i]:.3f} ms; "
+            f"device step {device:.3f} ms (CUDA events), stages ms "
+            + json.dumps({k: round(v, 3) for k, v in times.items()})
+            + f"; peak {timer.peaks[i]:.2f} GiB; kernel launches "
+            f"{timer.step_launches[i]}; losses "
+            + json.dumps({k: round(v, 5) for k, v in
+                          kept["losses"][i].items()}))
+    wall, data = sum(timer.wall_s), sum(timer.data_s)
+    device = [spans[stages[0]][i][0].elapsed_time(spans[stages[-1]][i][1])
+              for i in range(n)]
+    run.update(steps=n, wall_ms=1e3 * wall / n, data_ms=1e3 * data / n,
+               step_ms=sum(device) / n, data_share=data / wall,
+               peak_gib=max(timer.peaks))
+    log(f"{tag} ({CARD}): {n} steps, wall {run['wall_ms']:.3f} ms/step "
+        f"({1e3 / run['wall_ms']:.4f} steps/s), waiting for samples "
+        f"{run['data_ms']:.3f} ms/step (the card idle on data "
+        f"{run['data_share']:.3f} of the wall), device step "
+        f"{run['step_ms']:.3f} ms (CUDA events); peak device memory "
+        f"{run['peak_gib']:.2f} GiB; kernel launches "
+        f"{masked_attention.launches} in the run, {per_step} in each step")
+    return run
+
+
+def train_transform_probe(np, config, n=TRAIN_CLI_PROBE_FRAMES):
+    """Host ms per 1280×720 frame of each training transform alone, over
+    the key frames of ``n`` videos, eagerly (decoded) with the dataset's
+    own draws."""
+    from hvrnet_tpu_torch.data.vid_dataset import build_dataset
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    cfg = Config.fromfile(config)
+    ds = build_dataset(unwrap(cfg.data.train), dict(seed=1, imread=read_ppm))
+    vid = ds.datasets[0]
+    ms = {}
+    for i in range(n):
+        r = dict(img_info=vid.img_infos[3 * i],
+                 ann_info=vid.get_ann_info(3 * i))
+        vid.pre_pipeline(r)
+        for t in vid.pipeline.transforms:
+            t0 = time.perf_counter()
+            r = t(r)
+            name = type(t).__name__
+            ms[name] = ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+    ms = {k: v / n for k, v in ms.items()}
+    h, w = TRAIN_CLI_HW
+    log(f"[train-cli] ({CARD}) host ms per {w}x{h} frame of each training "
+        f"transform alone (mean of {n}; LoadImageFromFile reads a binary "
+        f"PPM): " + json.dumps({k: round(v, 3) for k, v in ms.items()})
+        + f"; total {sum(ms.values()):.3f} ms")
+    return ms
+
+
+def phase_train_cli(torch, np):
+    """``tools/train.py`` from a synthetic VID training tree on disk at
+    full width, f32: HVRNet with ``--calibrate-bn --validate`` for 2 epochs
+    × 2 steps, resumed from ``latest.pth`` for a third epoch, then SELSA on
+    the VID + DET concatenation for 2 steps.  Checked: finite losses, 9 /
+    2 launches per step, frozen tensors bitwise and trainable ones moved,
+    the first sample bitwise the in-process ``train_batch_iterator``'s, the
+    step carried on, the hook's mAP equal to ``hnl_test --eval`` on
+    ``epoch_1.pth``.  Returns the runs for the kernels line."""
+    import shutil
+    from hvrnet_tpu_torch.data.vid_dataset import build_dataset
+    from hvrnet_tpu_torch.engine.stream import train_batch_iterator
+    from hvrnet_tpu_torch.tools import hnl_test
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    work = ROOT / "build" / "chip_smoke_train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    vid_set, det_set = write_train_tree(np, work)
+    val_set, _ = write_cli_tree(np, work / "val", TRAIN_CLI_VAL)
+    hvr_cfg = train_cli_config(CONFIG, work / "hvrnet.py",
+                               [(vid_set, work / "VID")], work / "val",
+                               val_set)
+    selsa_cfg = train_cli_config(SELSA_CONFIG, work / "selsa.py",
+                                 [(vid_set, work / "VID"),
+                                  (det_set, work / "DET")], work / "val",
+                                 val_set)
+    log(f"[train-cli] training tree of 91 videos × {TRAIN_CLI_FRAMES} frames "
+        f"({TRAIN_CLI_SCENES} distinct 1280x720 PPM scenes and a portrait "
+        f"540x960 one, linked), {TRAIN_CLI_DET} DET images, a val tree of "
+        f"{sum(n for _, n, _ in TRAIN_CLI_VAL)} frames, in "
+        f"{time.time() - t0:.1f} s")
+    probe = train_transform_probe(np, hvr_cfg)
+    canvas = [str(c) for c in CANVAS]
+    common = ["--device", TRAIN_CLI_DEVICE, "--canvas", *canvas, "--seed",
+              "0", "--max-steps-per-epoch", "2"]
+    out = work / "hvrnet"
+    hvr = train_cli_run(torch, np, [hvr_cfg, "--work-dir", str(out),
+                                    "--total-epochs", "2", "--calibrate-bn",
+                                    "--validate", *common],
+                        "[train-cli] hvrnet", TRAIN_STAGES, 9)
+    check_train_weights(torch, hvr["engine"], hvr["before"],
+                        "[train-cli] hvrnet", ("shared_head.", "bbox_head."))
+    maps = [json.loads(line) for line in
+            (out / "train_log.jsonl").read_text().splitlines()]
+    maps = [m["mAP"] for m in maps if "mAP" in m]
+
+    # the first sample trained on, against train_batch_iterator in this
+    # process (the calibration's probe drawn first, as the loop draws it)
+    cfg = Config.fromfile(hvr_cfg)
+    dataset = build_dataset(unwrap(cfg.data.train),
+                            dict(seed=0, imread=read_ppm))
+    plans, plan = [0], dataset.plan
+
+    def counted(idx):
+        plans[0] += 1
+        return plan(idx)
+
+    dataset.plan = counted
+    t0 = time.perf_counter()
+    next(train_batch_iterator(dataset, CANVAS, seed=0))
+    first = next(train_batch_iterator(dataset, CANVAS, seed=0))
+    loader_s = time.perf_counter() - t0
+    same = all(np.array_equal(first[k], hvr["first"][k]) for k in first)
+    log(f"[train-cli] ({CARD}) loader in this process: 2 kept 27-frame "
+        f"samples from {plans[0]} planned ({plans[0] - 2} skipped for a "
+        f"frame off the {CANVAS[0]}x{CANVAS[1]} canvas), "
+        f"{1e3 * loader_s / 2:.3f} ms per kept sample; the first sample "
+        f"the CLI trained on bitwise equal to train_batch_iterator's: "
+        f"{same}")
+    if not same:
+        raise RuntimeError("the CLI's first sample differs from "
+                           "train_batch_iterator's")
+    del first, dataset
+
+    # the hook against hnl_test on the checkpoints, same seed and window
+    hnl = []
+    for epoch in (1, 2):
+        hnl.append(hnl_test.main(
+            [hvr_cfg, str(out / f"epoch_{epoch}.pth"), "--device",
+             TRAIN_CLI_DEVICE, "--window", "21", "--pre-padding", "repeat",
+             "--seed", "0", "--eval", "--out", str(work / f"hnl{epoch}.pkl"),
+             "--tmpdir", str(work / f"hnl{epoch}")], imread=read_ppm))
+        del hnl[-1]["runner"]
+    log(f"[train-cli] the hook's mAP per epoch {maps}; hnl_test --eval on "
+        f"epoch_1.pth, epoch_2.pth: {[r['map'] for r in hnl]}")
+    if maps != [r["map"] for r in hnl]:
+        raise RuntimeError("the hook's mAP differs from hnl_test's")
+    compare_cli("[train-cli] the hook's last detections against hnl_test "
+                "on epoch_2.pth", hvr["eval_hook"].results,
+                hnl[1]["results"], 1e-4 * 1280)
+
+    # a resume from latest.pth carries the step on for one more epoch
+    resumed = train_cli_run(torch, np, [hvr_cfg, "--work-dir", str(out),
+                                        "--total-epochs", "3",
+                                        "--resume-from",
+                                        str(out / "latest.pth"), *common],
+                            "[train-cli] hvrnet resumed", TRAIN_STAGES, 9)
+    log(f"[train-cli] resumed from latest.pth (step {hvr['trainer'].step}): "
+        f"step {resumed['trainer'].step} after one more epoch")
+    if not (hvr["trainer"].step == 4 and resumed["trainer"].step == 6):
+        raise RuntimeError("the resumed run did not carry the step on")
+    numbers = ("launches", "steps", "wall_ms", "data_ms", "step_ms",
+               "data_share", "peak_gib")
+    summary = {"train-cli hvrnet": {k: hvr[k] for k in numbers},
+               "train-cli hvrnet resumed": {k: resumed[k] for k in numbers}}
+    del hvr, resumed, hnl
+    torch.cuda.empty_cache()
+
+    selsa = train_cli_run(torch, np, [selsa_cfg, "--work-dir",
+                                      str(work / "selsa"), "--total-epochs",
+                                      "1", "--calibrate-bn", *common],
+                          "[train-cli] selsa", SELSA_TRAIN_STAGES, 2)
+    check_train_weights(torch, selsa["engine"], selsa["before"],
+                        "[train-cli] selsa",
+                        ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
+                         "shared_head.", "bbox_head."))
+    kinds = [type(d).__name__ for d in selsa["dataset"].datasets]
+    if kinds != ["VIDSeqDataset", "DETSeqDataset"]:
+        raise RuntimeError(f"[train-cli] SELSA trained on {kinds}")
+    summary["train-cli selsa"] = {k: selsa[k] for k in numbers}
+    del selsa
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return summary, probe
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -1858,7 +2229,8 @@ def route_summary(cases, runs, dtype):
              "900x384 and 300x384; launches summed over the paths in "
              "launches_by_path, each counted from 0 over its run (30 "
              "frames; train: the warmup + timed steps; cli: the CLI's "
-             "run over the [cli] tree, 69 frames, 40 at T=63)",
+             "run over the [cli] tree, 69 frames, 40 at T=63; train-cli: "
+             "tools/train.py's steps and its hook's evaluations)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -1915,11 +2287,12 @@ def main() -> int:
         ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
          "shared_head.", "bbox_head."))
     del weights
+    train_cli, _ = phase_train_cli(torch, np)
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
-            "selsa train": selsa_train, **cli}
+            "selsa train": selsa_train, **cli, **train_cli}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16}

@@ -3,15 +3,17 @@ and ``hvrnet_tpu/models/builder.py:build_detector``), on one device.
 
     engine = build_detector(cfg.model, train_cfg=cfg.train_cfg,
                             dtype=torch.bfloat16)              # on the card
-    train_detector(engine, batches, cfg, work_dir="work_dirs/hvrnet",
+    dataset = build_dataset(cfg.data.train, dict(seed=0))
+    train_detector(engine, dataset, cfg, work_dir="work_dirs/hvrnet",
                    calibrate_bn=True)
 
 The engine's dtype is the training's compute dtype (float32 parameters
 either way); the config's ``fp16`` and ``optimizer.paramwise_options``
 keys reach the trainer.  The engine's type picks the trainer:
 ``HNMBRCNN`` and ``HNLRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` →
-``SelsaTrainer``.  ``batches`` yields ``collate_train``
-batches (``hvrnet_tpu/engine/stream.py`` format): ``imgs`` (F, H, W, 3)
+``SelsaTrainer``.  ``data`` is a training dataset (``data/vid_dataset.py``;
+``engine/stream.py:train_batch_iterator`` makes its samples) or a list of
+``collate_train`` samples: ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
 (F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
 HVRNet F = 27, 9 videos × 3 frames with videos 0-2 of the key video's
@@ -20,6 +22,7 @@ engine's device as NCHW.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
@@ -32,9 +35,11 @@ import torch
 from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
 from .engine.detector import HNMBRCNN, SelsaRCNN
+from .engine.stream import train_batch_iterator
 from .engine.train import HNMBTrainer, SelsaTrainer
 from .models.registry import DETECTORS
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import (load_checkpoint, resolve_checkpoint,
+                               save_checkpoint)
 from .utils.config import unwrap
 
 logger = logging.getLogger("hvrnet_tpu_torch")
@@ -63,6 +68,7 @@ def load_params_for_engine(engine, path: Optional[str]) -> None:
     model does not have raises.  ``path`` None keeps the seeded weights."""
     if path is None:
         return
+    path = resolve_checkpoint(path)
     state_dict = load_checkpoint(path)["state_dict"]
     own = engine.model.state_dict()
     # a reference BatchNorm2d also saves its update counter, which the
@@ -98,28 +104,39 @@ def _endless(batches: Iterable[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:
             raise ValueError("train_detector ran out of batches")
 
 
-def train_detector(engine, batches: Iterable[Dict[str, Any]],
-                   cfg: Dict[str, Any], work_dir: str = "work_dir",
+def _phase(timer, name: str):
+    return timer.phase(name) if timer is not None else \
+        contextlib.nullcontext()
+
+
+def train_detector(engine, data, cfg: Dict[str, Any],
+                   work_dir: str = "work_dir",
                    total_epochs: Optional[int] = None,
                    steps_per_epoch: Optional[int] = None,
-                   resume_from: Optional[str] = None,
+                   canvas_hw=(608, 1008), resume_from: Optional[str] = None,
                    load_from: Optional[str] = None, log_interval: int = 50,
-                   seed: int = 0, calibrate_bn: bool = False, timer=None):
-    """Epoch loop: ``steps_per_epoch`` steps (default ``len(batches)``) per
+                   seed: int = 0, calibrate_bn: bool = False, eval_hook=None,
+                   timer=None):
+    """Epoch loop: ``steps_per_epoch`` steps (default ``len(data)``) per
     epoch, logs every ``log_interval`` steps to ``train_log.jsonl``, a
     checkpoint ``epoch_<n>.pth`` and ``latest.pth`` after each epoch (and
-    ``latest.pth`` every ``checkpoint_config.iter_interval`` steps).
+    ``latest.pth`` every ``checkpoint_config.iter_interval`` steps), then
+    ``eval_hook(engine, epoch)`` when given (``engine/eval_hook.py``).
 
     ``engine``: a training engine (``build_detector`` with a
     ``train_cfg``), float32 or bfloat16.
-    ``load_from``: weights to start from (the port's checkpoint or a
-    reference ``.pth`` state_dict; tensors it lacks keep their values).
-    ``resume_from``: a checkpoint of this loop, whose weights, optimizer
-    state, step, sampler generator and epoch carry on.  ``calibrate_bn``
-    sets the frozen-BN statistics from the first batch's first four frames,
-    the stand-in for pretrained statistics when the weights are random.
-    ``timer``: an object whose ``phase(name)`` context wraps each stage of a
-    step.  Returns the trainer."""
+    ``data``: a training dataset, whose samples ``train_batch_iterator``
+    draws on ``canvas_hw`` in the order ``seed`` gives, or a list of
+    ``collate_train`` samples, taken in turn.
+    ``load_from``: weights to start from (``load_params_for_engine``: the
+    port's checkpoint or a reference ``.pth``).  ``resume_from``: a
+    checkpoint of this loop, whose weights, optimizer state, step, sampler
+    generator and epoch carry on.  ``calibrate_bn`` sets the frozen-BN
+    statistics from the first sample's first four frames (of a dataset: the
+    first sample of an iterator of its own, drawn before training's), the
+    stand-in for pretrained statistics when the weights are random.
+    ``timer``: an object whose ``phase(name)`` context wraps the wait for
+    each sample ("data") and each stage of a step.  Returns the trainer."""
     if isinstance(engine, HNMBRCNN):
         trainer_cls = HNMBTrainer
     elif isinstance(engine, SelsaRCNN):
@@ -128,27 +145,31 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
         raise NotImplementedError(f"no port trainer for "
                                   f"{type(engine).__name__}")
     os.makedirs(work_dir, exist_ok=True)
-    steps_per_epoch = steps_per_epoch or len(batches)
+    steps_per_epoch = steps_per_epoch or max(len(data), 1)
     trainer = trainer_cls(engine, cfg, steps_per_epoch, seed)
     trainer.timer = timer
-    if load_from:
-        missing, unexpected = engine.model.load_state_dict(
-            load_checkpoint(load_from)["state_dict"], strict=False)
-        if missing or unexpected:
-            logger.warning("load_from %s: %d tensors missing (kept), %d "
-                           "unused", load_from, len(missing), len(unexpected))
-    stream = _endless(batches)
+    load_params_for_engine(engine, load_from)
+    from_dataset = hasattr(data, "plan")
+    if from_dataset:
+        probe = (next(train_batch_iterator(data, canvas_hw, seed=seed))
+                 if calibrate_bn else None)
+        stream = train_batch_iterator(data, canvas_hw, seed=seed)
+    else:
+        stream = _endless(data)
+        probe = next(stream) if calibrate_bn else None
+        if calibrate_bn:
+            stream = itertools.chain([probe], stream)
     if calibrate_bn:
-        probe = next(stream)
-        stream = itertools.chain([probe], stream)
         frames = [dict(img=probe["imgs"][f:f + 1],
                        img_shape=probe["img_shape"][f])
                   for f in range(min(4, len(probe["imgs"])))]
         n_bn = calibrate_frozen_bn(engine, frames)
         logger.info("FrozenBN calibration: %d BNs from %d frames", n_bn,
                     len(frames))
+        del probe, frames
     start_epoch = 0
     if resume_from:
+        resume_from = resolve_checkpoint(resume_from)
         state = load_checkpoint(resume_from)
         engine.model.load_state_dict(state["state_dict"])
         trainer.optimizer.load_state_dict(state["optimizer"])
@@ -181,7 +202,10 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
     for epoch in range(start_epoch, total_epochs):
         t0 = time.time()
         for it in range(steps_per_epoch):
-            logs = trainer.train_step(next(stream))
+            with _phase(timer, "data"):
+                sample = next(stream)
+            logs = trainer.train_step(sample)
+            del sample
             if it % log_interval == 0:
                 logs_f = {k: float(v) for k, v in logs.items()}
                 logs_f.update(epoch=epoch, iter=it, time=time.time() - t0)
@@ -192,4 +216,8 @@ def train_detector(engine, batches: Iterable[Dict[str, Any]],
                 save("latest.pth", epoch=epoch, iter=it)
         save(f"epoch_{epoch + 1}.pth", epoch=epoch + 1)
         save("latest.pth", epoch=epoch + 1)
+        if eval_hook is not None:
+            mean_ap = eval_hook(engine, epoch)
+            if mean_ap is not None:
+                logger.info("epoch %d mAP: %.4f", epoch, mean_ap)
     return trainer

@@ -1,17 +1,27 @@
-"""Host-side test pipeline (counterpart of ``hvrnet_tpu/data/pipelines.py``,
-the transforms a test config names): load, keep-ratio resize, flip,
-normalise, pad, collect.  numpy only.
+"""Host-side pipelines (counterpart of ``hvrnet_tpu/data/pipelines.py``):
+the test transforms (load, keep-ratio resize, flip, normalise, pad,
+collect) and the training ones (float loading, annotations,
+``PhotoMetricDistortion``, ``Expand``, ``MinIoURandomCrop``).  numpy only.
 
 Two things the caller hands in rather than the module importing them:
 - ``imread(path) -> (H, W, 3) uint8 BGR``, the image decoder.  The default
   ``"cv2"`` imports cv2 when the first image is read; a machine without
   cv2 passes its own decoder.
-- ``rng``, the ``np.random.RandomState`` that ``RandomFlip`` draws from
-  (the JAX package draws from numpy's global state; one explicit generator
-  per dataset gives the same draws from the same seed).
+- ``rng``, the ``np.random.RandomState`` that every random transform
+  draws from (the JAX package draws from numpy's global state; one explicit
+  generator per dataset, drawn in the reference's order, gives the same
+  draws from the same seed).
 
-``Resize`` resizes with ``data/resize.py``, bit for bit cv2's bilinear.
-The training-only transforms are not ported yet and raise.
+``Resize`` resizes with ``data/resize.py`` and the distortion converts
+colours with ``data/color.py``, both bit for bit cv2.
+
+A pipeline run on ``results`` with ``lazy`` set decodes nothing: the image
+is a ``LazyImage``, its shape and dtype known from ``img_info`` and each
+transform's pixel work queued behind its draws, which never depend on the
+pixels.  ``render()`` then decodes and applies the queue: the same
+operations on the same draws, so the same bits as the eager run.  The
+training loader plans whole samples this way and decodes only those whose
+frames fit its canvas.
 """
 from __future__ import annotations
 
@@ -20,7 +30,8 @@ from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 
-from .resize import resize_bilinear_u8
+from .color import bgr2hsv_f32, hsv2bgr_f32
+from .resize import resize_bilinear_f32, resize_bilinear_u8
 
 Decoder = Callable[[str], np.ndarray]
 
@@ -45,6 +56,48 @@ def resolve_decoder(imread: Union[str, Decoder]) -> Decoder:
     return imread
 
 
+class LazyImage:
+    """An image not decoded yet: ``load()`` gives it, ``shape`` and
+    ``dtype`` are what the queued pixel operations leave."""
+
+    def __init__(self, load: Callable[[], np.ndarray], shape, dtype,
+                 ops=()):
+        self.load = load
+        self.shape = tuple(int(n) for n in shape)
+        self.dtype = np.dtype(dtype)
+        self.ops = tuple(ops)
+        self.planned = self.shape if not ops else None
+
+    def then(self, op: Callable[[np.ndarray], np.ndarray], shape=None,
+             dtype=None) -> "LazyImage":
+        out = LazyImage(self.load, self.shape if shape is None else shape,
+                        self.dtype if dtype is None else dtype,
+                        self.ops + (op,))
+        out.planned = self.planned
+        return out
+
+    def render(self) -> np.ndarray:
+        img = self.load()
+        if img.shape != self.planned:
+            raise ValueError(f"decoded {img.shape}, but the annotation "
+                             f"says {self.planned}")
+        for op in self.ops:
+            img = op(img)
+        return img
+
+
+def pixels(img, op, shape=None, dtype=None):
+    """``op(img)`` now, or queued on a ``LazyImage`` whose result has
+    ``shape`` and ``dtype`` (default: unchanged)."""
+    if isinstance(img, LazyImage):
+        return img.then(op, shape, dtype)
+    return op(img)
+
+
+def render(img) -> np.ndarray:
+    return img.render() if isinstance(img, LazyImage) else img
+
+
 class Compose:
     def __init__(self, transforms: Sequence, rng=None,
                  imread: Union[str, Decoder] = "cv2"):
@@ -62,15 +115,10 @@ class Compose:
 class LoadImageFromFile:
     def __init__(self, to_float32: bool = False,
                  imread: Union[str, Decoder] = "cv2"):
-        if to_float32:
-            raise NotImplementedError(
-                "LoadImageFromFile(to_float32=True) feeds the training "
-                "pipeline, which is not ported yet (ROADMAP Queue 1 item 6)")
+        self.to_float32 = to_float32
         self.imread = resolve_decoder(imread)
 
-    def __call__(self, results):
-        filename = osp.join(results["img_prefix"],
-                            results["img_info"]["filename"])
+    def read(self, filename: str) -> np.ndarray:
         img = self.imread(filename)
         if img is None:
             raise FileNotFoundError(filename)
@@ -78,6 +126,18 @@ class LoadImageFromFile:
             raise ValueError(f"the decoder returned {img.dtype} "
                              f"{img.shape} for {filename}, not (H, W, 3) "
                              f"uint8")
+        return img.astype(np.float32) if self.to_float32 else img
+
+    def __call__(self, results):
+        filename = osp.join(results["img_prefix"],
+                            results["img_info"]["filename"])
+        if results.get("lazy"):
+            info = results["img_info"]
+            img = LazyImage(lambda: self.read(filename),
+                            (info["height"], info["width"], 3),
+                            np.float32 if self.to_float32 else np.uint8)
+        else:
+            img = self.read(filename)
         results["filename"] = filename
         results["img"] = img
         results["img_shape"] = img.shape
@@ -124,7 +184,10 @@ class Resize:
             new_w, new_h = int(w * f + 0.5), int(h * f + 0.5)
         else:
             new_w, new_h = self.img_scale
-        img = resize_bilinear_u8(img, (new_w, new_h))
+        resize = (resize_bilinear_f32 if img.dtype == np.float32
+                  else resize_bilinear_u8)
+        img = pixels(img, lambda a: resize(a, (new_w, new_h)),
+                     (new_h, new_w) + img.shape[2:])
         w_scale, h_scale = new_w / w, new_h / h
         results["img"] = img
         results["img_shape"] = img.shape
@@ -153,7 +216,9 @@ class RandomFlip:
         if "flip" not in results:
             results["flip"] = self.rng.rand() < self.flip_ratio
         if results["flip"]:
-            results["img"] = np.ascontiguousarray(results["img"][:, ::-1, :])
+            results["img"] = pixels(
+                results["img"],
+                lambda a: np.ascontiguousarray(a[:, ::-1, :]))
             w = results["img_shape"][1]
             for key in results.get("bbox_fields", []):
                 b = results[key].copy()
@@ -169,11 +234,15 @@ class Normalize:
         self.std = np.asarray(std, np.float32)
         self.to_rgb = to_rgb
 
-    def __call__(self, results):
-        img = results["img"].astype(np.float32)
+    def normalize(self, img: np.ndarray) -> np.ndarray:
+        img = img.astype(np.float32)
         if self.to_rgb:
             img = img[..., ::-1]
-        results["img"] = (img - self.mean) / self.std
+        return (img - self.mean) / self.std
+
+    def __call__(self, results):
+        results["img"] = pixels(results["img"], self.normalize,
+                                dtype=np.float32)
         results["img_norm_cfg"] = dict(mean=self.mean, std=self.std,
                                        to_rgb=self.to_rgb)
         return results
@@ -194,13 +263,184 @@ class Pad:
         else:
             d = self.size_divisor
             ph, pw = -(-h // d) * d, -(-w // d) * d
-        out = np.full((ph, pw, img.shape[2]), self.pad_val, img.dtype)
-        out[:h, :w] = img
+        def pad(a):
+            out = np.full((ph, pw, a.shape[2]), self.pad_val, a.dtype)
+            out[:h, :w] = a
+            return out
+
+        out = pixels(img, pad, (ph, pw, img.shape[2]))
         results["img"] = out
         results["pad_shape"] = out.shape
         results["pad_fixed_size"] = self.size
         results["pad_size_divisor"] = self.size_divisor
         return results
+
+
+class PhotoMetricDistortion:
+    """Brightness, contrast, saturation and hue jitter and a channel swap
+    on a float32 image, each applied with probability 1/2 (mmdet
+    ``transforms.py:430``), the contrast before or after the HSV step."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18, rng=None):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+        self.rng = rng if rng is not None else np.random.RandomState(0)
+
+    def __call__(self, results):
+        rng = self.rng
+        brightness = contrast = saturation = hue = perm = None
+        if rng.randint(2):
+            brightness = rng.uniform(-self.brightness_delta,
+                                     self.brightness_delta)
+        mode = rng.randint(2)
+        if mode == 1 and rng.randint(2):
+            contrast = rng.uniform(self.contrast_lower, self.contrast_upper)
+        if rng.randint(2):
+            saturation = rng.uniform(self.saturation_lower,
+                                     self.saturation_upper)
+        if rng.randint(2):
+            hue = rng.uniform(-self.hue_delta, self.hue_delta)
+        if mode == 0 and rng.randint(2):
+            contrast = rng.uniform(self.contrast_lower, self.contrast_upper)
+        if rng.randint(2):
+            perm = rng.permutation(3)
+
+        def distort(img):
+            img = img.astype(np.float32)
+            if brightness is not None:
+                img = img + brightness
+            if mode == 1 and contrast is not None:
+                img = img * contrast
+            hsv = bgr2hsv_f32(np.clip(img, 0, 255).astype(np.float32)
+                              / 255.0)
+            if saturation is not None:
+                hsv[..., 1] *= saturation
+            if hue is not None:
+                hsv[..., 0] += hue
+                hsv[..., 0][hsv[..., 0] > 360] -= 360
+                hsv[..., 0][hsv[..., 0] < 0] += 360
+            hsv[..., 1] = np.clip(hsv[..., 1], 0, 1)
+            img = hsv2bgr_f32(hsv) * 255.0
+            if mode == 0 and contrast is not None:
+                img = img * contrast
+            if perm is not None:
+                img = img[..., perm]
+            return img
+
+        results["img"] = pixels(results["img"], distort, dtype=np.float32)
+        return results
+
+
+class Expand:
+    """Paste the image onto a canvas ``ratio`` times larger filled with
+    the mean, with probability 1/2 (mmdet ``transforms.py:519``)."""
+
+    def __init__(self, mean=(0, 0, 0), to_rgb=False, ratio_range=(1, 4),
+                 rng=None):
+        self.mean = mean if not to_rgb else mean[::-1]
+        self.min_ratio, self.max_ratio = ratio_range
+        self.rng = rng if rng is not None else np.random.RandomState(0)
+
+    def __call__(self, results):
+        rng = self.rng
+        if rng.randint(2):
+            return results
+        img = results["img"]
+        h, w, c = img.shape
+        ratio = rng.uniform(self.min_ratio, self.max_ratio)
+        shape = (int(h * ratio), int(w * ratio), c)
+        left = int(rng.uniform(0, w * ratio - w))
+        top = int(rng.uniform(0, h * ratio - h))
+
+        def paste(a):
+            out = np.full(shape, self.mean, dtype=a.dtype)
+            out[top:top + h, left:left + w] = a
+            return out
+
+        expand = pixels(img, paste, shape)
+        results["img"] = expand
+        results["img_shape"] = expand.shape
+        if "gt_bboxes" in results:
+            results["gt_bboxes"] = results["gt_bboxes"] + np.tile(
+                (left, top), 2).astype(results["gt_bboxes"].dtype)
+        return results
+
+
+def _iou_patch(patch: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """IoU of one patch against each box, +1 pixel extents (mmdet's numpy
+    ``bbox_overlaps``)."""
+    if boxes.shape[0] == 0:
+        return np.zeros((0,), np.float32)
+    lt = np.maximum(patch[:2], boxes[:, :2])
+    rb = np.minimum(patch[2:], boxes[:, 2:4])
+    wh = np.clip(rb - lt + 1, 0, None)
+    inter = wh[:, 0] * wh[:, 1]
+    a1 = (patch[2] - patch[0] + 1) * (patch[3] - patch[1] + 1)
+    a2 = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+    return inter / (a1 + a2 - inter)
+
+
+class MinIoURandomCrop:
+    """SSD's crop: a random patch whose IoU with every box reaches a
+    randomly chosen minimum, keeping the boxes whose centres it holds
+    (mmdet ``transforms.py:595``).  The offsets are drawn as mmdet draws
+    them, ``uniform(w - new_w)``: one argument, the LOW bound, with the
+    default high of 1.0."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size=0.3,
+                 rng=None):
+        self.sample_mode = (1, *min_ious, 0)
+        self.min_crop_size = min_crop_size
+        self.rng = rng if rng is not None else np.random.RandomState(0)
+
+    def __call__(self, results):
+        rng = self.rng
+        img = results["img"]
+        boxes = results.get("gt_bboxes")
+        labels = results.get("gt_labels")
+        h, w, c = img.shape
+        while True:
+            mode = self.sample_mode[rng.randint(len(self.sample_mode))]
+            if mode == 1:
+                return results
+            min_iou = mode
+            for _ in range(50):
+                new_w = rng.uniform(self.min_crop_size * w, w)
+                new_h = rng.uniform(self.min_crop_size * h, h)
+                if new_h / new_w < 0.5 or new_h / new_w > 2:
+                    continue
+                left = rng.uniform(w - new_w)
+                top = rng.uniform(h - new_h)
+                patch = np.array([int(left), int(top),
+                                  int(left + new_w), int(top + new_h)])
+                if boxes is not None and boxes.shape[0] > 0:
+                    overlaps = _iou_patch(patch.astype(np.float32), boxes)
+                    if overlaps.min() < min_iou:
+                        continue
+                    centers = (boxes[:, :2] + boxes[:, 2:4]) / 2
+                    m = ((centers[:, 0] > patch[0])
+                         * (centers[:, 1] > patch[1])
+                         * (centers[:, 0] < patch[2])
+                         * (centers[:, 1] < patch[3]))
+                    if not m.any():
+                        continue
+                    b = boxes[m].copy()
+                    b[:, 2:4] = np.minimum(b[:, 2:4], patch[2:])
+                    b[:, :2] = np.maximum(b[:, :2], patch[:2])
+                    b -= np.tile(patch[:2], 2)
+                    results["gt_bboxes"] = b
+                    if labels is not None:
+                        results["gt_labels"] = labels[m]
+                window = (slice(patch[1], patch[3]),
+                          slice(patch[0], patch[2]))
+                shape = np.broadcast_to(np.uint8(0), img.shape)[window].shape
+                img = pixels(img, lambda a: a[window], shape)
+                results["img"] = img
+                results["img_shape"] = img.shape
+                return results
 
 
 class ImageToTensor:
@@ -238,17 +478,21 @@ TRANSFORMS = {
     "RandomFlip": RandomFlip,
     "Normalize": Normalize,
     "Pad": Pad,
+    "PhotoMetricDistortion": PhotoMetricDistortion,
+    "Expand": Expand,
+    "MinIoURandomCrop": MinIoURandomCrop,
     "ImageToTensor": ImageToTensor,
     "DefaultFormatBundle": DefaultFormatBundle,
     "Collect": Collect,
 }
 
-# the JAX package's training and augmentation transforms, and the ROADMAP
+# the transforms that draw from the dataset's generator
+RANDOM = ("RandomFlip", "PhotoMetricDistortion", "Expand",
+          "MinIoURandomCrop")
+
+# the JAX package's augmentation transforms still to port, and the ROADMAP
 # item that ports each
 NOT_PORTED = {
-    "PhotoMetricDistortion": "Queue 1 item 6",
-    "Expand": "Queue 1 item 6",
-    "MinIoURandomCrop": "Queue 1 item 6",
     "Corrupt": "Queue 1 item 8",
     "Albu": "Queue 1 item 8",
     "LoadProposals": "Queue 1 item 8",
@@ -265,7 +509,7 @@ def build_transform(cfg: Dict, rng=None,
                                   f"(ROADMAP {NOT_PORTED[t]})")
     if t not in TRANSFORMS:
         raise KeyError(f"unknown transform {t}")
-    if t == "RandomFlip":
+    if t in RANDOM:
         cfg["rng"] = rng
     elif t == "LoadImageFromFile":
         cfg["imread"] = imread

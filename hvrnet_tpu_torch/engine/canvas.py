@@ -43,7 +43,6 @@ class Canvas:
         return (self.cell_y < vh) & (self.cell_x < vw)
 
 
-
 def pick_canvas_shape(img_h: int, img_w: int, max_long: int = 1008,
                       max_short: int = 608) -> Tuple[int, int]:
     """The landscape canvas for a landscape or square frame, else its
@@ -53,12 +52,17 @@ def pick_canvas_shape(img_h: int, img_w: int, max_long: int = 1008,
     return (max_long, max_short)
 
 
+class FrameTooLarge(ValueError):
+    """A frame larger than its canvas."""
+
+
 def pad_to_canvas(img: np.ndarray, canvas_hw: Tuple[int, int]) -> np.ndarray:
     """Zero-pad an (h, w, C) image to the canvas, top-left aligned."""
     h, w = img.shape[:2]
     ch, cw = canvas_hw
     if h > ch or w > cw:
-        raise ValueError(f"a {h}x{w} frame does not fit the {ch}x{cw} canvas")
+        raise FrameTooLarge(f"a {h}x{w} frame does not fit the {ch}x{cw} "
+                            f"canvas")
     out = np.zeros((ch, cw, img.shape[2]), dtype=img.dtype)
     out[:h, :w] = img
     return out

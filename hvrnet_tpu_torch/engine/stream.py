@@ -1,5 +1,7 @@
-"""Host frame streams for ``SlidingWindowRunner`` (counterpart of
-``hvrnet_tpu/engine/stream.py:test_frame_stream`` and ``prefetch_stream``).
+"""Host frame streams for ``SlidingWindowRunner`` and training samples
+for the trainers (counterpart of ``hvrnet_tpu/engine/stream.py``:
+``test_frame_stream``, ``prefetch_stream``, ``collate_train`` and
+``train_batch_iterator``).
 
 ``test_frame_stream`` walks one rank's whole-video shard of a test
 ``VIDSeqDataset`` and yields the runner's frame dicts, each frame's image
@@ -14,12 +16,12 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Sequence
 
 import numpy as np
 
-from ..data.pipelines import Compose
-from .canvas import pad_to_canvas, pick_canvas_shape
+from ..data.pipelines import Compose, render
+from .canvas import FrameTooLarge, pad_to_canvas, pick_canvas_shape
 
 
 def u8_pipeline(dataset) -> Compose:
@@ -69,6 +71,66 @@ def test_frame_stream(dataset, rank: int = 0, max_long: int = 1008,
             yield frame
     finally:
         dataset.pipeline = saved
+
+
+def collate_train(frames: Sequence[Dict], canvas_hw, gt_max: int = 32
+                  ) -> Dict:
+    """A dataset item (pipelined frames, decoded or planned) as one
+    fixed-shape training
+    sample: ``imgs`` (F, H, W, 3) float32 on the canvas, ``gt_bboxes``
+    (F, gt_max, 4), ``gt_labels`` (F, gt_max), ``gt_mask`` (F, gt_max)
+    (boxes past ``gt_max`` dropped), ``img_shape`` and ``pad_shape`` (F,
+    2).  A frame larger than the canvas raises ``FrameTooLarge``."""
+    F = len(frames)
+    ch, cw = canvas_hw
+    for fr in frames:           # before decoding any planned image
+        h, w = fr["img"].shape[:2]
+        if h > ch or w > cw:
+            raise FrameTooLarge(f"a {h}x{w} frame does not fit the "
+                                f"{ch}x{cw} canvas")
+    imgs = np.zeros((F, ch, cw, 3), np.float32)
+    gt_bboxes = np.zeros((F, gt_max, 4), np.float32)
+    gt_labels = np.zeros((F, gt_max), np.int64)
+    gt_mask = np.zeros((F, gt_max), bool)
+    img_shape = np.zeros((F, 2), np.float32)
+    pad_shape = np.zeros((F, 2), np.float32)
+    for i, fr in enumerate(frames):
+        imgs[i] = pad_to_canvas(render(fr["img"]).astype(np.float32),
+                                (ch, cw))
+        meta = fr["img_meta"]
+        img_shape[i] = meta["img_shape"][:2]
+        pad_shape[i] = meta["pad_shape"][:2]
+        b = fr.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        lab = fr.get("gt_labels", np.zeros((0,), np.int64))
+        n = min(len(b), gt_max)
+        gt_bboxes[i, :n] = b[:n]
+        gt_labels[i, :n] = lab[:n]
+        gt_mask[i, :n] = True
+    return dict(imgs=imgs, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                gt_mask=gt_mask, img_shape=img_shape, pad_shape=pad_shape)
+
+
+def train_batch_iterator(dataset, canvas_hw=(608, 1008), gt_max: int = 32,
+                         shuffle: bool = True, seed: int = 0
+                         ) -> Iterator[Dict]:
+    """Training samples, one dataset item each, endlessly: the order from
+    ``np.random.default_rng(seed)`` reshuffled each pass.  An item with a
+    frame that does not fit the canvas (a portrait video or crop in a
+    landscape run) is skipped, its draws consumed; items are planned
+    (``dataset.plan``) and only the kept ones decoded.  A sample equals
+    the JAX iterator's batch ``[0]`` at batch size 1."""
+    order = np.arange(len(dataset))
+    rng = np.random.default_rng(seed)
+    while True:
+        if shuffle:
+            rng.shuffle(order)
+        for idx in order:
+            frames = dataset.plan(int(idx))
+            try:
+                sample = collate_train(frames, canvas_hw, gt_max)
+            except FrameTooLarge:
+                continue
+            yield sample
 
 
 def _phase(timer, name):

@@ -26,6 +26,15 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     os.replace(tmp, path)
 
 
+def resolve_checkpoint(path: str) -> str:
+    """``path``, or ``path + '.pth'`` where only that exists: a config's
+    ``load_from = '.../latest'`` (the JAX package's checkpoint directory
+    name) names the port's ``latest.pth``."""
+    if not os.path.exists(path) and os.path.exists(path + ".pth"):
+        return path + ".pth"
+    return path
+
+
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     """The saved dict; a bare ``state_dict`` (a reference ``.pth``'s
     weights alone) comes back under ``state_dict`` with step 0."""

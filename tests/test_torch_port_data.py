@@ -285,12 +285,6 @@ def test_canvas_helpers_match_jax():
         pad_to_canvas(img, (1, 5))
 
 
-def test_train_side_is_not_ported_yet(tree):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        vid_dataset.VIDSeqDataset(ann_file=ann_file(tree), img_prefix=tree,
-                                  pipeline=TEST_PIPELINE)
-
-
 # ------------------------------------------------------------------- mAP
 def random_results(seed, n_frames=12, n_classes=30):
     """Detections near seeded ground truth, with empty frames, empty

@@ -180,9 +180,9 @@ def test_port_imports_no_image_library_at_module_level():
 
 def test_port_imports_with_jax_blocked(tmp_path):
     """With JAX, the JAX package, cv2 and PIL blocked (as on the card
-    machine), every port module imports, and one frame of a VID tree goes
+    machine), every port module imports, one frame of a VID tree goes
     through the test pipeline and the stream with an injected numpy
-    decoder."""
+    decoder, and a float frame through the training transforms."""
     from tests.test_vid_dataset import TEST_PIPELINE, write_xml
     root = tmp_path / "VID"
     write_xml(str(root / "Annotations" / "v" / "000000.xml"), 72, 48,
@@ -198,7 +198,10 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "import hvrnet_tpu_torch.core.precision\n"
             "import hvrnet_tpu_torch.data, hvrnet_tpu_torch.core.evaluation\n"
             "import hvrnet_tpu_torch.utils.dist_io\n"
-            "from hvrnet_tpu_torch.tools import hnl_test, test, vid_eval\n"
+            "from hvrnet_tpu_torch.tools import hnl_test, test, train, "
+            "vid_eval\n"
+            "import hvrnet_tpu_torch.engine.eval_hook\n"
+            "from hvrnet_tpu_torch.data import pipelines\n"
             "from hvrnet_tpu_torch.data import VIDSeqDataset\n"
             "from hvrnet_tpu_torch.engine.stream import test_frame_stream\n"
             "def imread(path):\n"
@@ -209,13 +212,21 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "frame, = test_frame_stream(ds, max_long=96, max_short=64)\n"
             "assert frame['img'].shape == (1, 64, 96, 3), frame['img'].shape\n"
             "assert frame['key_frame_flag'] == 1\n"
+            "steps = [dict(type=t) for t in ('PhotoMetricDistortion', "
+            "'Expand', 'MinIoURandomCrop')]\n"
+            "steps.append(dict(type='Resize', img_scale=(96, 64)))\n"
+            "r = pipelines.Compose(steps, np.random.RandomState(0))(dict(\n"
+            "    img=np.full((48, 72, 3), 9, np.float32),\n"
+            "    gt_bboxes=np.float32([[10, 8, 40, 32]]),\n"
+            "    gt_labels=np.int64([1]), bbox_fields=['gt_bboxes']))\n"
+            "assert r['img'].dtype == np.float32\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          timeout=120, capture_output=True, text=True)
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("cli", ["hnl_test", "test"])
+@pytest.mark.parametrize("cli", ["hnl_test", "test", "train"])
 def test_clis_need_a_card_unless_told_cpu(cli):
     """The CLIs run on the card by default and stop without one, before
     reading any data."""
@@ -225,7 +236,7 @@ def test_clis_need_a_card_unless_told_cpu(cli):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
-        main([config, "--out", "unused.pkl"])
+        main([config] + ([] if cli == "train" else ["--out", "unused.pkl"]))
 
 
 def test_entry_points_default_to_the_card():

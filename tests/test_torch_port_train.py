@@ -864,4 +864,4 @@ def test_train_detector_load_from(setup, work_dir, caplog):
     for k, v in first.items():
         want = own[k] if k.startswith("bbox_head.fc_cls_2.") else sd[k]
         assert torch.equal(v, want), k
-    assert "2 tensors missing" in caplog.text
+    assert "missing 2 tensors" in caplog.text
