@@ -89,7 +89,28 @@ stops the script with a non-zero exit:
     ``hnl_test --eval`` on that epoch's checkpoint.  Printed: each
     training transform's host ms per frame alone, wall and device ms per
     step, the wait for samples and its share of the wall, peak memory.
-12. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+12. ``[lanes]``: the lockstep multi-stream runner (``test --batched B``).
+    The kernel on 4 lanes at (4, 6300, 6300) and (4, 300, 6300), f32 and
+    bf16, against its plain version, a 1-lane call bitwise the 2-D call,
+    timed beside 4 separate calls, the plain version and SDPA.  A
+    landscape PPM tree of 5 videos of 12–30 frames at 1280×720: HVRNet
+    f32 and bf16 and SELSA f32 at full width through
+    ``BatchedSlidingWindowRunner`` with 4 streams (streams refill, one
+    runs dry) and 4 loader threads: every frame emitted once, 4 and 2
+    launches per lockstep detection.  Each lane held against the
+    sequential runner fed the lanes' own frame caches: every window bit
+    for bit a lane's, the head within 1e-4 (f32) or the bf16 budget, the
+    detections bitwise; the batched backbone per lane by depth within
+    ``LANES_MAP_LIMIT`` of one frame at a time (f32 at every depth, bf16
+    to layer2, where its rounding is not yet amplified) and farther from
+    every other lane's frame, the post bitwise.  The lockstep step at
+    B = 1, 2, 4, 8 on synthetic frames, by stage, with frames/s, peak
+    memory and launches; ``[busy]`` of the batched bf16 frame program.
+    ``[cli]``: ``test --batched 4 --loader-workers 4 --u8-transfer`` from
+    disk equal to ``--batched 4`` with no loader threads, frames/s beside
+    the sequential ``hnl_test``; on 4 videos of 64 frames against the
+    sequential ``test`` with the same loader threads.
+13. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1561,8 +1582,12 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
     torch.cuda.synchronize()
     launches = masked_attention.launches
     runner = run.pop("runner")
-    run.update(launches=launches, replayed=runner.replayed,
-               rebuilds=runner.rebuilds, timer=timer,
+    # the lockstep runner detects every stream at once, and replays nothing
+    detects = getattr(runner, "detects", run["frames"])
+    run.update(launches=launches, detects=detects,
+               runner_steps=getattr(runner, "steps", None),
+               replayed=getattr(runner, "replayed", 0),
+               rebuilds=getattr(runner, "rebuilds", 0), timer=timer,
                dtype=str(runner.engine.dtype)[6:])
     del runner
     n = run["frames"]
@@ -1572,19 +1597,22 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
         for dets in res:
             if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
                 raise RuntimeError(f"{tag} frame {i}: bad detections")
-    want = per_det * n + per_replay * run["replayed"]
+    want = per_det * detects + per_replay * run["replayed"]
     if launches != want:
         raise RuntimeError(f"{tag} launched the kernel {launches} times, "
-                           f"not {want} ({per_det} per detection, "
-                           f"{per_replay} per replayed one)")
+                           f"not {want} ({per_det} per detection of its "
+                           f"{detects}, {per_replay} per replayed one)")
     if run["map"] is not None and not 0.0 <= run["map"] <= 1.0:
         raise RuntimeError(f"{tag} mAP {run['map']} outside [0, 1]")
     run["detections"] = n
     fps = n / run["wall_s"]
-    wait = timer.host_s("stream_wait") / run["wall_s"]
+    # the wait for frames: the sequential runner's on its stream, the
+    # lockstep runner's own loading
+    wait = (timer.host_s("stream_wait") + timer.host_s("load")) \
+        / run["wall_s"]
     pipe = 1e3 * timer.host_s("pipeline") / n
-    log(f"[cli] {tag}: {n} frames, {n} detections, every frame a 30-class "
-        f"result with finite boxes; kernel launches {launches} "
+    log(f"[cli] {tag}: {n} frames, {detects} detections, every frame a "
+        f"30-class result with finite boxes; kernel launches {launches} "
         f"(replayed detections {run['replayed']}, rebuilds "
         f"{run['rebuilds']}); mAP {run['map']}")
     log(f"[cli] {tag} ({CARD}): frame program "
@@ -1651,37 +1679,46 @@ def engine_inputs(torch, store, indices):
     return lambda: setattr(detector.BaseEngine, "_to_input", original)
 
 
-def compare_cli(tag, got, want, box_tol, score_tol=1e-4):
+def compare_cli(tag, got, want, box_tol, score_tol=1e-4, prefix="[cli]"):
     """Per frame and class the same number of detections, and each of
     ``want``'s within ``box_tol`` / ``score_tol`` of a distinct one of
     ``got``'s (rows of near-equal score may swap); returns whether the
     results were also bitwise equal."""
-    import numpy as np
     bitwise, worst_box, worst_score = True, 0.0, 0.0
     for i, (fg, fw) in enumerate(zip(got, want)):
-        for cg, cw in zip(fg, fw):
-            if cg.shape != cw.shape:
-                raise RuntimeError(f"{tag} frame {i}: {cg.shape} detections "
-                                   f"against {cw.shape}")
-            bitwise = bitwise and cg.tobytes() == cw.tobytes()
-            free = list(range(len(cg)))
-            for row in cw:
-                cost = [max(abs(cg[j, :4] - row[:4]).max() / box_tol,
-                            abs(cg[j, 4] - row[4]) / score_tol)
-                        for j in free]
-                if not cost or min(cost) > 1:
-                    raise RuntimeError(f"{tag} frame {i}: detection {row} "
-                                       f"has no counterpart within the "
-                                       f"limits")
-                j = free.pop(int(np.argmin(cost)))
-                worst_box = max(worst_box, float(abs(cg[j, :4]
-                                                     - row[:4]).max()))
-                worst_score = max(worst_score, float(abs(cg[j, 4] - row[4])))
-    log(f"[cli] {tag}: per frame and class the same detections, boxes "
+        bitwise = bitwise and all(cg.tobytes() == cw.tobytes()
+                                  for cg, cw in zip(fg, fw))
+        problem, box, score = match_frame(fg, fw, box_tol, score_tol)
+        if problem:
+            raise RuntimeError(f"{tag} frame {i}: {problem}")
+        worst_box, worst_score = max(worst_box, box), max(worst_score, score)
+    log(f"{prefix} {tag}: per frame and class the same detections, boxes "
         f"within {worst_box:.3g} px (limit {box_tol:.3g}), scores within "
         f"{worst_score:.3g} (limit {score_tol:.3g}); bitwise equal: "
         f"{bitwise}")
     return bitwise
+
+
+def match_frame(fg, fw, box_tol, score_tol):
+    """(what differs or "", worst box |Δ|, worst score |Δ|) of one frame's
+    per-class detections: the same counts, and each of ``fw``'s rows within
+    the limits of a distinct row of ``fg`` (nearest first)."""
+    import numpy as np
+    worst_box = worst_score = 0.0
+    for cg, cw in zip(fg, fw):
+        if cg.shape != cw.shape:
+            return f"{cg.shape} detections against {cw.shape}", 0.0, 0.0
+        free = list(range(len(cg)))
+        for row in cw:
+            cost = [max(abs(cg[j, :4] - row[:4]).max() / box_tol,
+                        abs(cg[j, 4] - row[4]) / score_tol) for j in free]
+            if not cost or min(cost) > 1:
+                return (f"detection {row} has no counterpart within the "
+                        f"limits"), 0.0, 0.0
+            j = free.pop(int(np.argmin(cost)))
+            worst_box = max(worst_box, float(abs(cg[j, :4] - row[:4]).max()))
+            worst_score = max(worst_score, float(abs(cg[j, 4] - row[4])))
+    return "", worst_box, worst_score
 
 
 def host_state_dict(engine):
@@ -2167,6 +2204,670 @@ def phase_train_cli(torch, np):
     return summary, probe
 
 
+# [lanes]: B = 4 lockstep streams over landscape videos of unequal lengths
+# (12–30 frames), so that streams end, take the next video, and one runs
+# dry; the kernel's lane shapes; the lockstep step at B = 1, 2, 4, 8
+LANES_B = 4
+LANES_SWEEP = (1, 2, 4, 8)
+LANES_VIDEOS = tuple((f"val/ILSVRC2015_val_{i:08d}", n, (720, 1280))
+                     for i, n in enumerate((30, 12, 21, 16, 25)))
+# B videos long enough that a lockstep step rarely runs a padded push:
+# ``test --batched 4`` against the sequential ``test`` from disk
+LANES_LONG = tuple((f"val/ILSVRC2015_val_{i:08d}", 64, (720, 1280))
+                   for i in range(LANES_B))
+LANES_ATTN = ((6300, 6300, "lanes NL1/NL3"), (300, 6300, "lanes NL2/NL4"))
+# the batched backbone's outputs of each lane against the same frame's
+# alone, by depth (the stem conv, layer1-3 = C4, then C5 and the RPN
+# maps), as |Δ|₂ / |alone|₂.  The batched convolutions round differently
+# (cuDNN picks its algorithms by batch size) and the seeded random
+# weights amplify a rounding ~25× per stage (f32 layer2 2e-6 → C5 1.7e-4,
+# bf16 6.5e-3 → 0.36; a lane holding another lane's frame is 0.7-1.4 off
+# at every depth), so f32 is held at every depth and bf16 up to layer2,
+# where its rounding is not yet amplified past a lane fault's size
+LANES_MAP_DEPTHS = ("conv1", "layer1", "layer2", "layer3", "c5", "rpn cls",
+                    "rpn reg")
+LANES_MAP_LIMIT = {"float32": (1e-3, LANES_MAP_DEPTHS),
+                   "bfloat16": (0.05, LANES_MAP_DEPTHS[:3])}
+
+
+def lanes_attention(torch):
+    """The kernel on B = 4 lanes at the exact ring's shapes (each lane its
+    own keys and mask; lane 1 with half its keys masked) against its plain
+    version, f32 and bf16 at their limits; a 1-lane call bitwise equal to
+    the 2-D call; times of the lane call, of B separate 2-D calls, of the
+    plain version and of SDPA on the same batched shapes; the bound B ×
+    one call's."""
+    import torch.nn.functional as F
+    from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
+                                                bf16_agreement,
+                                                masked_attention, plan)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scale, B = D ** -0.5, LANES_B
+    cases = []
+    for nq, nk, label in LANES_ATTN:
+        for dt in (torch.float32, torch.bfloat16):
+            f32 = dt == torch.float32
+            q, k, v = (torch.randn(B, n, D, device="cuda",
+                                   generator=gen).to(dt)
+                       for n in (nq, nk, nk))
+            live = torch.rand(B, nk, device="cuda", generator=gen) >= 0.1
+            live[1, nk // 2:] = False
+            bias = torch.where(live, 0.0, NEG_INF).float()
+            got = masked_attention(q, k, v, bias, scale)
+            case = dict(label=label, lanes=B, nq=nq, nk=nk,
+                        dtype=str(dt).replace("torch.", ""),
+                        masking="10% masked, lane 1 half")
+            if f32:
+                want = attention_plain(q, k, v, bias, scale)
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                case.update(max_abs_err=err, tol=1e-4, rel_err=rel,
+                            rel_tol=1e-5)
+                ok = err <= 1e-4 and rel <= 1e-5
+                del want
+            else:
+                case.update(bf16_agreement(got, q, k, v, bias, scale))
+                ok = (case["worst"] <= 1 and case["rms"] <= 1
+                      and case["rounds"] >= 0.1)
+            one = masked_attention(q[:1], k[:1], v[:1], bias[:1], scale)[0]
+            case["one_lane_bitwise_2d"] = bool(torch.equal(
+                one, masked_attention(q[0], k[0], v[0], bias[0], scale)))
+            case["bitwise_repeat"] = bool(torch.equal(
+                got, masked_attention(q, k, v, bias, scale)))
+            ok = (ok and case["one_lane_bitwise_2d"] and case["bitwise_repeat"]
+                  and bool(torch.isfinite(got).all()))
+            sep = torch.stack([masked_attention(q[b], k[b], v[b], bias[b],
+                                                scale) for b in range(B)])
+            case["vs_separate_max_abs"] = (got - sep).abs().max().item()
+            del sep, one
+            t = dict(ms=cuda_ms(torch, lambda: masked_attention(
+                q, k, v, bias, scale)))
+            t["separate_ms"] = cuda_ms(torch, lambda: [masked_attention(
+                q[b], k[b], v[b], bias[b], scale) for b in range(B)])
+            call = plan(q, k, v, bias, scale)
+            call.run()
+            t["phases_ms"] = {name: cuda_ms(torch, fn)
+                              for name, fn in call.phases}
+            t["nsplit"] = call.nsplit
+            del call
+            t["plain_ms"] = cuda_ms(torch, lambda: attention_plain(
+                q, k, v, bias, scale))
+            mask4 = bias[:, None, None, :].to(dt)
+            t["library_ms"] = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], attn_mask=mask4,
+                    scale=scale))
+            bound, t["bound_by"] = attention_bound_ms(
+                nq, nk, 4 if f32 else 2,
+                PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                products=3 if f32 else 1)
+            t["bound_ms"] = B * bound
+            t["bound_fraction"] = t["bound_ms"] / t["ms"]
+            case.update(t)
+            log(f"[lanes] attention ({CARD}) " + json.dumps(case))
+            if not ok:
+                raise RuntimeError(f"masked_attention on lanes disagrees "
+                                   f"with its plain version: {case}")
+            cases.append(case)
+            del got, q, k, v
+    torch.cuda.empty_cache()
+    return cases
+
+
+def lanes_engines(torch, hvr_weights, selsa_weights):
+    """The f32 engines' seeded, calibrated weights on fresh engines: HVRNet
+    f32 and bf16, SELSA f32 (the bf16 one with its head pre-cast)."""
+    from hvrnet_tpu_torch.engine import HNMBRCNN, SelsaRCNN
+    from hvrnet_tpu_torch.utils.config import Config, unwrap
+    out = {}
+    for name, engine_cls, config, weights, dtype in (
+            ("hvrnet", HNMBRCNN, CONFIG, hvr_weights, torch.float32),
+            ("hvrnet bf16", HNMBRCNN, CONFIG, hvr_weights, torch.bfloat16),
+            ("selsa", SelsaRCNN, SELSA_CONFIG, selsa_weights,
+             torch.float32)):
+        cfg = Config.fromfile(str(config))
+        engine = engine_cls(unwrap(cfg.model), unwrap(cfg.test_cfg),
+                            device="cuda", dtype=dtype)
+        engine.load_state_dict(weights)
+        engine.cast_head_params_bf16()
+        out[name] = engine
+    return out
+
+
+def lanes_dataset(config, seed=0):
+    from hvrnet_tpu_torch.tools.test import test_dataset
+    from hvrnet_tpu_torch.utils.config import Config
+    return test_dataset(Config.fromfile(config), 1, seed, read_ppm)
+
+
+def lanes_run(torch, np, engine, config, tag, per_detect, n_frames,
+              batch=LANES_B, record=None):
+    """The lockstep runner (``batch`` streams, 4 loader threads) over the
+    [lanes] tree with the kernel's launch count set to 0 just before and
+    read just after: every frame emitted once with a 30-class result and
+    finite boxes, ``per_detect`` launches per lockstep detection.  With
+    ``record`` (a dict), each lane's frame caches and windows go into it
+    (``lanes_recorded``)."""
+    from hvrnet_tpu_torch.engine import BatchedSlidingWindowRunner
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    emitted = []
+    timer = CliTimer(torch)
+    runner = BatchedSlidingWindowRunner(engine, batch=batch,
+                                        loader_workers=4, timer=timer,
+                                        progress_hook=emitted.append)
+    ds = lanes_dataset(config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    masked_attention.launches = 0
+    t0 = time.perf_counter()
+    with (lanes_recorded(torch, engine, record) if record is not None
+          else contextlib.nullcontext()):
+        results = runner.run(ds, max_long=CANVAS[1], max_short=CANVAS[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(results=results, launches=masked_attention.launches,
+               steps=runner.steps, detects=runner.detects, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if sum(emitted) != n_frames or any(r is None for r in results):
+        raise RuntimeError(f"{tag} emitted {sum(emitted)} of {n_frames} "
+                           f"frames")
+    for i, res in enumerate(results):
+        if len(res) != 30 or not all(d.shape[1:] == (5,)
+                                     and np.isfinite(d).all() for d in res):
+            raise RuntimeError(f"{tag} frame {i}: bad result")
+    if run["launches"] != per_detect * run["detects"]:
+        raise RuntimeError(f"{tag} launched the kernel {run['launches']} "
+                           f"times in {run['detects']} lockstep detections, "
+                           f"not {per_detect} per detection")
+    log(f"[lanes] {tag} ({CARD}): {n_frames} frames of {len(LANES_VIDEOS)} "
+        f"videos on {batch} streams, every frame emitted once with a "
+        f"30-class result; {run['steps']} lockstep steps, {run['detects']} "
+        f"with a detection; kernel launches {run['launches']} "
+        f"({per_detect} per lockstep detection); frame program "
+        f"{timer.mean_ms('frame_features'):.3f} ms/step, window detect "
+        f"{timer.mean_ms('window_detect'):.3f} ms/step (CUDA events); "
+        f"{n_frames / wall:.3f} frames/s over {wall:.3f} s, loading "
+        f"{timer.host_s('load') / wall:.3f} of the wall; peak "
+        f"{run['peak_gib']:.2f} GiB")
+    return run
+
+
+def lanes_sequential(engine, config):
+    """The sequential runner over the threaded stream of the [lanes] tree
+    (its shuffles drawn before any frame, as the lockstep runner draws
+    them, so every video in the same order)."""
+    from hvrnet_tpu_torch.engine import SlidingWindowRunner
+    from hvrnet_tpu_torch.engine.stream import parallel_test_frame_stream
+    ds = lanes_dataset(config)
+    return SlidingWindowRunner(engine).run(parallel_test_frame_stream(
+        ds, workers=4, max_long=CANVAS[1], max_short=CANVAS[0]), len(ds))
+
+
+def frame_key(img):
+    """The bytes of a frame's canvas, hashed: which frame a lane loaded."""
+    import hashlib
+    import numpy as np
+    if hasattr(img, "cpu"):
+        img = img.cpu().numpy()
+    return hashlib.sha1(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def window_key(fc1, masks):
+    """A fingerprint of one lane's window (oldest frame first): every 4099th
+    cached value and the whole mask; candidates are compared in full."""
+    import hashlib
+    import torch
+    sample = torch.cat([fc1.reshape(-1)[::4099].float(),
+                        masks.reshape(-1).float()])
+    return hashlib.sha1(sample.cpu().numpy().tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def lanes_recorded(torch, engine, record):
+    """Within the block, each lane's frame caches from the batched frame
+    program (by its canvas's bytes) and each lane's window with the
+    lockstep head's outputs on it go into ``record``."""
+    feats_of, heads = record.setdefault("feats", {}), record.setdefault(
+        "heads", {})
+    program, window = engine.frame_features_batched, engine._window_lanes
+
+    def frame_features_batched(imgs, img_shapes, pad_shapes):
+        out = program(imgs, img_shapes, pad_shapes)
+        for b in range(len(img_shapes)):
+            feats_of[frame_key(imgs[b])] = {k: v[b] for k, v in out.items()}
+        return out
+
+    def window_lanes(fc1_stack, masks):
+        pairs = window(fc1_stack, masks)
+        for b in range(fc1_stack.shape[0]):
+            heads.setdefault(window_key(fc1_stack[b], masks[b]),
+                             []).append((fc1_stack[b].clone(),
+                                         masks[b].clone(),
+                                         [(c[b].clone(), r[b].clone())
+                                          for c, r in pairs]))
+        return pairs
+
+    engine.frame_features_batched = frame_features_batched
+    engine._window_lanes = window_lanes
+    try:
+        yield record
+    finally:
+        del engine.frame_features_batched, engine._window_lanes
+
+
+def same_results(a, b):
+    """Two runs' per-frame, per-class detections bit for bit."""
+    return len(a) == len(b) and all(
+        len(fa) == len(fb) and all(x.tobytes() == y.tobytes()
+                                   for x, y in zip(fa, fb))
+        for fa, fb in zip(a, b))
+
+
+def lanes_fed(torch, engine, config, record, lockstep, tag):
+    """The sequential runner over the same videos, fed every frame's caches
+    as the lockstep run's batched frame program made them (found by the
+    canvas's bytes): this takes the backbone's batched rounding out, so
+    what is left is the ring, the head and the decode of each lane.
+    Held: every frame the sequential runner loads was loaded by a lane;
+    every window its exact ring detects is, bit for bit, a window a lane
+    detected (the lane's ring and its roll); the sequential head on it
+    against that lane's head outputs, f32 within 1e-4 of max(|logit|, 1)
+    (the head checks' kernel-vs-plain limit), bf16 within the JAX
+    package's bf16 budget (0.05, the [bf16] phase's); and, with the lane's
+    head outputs put in the sequential decode, every frame's detections
+    bit for bit the lockstep run's (decode and class-wise NMS exact per
+    lane)."""
+    f32 = engine.dtype == torch.float32
+    heads, worst = record["heads"], [0.0, 0]
+
+    def frame_features(img, img_shape, pad_shape):
+        key = frame_key(img)
+        if key not in record["feats"]:
+            raise RuntimeError(f"{tag}: the sequential runner loaded a "
+                               f"frame no lockstep lane loaded")
+        return record["feats"][key]
+
+    window = engine._window_lanes
+
+    def window_lanes(fc1_stack, masks):
+        own = window(fc1_stack, masks)
+        for fc1, mask, pairs in heads.get(
+                window_key(fc1_stack[0], masks[0]), ()):
+            if torch.equal(fc1, fc1_stack[0]) and torch.equal(mask, masks[0]):
+                got = ([c for c, _ in pairs], [r for _, r in pairs])
+                want = ([c[0] for c, _ in own], [r[0] for _, r in own])
+                err = (logit_err(got, want) if f32
+                       else max(head_budget(got, want)))
+                worst[0] = max(worst[0], err)
+                worst[1] += 1
+                return [(c[None], r[None]) for c, r in pairs]
+        raise RuntimeError(f"{tag}: the sequential ring detected a window "
+                           f"no lockstep lane detected")
+
+    engine.frame_features, engine._window_lanes = frame_features, window_lanes
+    try:
+        seq = lanes_sequential(engine, config)
+    finally:
+        del engine.frame_features, engine._window_lanes
+    same = same_results(lockstep, seq)
+    limit = 1e-4 if f32 else BF16_CLS_BUDGET
+    log(f"[lanes] {tag} against the sequential runner fed the lanes' frame "
+        f"caches: every loaded frame and all {worst[1]} detected windows "
+        f"found bit for bit among the lanes'; the sequential head against "
+        f"the lanes' {worst[0]:.3g} (limit {limit}); with the lanes' head "
+        f"outputs every frame's detections bitwise equal: {same}")
+    if not (same and worst[0] <= limit and worst[1] == len(seq)):
+        raise RuntimeError(f"{tag}: the lanes disagree with the sequential "
+                           f"runner fed the same frame caches")
+
+
+def backbone_depths(torch, engine, imgs, img_shapes):
+    """The backbone's outputs by ``LANES_MAP_DEPTHS`` for (B, H, W, 3)
+    canvases, and the frame program's maps (c5, RPN cls, RPN reg)."""
+    out = {}
+    hooks = [getattr(engine.model.backbone, name).register_forward_hook(
+        lambda mod, args, res, name=name: out.__setitem__(name, res))
+        for name in LANES_MAP_DEPTHS[:4]]
+    try:
+        maps = engine.backbone_maps(imgs, img_shapes)
+    finally:
+        for h in hooks:
+            h.remove()
+    out.update(zip(LANES_MAP_DEPTHS[4:], maps))
+    return out, maps
+
+
+def lanes_frame_check(torch, np, engine, tag, ref=None):
+    """The batched frame program on 4 frames of 4 different scenes against
+    one frame at a time, held: each lane's backbone output at every depth
+    of ``LANES_MAP_DEPTHS`` against its frame alone (|Δ|₂ / |alone|₂) within
+    ``LANES_MAP_LIMIT`` at the depths it names, and its distance to each
+    other lane's frame over 10× that limit there (a lane holding the wrong
+    frame fails); with ``ref`` (the f32 engine's distances) the growth of
+    the distance per stage printed beside f32's, the yardstick of the
+    depths not held; then each lane's post (proposals, RoIAlign, fc_new_1)
+    of the batched maps bit for bit the single-frame post on that lane's
+    maps.  Returns the own-frame distances by depth."""
+    frames = [next(synthetic_video(np, 1, seed=20 + b))
+              for b in range(LANES_B)]
+    imgs = np.concatenate([f["img"] for f in frames])
+    ishs = np.stack([f["img_shape"] for f in frames])
+    pshs = np.stack([f["pad_shape"] for f in frames])
+    limit, held = LANES_MAP_LIMIT[str(engine.dtype)[6:]]
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm()).item()
+
+    with torch.no_grad():
+        batched, maps = backbone_depths(torch, engine, imgs, ishs)
+        alone = [backbone_depths(torch, engine, f["img"], f["img_shape"])[0]
+                 for f in frames]
+        own = {d: max(rel(batched[d][b], alone[b][d][0])
+                      for b in range(LANES_B)) for d in LANES_MAP_DEPTHS}
+        other = {d: min(rel(batched[d][b], alone[a][d][0])
+                        for b in range(LANES_B) for a in range(LANES_B)
+                        if a != b) for d in LANES_MAP_DEPTHS}
+        post = engine.frame_post_batched(*maps, ishs, pshs)
+        bitwise = all(
+            all(torch.equal(post[k][b], v) for k, v in engine.frame_post(
+                *(m[b:b + 1] for m in maps), ishs[b], pshs[b]).items())
+            for b in range(LANES_B))
+    log(f"[lanes] {tag} batched frame program on {LANES_B} scenes against "
+        f"one frame at a time, |Δ|₂/|alone|₂ by depth, each lane against "
+        f"its own frame "
+        + json.dumps({d: float(f"{v:.3g}") for d, v in own.items()})
+        + f" (limit {limit} to {held[-1]}), against the nearest other "
+        f"lane's frame "
+        + json.dumps({d: float(f"{v:.3g}") for d, v in other.items()})
+        + f"; post of each lane's batched maps bitwise the single-frame "
+        f"post: {bitwise}")
+    if ref is not None:
+        def growth(dist):
+            return {d: float(f"{dist[d] / dist[p]:.3g}") for p, d in zip(
+                LANES_MAP_DEPTHS[1:5], LANES_MAP_DEPTHS[2:5]) if dist[p] > 0}
+        log(f"[lanes] {tag} own-frame distance growth per stage "
+            + json.dumps(growth(own)) + ", f32 " + json.dumps(growth(ref)))
+    if not (bitwise and all(own[d] <= limit and other[d] > 10 * limit
+                            for d in held)):
+        raise RuntimeError(f"{tag}: the batched frame program's lanes "
+                           f"differ from one frame at a time")
+    return own
+
+
+def lanes_step_times(torch, np, engine, tag, per_detect):
+    """One lockstep step at B = 1, 2, 4, 8 on synthetic frames (ring
+    full), each stage alone by CUDA events (3 calls after 1): backbone
+    (C4, C5, RPN maps of B frames), post (proposals of every lane and one
+    NMS fixpoint, RoIAlign and fc_new_1 per lane), push, detect (the
+    window head over B lanes) and decode + NMS (every lane's decode, one
+    class-wise NMS fixpoint); the whole step; peak memory; the kernel's
+    launches per detection.  Beside them the sequential step (one frame
+    program and one ring step)."""
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    kd = engine.key_dim
+    frames = list(synthetic_video(np, max(LANES_SWEEP), seed=5))
+    f0 = frames[0]
+    feats0 = engine.frame_features(f0["img"], f0["img_shape"],
+                                   f0["pad_shape"])
+    seq_ring = engine.ring_reset(int(feats0["fc1"].shape[-1]))
+    for _ in range(engine.window):
+        engine.ring_push(seq_ring, feats0)
+    seq_ms = cuda_ms(torch, lambda: engine.ring_step(
+        seq_ring, engine.frame_features(f0["img"], f0["img_shape"],
+                                        f0["pad_shape"]),
+        f0["img_shape"], f0["scale_factor"], branch=-1), iters=3, warmup=1)
+    del seq_ring
+    log(f"[lanes] {tag} sequential step ({CARD}): {seq_ms:.3f} ms/frame, "
+        f"{1e3 / seq_ms:.3f} frames/s")
+    out = {}
+    for B in LANES_SWEEP:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        imgs = np.concatenate([f["img"] for f in frames[:B]])
+        ishs = np.stack([f["img_shape"] for f in frames[:B]])
+        pshs = np.stack([f["pad_shape"] for f in frames[:B]])
+        sfs = np.stack([f["scale_factor"] for f in frames[:B]])
+        feats = engine.frame_features_batched(imgs, ishs, pshs)
+        ring = engine.ring_reset_batched(B, int(feats["fc1"].shape[-1]))
+        engine.ring_push_batched(ring, feats, np.ones(B, bool))
+        with torch.no_grad():
+            maps = engine.backbone_maps(imgs, ishs)
+            fc1s = ring["fc1"]
+            pairs = engine._window_lanes(fc1s, ring["masks"])
+        masked_attention.launches = 0
+        engine.ring_detect_batched(ring, ishs, sfs, branch=lanes_branch(
+            engine))
+        launches = masked_attention.launches
+        if launches != per_detect:
+            raise RuntimeError(f"{tag} B={B}: {launches} kernel launches "
+                               f"per lockstep detection, not {per_detect}")
+        if B == LANES_B:
+            lanes_head_check(torch, engine, ring, pairs, tag)
+        no_reset = np.zeros(B, bool)
+        with torch.no_grad():
+            stages = {
+                "backbone": lambda: engine.backbone_maps(imgs, ishs),
+                "post": lambda: engine.frame_post_batched(*maps, ishs, pshs),
+                "push": lambda: engine.ring_push_batched(ring, feats,
+                                                         no_reset),
+                "detect": lambda: engine._window_lanes(fc1s, ring["masks"]),
+                "decode + NMS": lambda: engine._decode_lanes(
+                    pairs[-1:], ring["boxes"][:, kd], ishs, sfs,
+                    ring["masks"][:, kd]),
+            }
+            ms = {name: cuda_ms(torch, fn, iters=3, warmup=1)
+                  for name, fn in stages.items()}
+
+            def step():
+                f = engine.frame_features_batched(imgs, ishs, pshs)
+                engine.ring_push_batched(ring, f, no_reset)
+                return engine.ring_detect_batched(
+                    ring, ishs, sfs, branch=lanes_branch(engine))
+            ms["step"] = cuda_ms(torch, step, iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[B] = dict(ms=ms, fps=1e3 * B / ms["step"], peak_gib=peak,
+                      launches=launches)
+        log(f"[lanes] {tag} B={B} ({CARD}): step {ms['step']:.3f} ms, "
+            f"{out[B]['fps']:.3f} frames/s (sequential "
+            f"{1e3 / seq_ms:.3f}); stages alone, ms: "
+            + json.dumps({k: round(v, 3) for k, v in ms.items()
+                          if k != "step"})
+            + f"; {launches} kernel launches per lockstep detection; peak "
+            f"{peak:.2f} GiB")
+        del maps, feats, ring, pairs, fc1s
+    out["sequential_ms"] = seq_ms
+    return out
+
+
+def lanes_head_check(torch, engine, ring, pairs, tag):
+    """The window head over B lanes (``pairs``, one lockstep detection's
+    head outputs) against its 2-D call on each lane's window: f32 within
+    1e-4 of max(|logit|, 1) (the kernel-vs-plain limit of the head checks),
+    bf16 within the JAX package's bf16 budget (0.05)."""
+    T, P, kd = engine.window, engine.proposal_num, engine.key_dim
+    head = engine.model.bbox_head
+    f32 = engine.dtype == torch.float32
+    worst = 0.0
+    with torch.no_grad():
+        for b in range(ring["fc1"].shape[0]):
+            want = head_outputs(head.forward_fc1(
+                ring["fc1"][b].reshape(T * P, -1), kd * P, P,
+                ring["masks"][b].reshape(T * P)))
+            got = ([cls[b] for cls, _ in pairs], [reg[b] for _, reg in pairs])
+            err = (logit_err(got, want) if f32
+                   else max(head_budget(got, want)))
+            worst = max(worst, err)
+    limit = 1e-4 if f32 else 0.05
+    log(f"[lanes] {tag} window head on {ring['fc1'].shape[0]} lanes against "
+        f"its 2-D call per lane: {worst:.3g} (limit {limit})")
+    if not worst <= limit:
+        raise RuntimeError(f"{tag}: the window head's lanes differ from "
+                           f"its 2-D calls")
+
+
+def lanes_branch(engine):
+    """The branch the runners keep: the final one of a multi-branch head."""
+    return -1 if getattr(engine, "multi_branch", False) else None
+
+
+def lanes_busy(torch, np, engine, tag):
+    """The batched frame program at B = 4: device time (``torch.profiler``)
+    against its CUDA-event span, backbone alone and whole."""
+    frames = list(synthetic_video(np, LANES_B, seed=6))
+    imgs = np.concatenate([f["img"] for f in frames])
+    ishs = np.stack([f["img_shape"] for f in frames])
+    pshs = np.stack([f["pad_shape"] for f in frames])
+    for name, fn in (
+            ("backbone: C4, C5, RPN maps of 4 frames",
+             lambda: engine.backbone_maps(imgs, ishs)),
+            ("frame_features_batched, 4 frames",
+             lambda: engine.frame_features_batched(imgs, ishs, pshs))):
+        span = cuda_ms(torch, fn, iters=3, warmup=1)
+        busy = device_ms(torch, fn)
+        idle = (f"idle {1 - busy / span:.2f}" if busy > 0
+                else "device time not traced")
+        log(f"{tag} {name}: device {busy:.3f} ms of a {span:.3f} ms span, "
+            f"{idle}")
+
+
+def phase_lanes(torch, np, hvr_weights, selsa_weights, cli_runs):
+    """The lockstep multi-stream runner on the card: the kernel on lanes;
+    HVRNet (f32, bf16) and SELSA (f32) at full width, B = 4 streams over
+    the [lanes] tree against the sequential runner fed the lanes' frame
+    caches (``lanes_fed``, on a second run that records them), the
+    batched frame program against one frame at a time
+    (``lanes_frame_check``); the lockstep step at B = 1, 2, 4, 8 with the
+    window head's lanes against its 2-D calls; the batched bf16 frame program's
+    idle share; and ``test --batched 4`` from disk, on the [lanes] tree
+    and on 4 long videos against the sequential ``test``.  Returns the
+    cases and the runs whose launches the kernels line counts."""
+    import shutil
+    cases = lanes_attention(torch)
+    work = ROOT / "build" / "chip_smoke_lanes"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "VID"
+    t0 = time.time()
+    imageset, _ = write_cli_tree(np, root, LANES_VIDEOS)
+    n_frames = sum(n for _, n, _ in LANES_VIDEOS)
+    configs = {"hvrnet": cli_config(CONFIG, root, imageset,
+                                    work / "hvrnet.py"),
+               "selsa": cli_config(SELSA_CONFIG, root, imageset,
+                                   work / "selsa.py")}
+    h, w = LANES_VIDEOS[0][2]
+    log(f"[lanes] tree of {len(LANES_VIDEOS)} landscape videos, "
+        f"{n_frames} PPM frames at {w}x{h} ("
+        + ", ".join(str(n) for _, n, _ in LANES_VIDEOS)
+        + f" frames) in {time.time() - t0:.1f} s")
+    engines = lanes_engines(torch, hvr_weights, selsa_weights)
+    runs, runs16, distances = {}, {}, {}
+    for name, per_detect in (("hvrnet", 4), ("hvrnet bf16", 4),
+                             ("selsa", 2)):
+        engine = engines[name]
+        warm_up(torch, np, engine)
+        config = configs[name.split()[0]]
+        run = lanes_run(torch, np, engine, config, f"{name} B={LANES_B}",
+                        per_detect, n_frames)
+        # the checks' run: the same again with each lane's caches and
+        # windows recorded (kept apart from the timed run, whose wall time
+        # and peak memory they would change)
+        record = {}
+        again = lanes_run(torch, np, engine, config,
+                          f"{name} B={LANES_B} recorded", per_detect,
+                          n_frames, record=record)
+        if not same_results(run["results"], again["results"]):
+            raise RuntimeError(f"{name}: two lockstep runs over the same "
+                               f"videos differ")
+        lanes_fed(torch, engine, config, record, again["results"],
+                  f"{name} B={LANES_B}")
+        del record, again
+        distances[name] = lanes_frame_check(
+            torch, np, engine, name,
+            distances["hvrnet"] if name == "hvrnet bf16" else None)
+        key = f"lanes {name.split()[0]} B={LANES_B}"
+        (runs if engine.dtype == torch.float32 else runs16)[key] = run
+        run["sweep"] = lanes_step_times(torch, np, engine, name, per_detect)
+        if name == "hvrnet bf16":
+            lanes_busy(torch, np, engine, "[busy] lanes bf16")
+    del engines
+    torch.cuda.empty_cache()
+    runs.update(lanes_cli(torch, np, work, configs["hvrnet"], hvr_weights,
+                          n_frames, cli_runs))
+    shutil.rmtree(work, ignore_errors=True)
+    return cases, runs, runs16
+
+
+def lanes_cli(torch, np, work, config, weights, n_frames, cli_runs):
+    """``test --batched 4 --loader-workers 4 --u8-transfer`` from disk on
+    the [lanes] tree (landscape only) with HVRNet's weights as a ``.pth``,
+    against ``--batched 4`` with no loader threads: the same results, bit
+    for bit; frames/s beside the sequential ``hnl_test`` of [cli]."""
+    ckpt = work / "hvrnet.pth"
+    torch.save({"state_dict": weights}, ckpt)
+
+    def argv(name, *extra):
+        return [config, str(ckpt), "--out", str(work / f"{name}.pkl"),
+                "--tmpdir", str(work / name), "--batched", str(LANES_B),
+                *extra]
+
+    fast = cli_run(torch, np, "test", argv(
+        "batched_w4_u8", "--loader-workers", "4", "--u8-transfer"),
+        "test --batched 4 --loader-workers 4 --u8-transfer", 4)
+    plain = cli_run(torch, np, "test", argv(
+        "batched_w0", "--loader-workers", "0"), "test --batched 4", 4)
+    same = compare_cli("test --batched 4 --loader-workers 4 --u8-transfer "
+                       "against --batched 4 with no loader threads",
+                       fast["results"], plain["results"], 1e-4 * 1280)
+    if not same:
+        raise RuntimeError("--loader-workers 4 --u8-transfer changed the "
+                           "lockstep results")
+    seq = cli_runs["cli exact T=21"]
+    log(f"[cli] ({CARD}) test --batched 4 --loader-workers 4 --u8-transfer "
+        f"{fast['fps']:.3f} frames/s, --batched 4 {plain['fps']:.3f}, "
+        f"beside the sequential hnl_test exact T=21 {seq['fps']:.3f} "
+        f"(its tree; {n_frames} frames here)")
+    long_runs = lanes_long(torch, np, work, ckpt)
+    return {"cli batched 4 workers 4 u8": fast, "cli batched 4": plain,
+            **long_runs}
+
+
+def lanes_long(torch, np, work, ckpt):
+    """``test --batched 4 --loader-workers 4 --u8-transfer`` against the
+    sequential ``test --loader-workers 4 --u8-transfer`` from disk on
+    ``LANES_LONG`` (4 videos of 64 frames: every stream busy to the end,
+    10 padded pushes per 64 frames): frames/s of both, and the frame
+    programs per emitted frame."""
+    import shutil
+    root = work / "LONG"
+    t0 = time.time()
+    imageset, _ = write_cli_tree(np, root, LANES_LONG)
+    config = cli_config(CONFIG, root, imageset, work / "hvrnet_long.py")
+    n = sum(n for _, n, _ in LANES_LONG)
+    h, w = LANES_LONG[0][2]
+    log(f"[cli] long tree of {len(LANES_LONG)} videos, {n} PPM frames at "
+        f"{w}x{h} in {time.time() - t0:.1f} s")
+
+    def argv(name, *extra):
+        return [config, str(ckpt), "--out", str(work / f"{name}.pkl"),
+                "--tmpdir", str(work / name), "--loader-workers", "4",
+                "--u8-transfer", *extra]
+
+    lock = cli_run(torch, np, "test", argv("long_b4", "--batched",
+                                           str(LANES_B)),
+                   "long: test --batched 4 --loader-workers 4 "
+                   "--u8-transfer", 4)
+    seq = cli_run(torch, np, "test", argv("long_seq"),
+                  "long: test --loader-workers 4 --u8-transfer", 4)
+    programs = LANES_B * lock["runner_steps"] / n
+    log(f"[cli] ({CARD}) long tree, {n} frames: lockstep "
+        f"{lock['fps']:.3f} frames/s ({programs:.3f} frame programs per "
+        f"frame), sequential {seq['fps']:.3f} frames/s, both with 4 loader "
+        f"threads and uint8 transfer")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"cli long batched 4": lock, "cli long sequential": seq}
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -2217,6 +2918,8 @@ def route_summary(cases, runs, dtype):
                          for key in keys},
         per_step_selsa_train={key: sum(timed[label][key] for *_, label in
                                        SELSA_TRAIN_SHAPES) for key in keys},
+        per_lockstep_detect_b4={key: per_frame(lambda c: c[key], LANES_ATTN)
+                                for key in keys + ("separate_ms",)},
         unit=f"per detected frame of the exact ring at T=21: 2 calls at "
              f"6300x6300 + 2 at 300x6300, d 1024, {dtype} "
              + ("(3xTF32 bound)" if f32 else
@@ -2226,11 +2929,18 @@ def route_summary(cases, runs, dtype):
              "video 1 at 384x384 and 2 at 128x384; per_frame_selsa one "
              "SELSA detection's 2 calls, 6300x6300 and 300x6300; "
              "per_step_selsa_train one SELSA training step's 2 calls, "
-             "900x384 and 300x384; launches summed over the paths in "
+             "900x384 and 300x384; per_lockstep_detect_b4 one HVRNet "
+             "lockstep detection of 4 lanes, 2 calls at (4, 6300, 6300) + "
+             "2 at (4, 300, 6300), separate_ms the same as 4 separate 2-D "
+             "calls each; launches summed over the paths in "
              "launches_by_path, each counted from 0 over its run (30 "
              "frames; train: the warmup + timed steps; cli: the CLI's "
              "run over the [cli] tree, 69 frames, 40 at T=63; train-cli: "
-             "tools/train.py's steps and its hook's evaluations)",
+             "tools/train.py's steps and its hook's evaluations; lanes: "
+             "4 streams over the [lanes] tree, 104 frames, and the CLI over "
+             "it and over 4 videos of 64 frames, 4 launches per HVRNet "
+             "lockstep detection and 2 per SELSA one, whatever the lane "
+             "count)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -2250,22 +2960,36 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from hvrnet_tpu_torch.engine import HNMBRCNN, SelsaRCNN
+    start = time.time()
+
+    def lap(name):
+        log(f"[time] {time.time() - start:.1f} s in, after {name}")
+
     kind = phase_device(torch)
     phase_build()
     cases = phase_attention(torch)
+    lap("[attention]")
     engine, exact = phase_main_path(torch, np)
     stream, repair, forced = phase_stream(torch, np, engine, exact)
     exact63, stream63 = phase_63(torch, np, engine)
+    lap("[main] and [stream]")
     stream16, exact16 = phase_bf16_hvrnet(torch, np, engine, exact, stream)
+    lap("[bf16] HVRNet")
     hvr_weights = host_state_dict(engine)
     del engine
     torch.cuda.empty_cache()
     selsa, selsa_engine = phase_selsa(torch, np)
     selsa16 = phase_bf16_selsa(torch, np, selsa_engine)
+    lap("[selsa]")
     selsa_weights = host_state_dict(selsa_engine)
     del selsa_engine
     torch.cuda.empty_cache()
     cli, cli16 = phase_cli(torch, np, hvr_weights, selsa_weights)
+    lap("[cli]")
+    lane_cases, lanes, lanes16 = phase_lanes(torch, np, hvr_weights,
+                                             selsa_weights, cli)
+    cases += lane_cases
+    lap("[lanes]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -2287,15 +3011,17 @@ def main() -> int:
         ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
          "shared_head.", "bbox_head."))
     del weights
+    lap("[train] and [selsa-train]")
     train_cli, _ = phase_train_cli(torch, np)
+    lap("[train-cli]")
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
-            "selsa train": selsa_train, **cli, **train_cli}
+            "selsa train": selsa_train, **cli, **train_cli, **lanes}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
-              "selsa train": selsa_train16, **cli16}
+              "selsa train": selsa_train16, **cli16, **lanes16}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

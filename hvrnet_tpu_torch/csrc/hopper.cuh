@@ -75,15 +75,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // ---- TMA -------------------------------------------------------------------
 
-// Copy the box at (c0 = innermost coordinate, c1 = row) of a 2-D tensor map
-// into shared memory; the barrier's transaction count falls by the box's
-// bytes when it lands.  Out-of-range elements arrive as zeros.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
+// Copy the box at (c0 = innermost coordinate, c1 = row, c2 = lane) of a 3-D
+// tensor map (inner, rows, lanes) into shared memory; the barrier's
+// transaction count falls by the box's bytes when it lands.  Out-of-range
+// elements arrive as zeros: a box past a lane's last row reads zeros, not the
+// next lane's rows.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -15,6 +15,13 @@
 //   * ragged nq and nk are masked in the kernels: keys past nk are left out
 //     by index (TMA's zero fill would give them logit 0, not -inf), rows
 //     past nq are never written.
+//   * lanes: B independent problems of the same shape, q (B, nq, d), k and
+//     v (B, nk, d), bias (B, nk), out (B, nq, d), in one launch per phase
+//     (the counterpart of jax.vmap over the Pallas call, which adds a grid
+//     axis).  Every phase takes the lane from a grid axis; every TMA map is
+//     3-D (inner, rows, lanes), so a tile past a lane's last key or query
+//     row is zero-filled within that lane and masked as above, never read
+//     from the next lane.  A 2-D call is one lane, with the same tiles.
 //
 // What bounds it on the H100: at the exact-ring shapes (d = 1024; nq = nk =
 // 6300 for NL1/NL3, nq = 300 and nk = 6300 for NL2/NL4) the work is
@@ -168,12 +175,16 @@ __global__ void split_rows(const float4* __restrict__ a, float4* __restrict__ a_
   }
 }
 
-// out_a[c][r] = in[r][c] for a (rows, cols) input; out is (cols, ld_out).
+// out_a[c][r] = in[r][c] for a (rows, cols) input; out is (cols, ld_out);
+// lane blockIdx.z of (lanes, rows, cols) into (lanes, cols, ld_out).
 // SPLIT (f32): out_a = tf32 hi, out_b = tf32 lo; otherwise a plain copy.
 template <typename T, bool SPLIT>
 __global__ void transpose(const T* __restrict__ in, T* __restrict__ out_a,
                           T* __restrict__ out_b, int rows, int cols, int ld_out) {
   __shared__ T tile[32][33];
+  in += (size_t)blockIdx.z * rows * cols;
+  out_a += (size_t)blockIdx.z * cols * ld_out;
+  if constexpr (SPLIT) out_b += (size_t)blockIdx.z * cols * ld_out;
   const int c = blockIdx.x * 32 + threadIdx.x;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int r = blockIdx.y * 32 + i;
@@ -200,7 +211,7 @@ __global__ void transpose(const T* __restrict__ in, T* __restrict__ out_a,
 
 // S[row, key] = scale·(q·kᵀ) + bias[key] over one block (LogitsTile); f32
 // inputs come as tf32 hi/lo planes (qa/qb, ka/kb), bf16 inputs as q and k
-// (qa, ka).  tiles_m × tiles_n blocks.
+// (qa, ka).  tiles_m × tiles_n blocks per lane, the lane blockIdx.y.
 template <bool F32, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 logits_kernel(const __grid_constant__ CUtensorMap qa, const __grid_constant__ CUtensorMap qb,
@@ -223,6 +234,12 @@ logits_kernel(const __grid_constant__ CUtensorMap qa, const __grid_constant__ CU
   const int n_blk = in_group / gsize;
   const int m0 = m_blk * Tile::M, n0 = n_blk * Tile::N;
   const int ktiles = (d + BKE - 1) / BKE;
+  const int lane_id = blockIdx.y;
+  const int stat_tiles = (nk + BN - 1) / BN;  // 128-key tiles of the statistics
+  bias += (size_t)lane_id * nk;
+  s_out += (size_t)lane_id * nq * lds;
+  tile_m += (size_t)lane_id * nq * stat_tiles;
+  tile_l += (size_t)lane_id * nq * stat_tiles;
 
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
@@ -238,11 +255,11 @@ logits_kernel(const __grid_constant__ CUtensorMap qa, const __grid_constant__ CU
         const uint32_t a = ring.stage(s), b = a + Tile::PARTS * Tile::A_BYTES;
         const int c = kt * BKE;
         mbar_expect_tx(bar, Tile::STAGE_BYTES);
-        tma_load_2d(a, &qa, bar, c, m0);
-        tma_load_2d(b, &ka, bar, c, n0);
+        tma_load_3d(a, &qa, bar, c, m0, lane_id);
+        tma_load_3d(b, &ka, bar, c, n0, lane_id);
         if constexpr (F32) {
-          tma_load_2d(a + Tile::A_BYTES, &qb, bar, c, m0);
-          tma_load_2d(b + Tile::B_BYTES, &kb, bar, c, n0);
+          tma_load_3d(a + Tile::A_BYTES, &qb, bar, c, m0, lane_id);
+          tma_load_3d(b + Tile::B_BYTES, &kb, bar, c, n0, lane_id);
         }
       }
     }
@@ -297,7 +314,6 @@ logits_kernel(const __grid_constant__ CUtensorMap qa, const __grid_constant__ CU
   // epilogue: write S, and each row's max and Σexp over this key tile
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int col0 = n0 + key_off + 2 * (lane % 4);
-  const int stat_tiles = (nk + BN - 1) / BN;        // 128-key tiles of the statistics
   const int stat_tile = (n0 + key_off) / BN;
   const bool has_keys = n0 + key_off < nk;          // false for a wide block's tail
   float b[32];
@@ -349,7 +365,8 @@ logits_kernel(const __grid_constant__ CUtensorMap qa, const __grid_constant__ CU
 
 // ---- phase 3: row statistics -------------------------------------------------
 
-// One warp per row: m = max_t m_t, l = Σ_t exp(m_t − m)·l_t.
+// One warp per row: m = max_t m_t, l = Σ_t exp(m_t − m)·l_t (the lanes' rows
+// are consecutive, so nq counts all of them).
 __global__ void rowstats_kernel(const float* __restrict__ tile_m,
                                 const float* __restrict__ tile_l, float* __restrict__ row_m,
                                 float* __restrict__ row_l, int nq, int tiles_n) {
@@ -394,7 +411,7 @@ __device__ __forceinline__ const float* swizzled(const uint8_t* slab, int r, int
 // this block's split.  P reaches wgmma from registers: each consumer thread
 // forms its fragments (tf32 hi and lo, or bf16) from the S tile in shared
 // memory.  Without a split the block writes out = O / l; with one it writes
-// O to part[split].
+// O to part[split].  The lane is blockIdx.z; part is (nsplit, lanes·nq, d).
 template <bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
 output_kernel(const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap va,
@@ -410,7 +427,12 @@ output_kernel(const __grid_constant__ CUtensorMap smap, const __grid_constant__ 
   const int n_blk = blockIdx.x % tiles_n, m_blk = blockIdx.x / tiles_n;
   const int m0 = m_blk * BM, n0 = n_blk * BN;
   const int split = blockIdx.y;
+  const int lane_id = blockIdx.z;
   const int total = (nk + BK - 1) / BK;
+  row_m += (size_t)lane_id * nq;
+  row_l += (size_t)lane_id * nq;
+  out += (size_t)lane_id * nq * d;
+  if (part) part += ((size_t)split * gridDim.z + lane_id) * nq * d;
   const int kt0 = split * ktiles_per_split;
   const int nkt = min(total, kt0 + ktiles_per_split) - kt0;
 
@@ -427,13 +449,13 @@ output_kernel(const __grid_constant__ CUtensorMap smap, const __grid_constant__ 
         const uint32_t bar = ring.full(s);
         const int key = (kt0 + i) * BK;
         mbar_expect_tx(bar, 3 * TILE);
-        tma_load_2d(ring.region(s, 0), &smap, bar, key, m0);
+        tma_load_3d(ring.region(s, 0), &smap, bar, key, m0, lane_id);
         if constexpr (F32) {
-          tma_load_2d(ring.region(s, 1), &va, bar, key, n0);
-          tma_load_2d(ring.region(s, 2), &vb, bar, key, n0);
+          tma_load_3d(ring.region(s, 1), &va, bar, key, n0, lane_id);
+          tma_load_3d(ring.region(s, 2), &vb, bar, key, n0, lane_id);
         } else {
-          tma_load_2d(ring.region(s, 1), &smap, bar, key + 32, m0);
-          tma_load_2d(ring.region(s, 2), &va, bar, key, n0);
+          tma_load_3d(ring.region(s, 1), &smap, bar, key + 32, m0, lane_id);
+          tma_load_3d(ring.region(s, 2), &va, bar, key, n0, lane_id);
         }
       }
     }
@@ -510,7 +532,7 @@ output_kernel(const __grid_constant__ CUtensorMap smap, const __grid_constant__ 
     const int row = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
     if (row >= nq) continue;
     const float l = row_l[row];
-    float* dst = whole ? out + (size_t)row * d : part + ((size_t)split * nq + row) * d;
+    float* dst = (whole ? out : part) + (size_t)row * d;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -562,20 +584,21 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 2-D row-major tensor (rows, inner) with rows row_bytes apart, read in
-// 128-byte-wide boxes of box_rows rows with the 128-byte swizzle.  Returns 0
-// or an error code.
+// lanes row-major tensors (rows, inner) with rows row_bytes apart, each lane
+// rows · row_bytes after the one before, as one 3-D map (inner, rows, lanes)
+// read in 128-byte-wide boxes of box_rows rows of one lane, with the 128-byte
+// swizzle.  Returns 0 or an error code.
 int make_map(CUtensorMap* map, bool f32, const void* ptr, int inner, int rows,
-             long long row_bytes, int box_rows = 128) {
+             long long row_bytes, int lanes, int box_rows = 128) {
   const EncodeTiled encode = encode_fn();
   if (!encode) return ENCODE_FAILED;
   const int esize = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(ROW_BYTES / esize), (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)lanes};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)row_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(ROW_BYTES / esize), (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
       const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -594,7 +617,8 @@ int blocks_for(size_t n, int threads) {
 
 int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-// Every scratch buffer of one call, carved from one workspace in this order.
+// Every scratch buffer of one call, carved from one workspace in this order;
+// each holds its lanes one after another.
 struct Layout {
   float *q_hi = nullptr, *q_lo = nullptr, *k_hi = nullptr, *k_lo = nullptr;  // f32 only
   void *vt_a = nullptr, *vt_b = nullptr;  // vᵀ: hi and lo planes (f32), or bf16
@@ -602,7 +626,7 @@ struct Layout {
   int lds, ldv, tiles_n;
   size_t bytes;
 
-  Layout(bool f32, int nq, int nk, int d, int nsplit, void* base) {
+  Layout(bool f32, int lanes, int nq, int nk, int d, int nsplit, void* base) {
     const uintptr_t b = reinterpret_cast<uintptr_t>(base);
     size_t off = 0;
     auto take = [&](size_t n) {
@@ -613,21 +637,21 @@ struct Layout {
     lds = round_up(nk, 4);  // TMA needs 16-byte row strides
     ldv = round_up(nk, 8);
     tiles_n = (nk + BN - 1) / BN;
-    const size_t esize = f32 ? 4 : 2;
+    const size_t esize = f32 ? 4 : 2, B = lanes;
     if (f32) {
-      q_hi = (float*)take((size_t)nq * d * 4);
-      q_lo = (float*)take((size_t)nq * d * 4);
-      k_hi = (float*)take((size_t)nk * d * 4);
-      k_lo = (float*)take((size_t)nk * d * 4);
-      vt_b = take((size_t)d * ldv * esize);
+      q_hi = (float*)take(B * nq * d * 4);
+      q_lo = (float*)take(B * nq * d * 4);
+      k_hi = (float*)take(B * nk * d * 4);
+      k_lo = (float*)take(B * nk * d * 4);
+      vt_b = take(B * d * ldv * esize);
     }
-    vt_a = take((size_t)d * ldv * esize);
-    s = (float*)take((size_t)nq * lds * 4);
-    tile_m = (float*)take((size_t)nq * tiles_n * 4);
-    tile_l = (float*)take((size_t)nq * tiles_n * 4);
-    row_m = (float*)take((size_t)nq * 4);
-    row_l = (float*)take((size_t)nq * 4);
-    if (nsplit > 1) part = (float*)take((size_t)nsplit * nq * d * 4);
+    vt_a = take(B * d * ldv * esize);
+    s = (float*)take(B * nq * lds * 4);
+    tile_m = (float*)take(B * nq * tiles_n * 4);
+    tile_l = (float*)take(B * nq * tiles_n * 4);
+    row_m = (float*)take(B * nq * 4);
+    row_l = (float*)take(B * nq * 4);
+    if (nsplit > 1) part = (float*)take((size_t)nsplit * B * nq * d * 4);
     bytes = off;
   }
 };
@@ -635,11 +659,11 @@ struct Layout {
 // f32: q and k into tf32 hi/lo planes and v into hi/lo planes of vᵀ;
 // bf16: v into vᵀ, its values moved as their 16-bit patterns.
 template <bool F32>
-int presplit(const void* q, const void* k, const void* v, const Layout& w, int nq, int nk,
-             int d, cudaStream_t stream) {
-  const dim3 grid((d + 31) / 32, (nk + 31) / 32), block(32, 8);
+int presplit(const void* q, const void* k, const void* v, const Layout& w, int lanes, int nq,
+             int nk, int d, cudaStream_t stream) {
+  const dim3 grid((d + 31) / 32, (nk + 31) / 32, lanes), block(32, 8);
   if constexpr (F32) {
-    const size_t nq4 = (size_t)nq * d / 4, nk4 = (size_t)nk * d / 4;
+    const size_t nq4 = (size_t)lanes * nq * d / 4, nk4 = (size_t)lanes * nk * d / 4;
     split_rows<<<blocks_for(nq4 + nk4, 256), 256, 0, stream>>>(
         (const float4*)q, (float4*)w.q_hi, (float4*)w.q_lo, nq4, (const float4*)k,
         (float4*)w.k_hi, (float4*)w.k_lo, nk4);
@@ -654,21 +678,21 @@ int presplit(const void* q, const void* k, const void* v, const Layout& w, int n
 }
 
 template <bool F32, bool WIDE>
-int launch_logits(const void* q, const void* k, const float* bias, const Layout& w, int nq,
-                  int nk, int d, float scale, cudaStream_t stream) {
+int launch_logits(const void* q, const void* k, const float* bias, const Layout& w, int lanes,
+                  int nq, int nk, int d, float scale, cudaStream_t stream) {
   using Tile = LogitsTile<F32, WIDE>;
   CUtensorMap qa, qb, ka, kb;
   const long long row = (long long)d * (F32 ? 4 : 2);
-  int err = make_map(&qa, F32, F32 ? w.q_hi : q, d, nq, row, Tile::M);
-  if (!err) err = make_map(&qb, F32, F32 ? w.q_lo : q, d, nq, row, Tile::M);
-  if (!err) err = make_map(&ka, F32, F32 ? w.k_hi : k, d, nk, row, Tile::N);
-  if (!err) err = make_map(&kb, F32, F32 ? w.k_lo : k, d, nk, row, Tile::N);
+  int err = make_map(&qa, F32, F32 ? w.q_hi : q, d, nq, row, lanes, Tile::M);
+  if (!err) err = make_map(&qb, F32, F32 ? w.q_lo : q, d, nq, row, lanes, Tile::M);
+  if (!err) err = make_map(&ka, F32, F32 ? w.k_hi : k, d, nk, row, lanes, Tile::N);
+  if (!err) err = make_map(&kb, F32, F32 ? w.k_lo : k, d, nk, row, lanes, Tile::N);
   if (err) return err;
   constexpr int smem = smem_bytes<Tile::STAGES, Tile::STAGE_BYTES>();
   static const int prepared = prepare(logits_kernel<F32, WIDE>, smem);
   if (prepared) return prepared;
   const int tiles_m = (nq + Tile::M - 1) / Tile::M, tiles_n = (nk + Tile::N - 1) / Tile::N;
-  logits_kernel<F32, WIDE><<<tiles_m * tiles_n, THREADS, smem, stream>>>(
+  logits_kernel<F32, WIDE><<<dim3(tiles_m * tiles_n, lanes), THREADS, smem, stream>>>(
       qa, qb, ka, kb, bias, w.s, w.tile_m, w.tile_l, nq, nk, d, w.lds, scale, tiles_m,
       tiles_n);
   return (int)cudaGetLastError();
@@ -676,66 +700,68 @@ int launch_logits(const void* q, const void* k, const float* bias, const Layout&
 
 // The wide block where it needs fewer waves of blocks than the square one.
 template <bool F32>
-int logits(const void* q, const void* k, const float* bias, const Layout& w, int nq, int nk,
-           int d, float scale, cudaStream_t stream) {
+int logits(const void* q, const void* k, const float* bias, const Layout& w, int lanes, int nq,
+           int nk, int d, float scale, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   const int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err) return err;
   const auto waves = [&](int m, int n) {
-    return (((nq + m - 1) / m) * ((nk + n - 1) / n) + sms - 1) / sms;
+    return (lanes * ((nq + m - 1) / m) * ((nk + n - 1) / n) + sms - 1) / sms;
   };
   return waves(64, 256) < waves(128, 128)
-             ? launch_logits<F32, true>(q, k, bias, w, nq, nk, d, scale, stream)
-             : launch_logits<F32, false>(q, k, bias, w, nq, nk, d, scale, stream);
+             ? launch_logits<F32, true>(q, k, bias, w, lanes, nq, nk, d, scale, stream)
+             : launch_logits<F32, false>(q, k, bias, w, lanes, nq, nk, d, scale, stream);
 }
 
-int rowstats(const Layout& w, int nq, cudaStream_t stream) {
-  rowstats_kernel<<<(nq + 7) / 8, 256, 0, stream>>>(w.tile_m, w.tile_l, w.row_m, w.row_l, nq,
-                                                   w.tiles_n);
+int rowstats(const Layout& w, int rows, cudaStream_t stream) {
+  rowstats_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(w.tile_m, w.tile_l, w.row_m, w.row_l,
+                                                     rows, w.tiles_n);
   return (int)cudaGetLastError();
 }
 
 template <bool F32>
-int output(const Layout& w, float* out, int nq, int nk, int d, int nsplit,
+int output(const Layout& w, float* out, int lanes, int nq, int nk, int d, int nsplit,
            int ktiles_per_split, cudaStream_t stream) {
   CUtensorMap smap, va, vb;
   const long long row = (long long)w.ldv * (F32 ? 4 : 2);
-  int err = make_map(&smap, true, w.s, nk, nq, 4LL * w.lds);
-  if (!err) err = make_map(&va, F32, w.vt_a, nk, d, row);
-  if (!err) err = make_map(&vb, F32, F32 ? w.vt_b : w.vt_a, nk, d, row);
+  int err = make_map(&smap, true, w.s, nk, nq, 4LL * w.lds, lanes);
+  if (!err) err = make_map(&va, F32, w.vt_a, nk, d, row, lanes);
+  if (!err) err = make_map(&vb, F32, F32 ? w.vt_b : w.vt_a, nk, d, row, lanes);
   if (err) return err;
   constexpr int smem = smem_bytes<OUTPUT_STAGES, 3 * TILE>();
   static const int prepared = prepare(output_kernel<F32>, smem);
   if (prepared) return prepared;
   const int tiles_m = (nq + BM - 1) / BM, tiles_n = (d + BN - 1) / BN;
-  output_kernel<F32><<<dim3(tiles_m * tiles_n, nsplit), THREADS, smem, stream>>>(
+  output_kernel<F32><<<dim3(tiles_m * tiles_n, nsplit, lanes), THREADS, smem, stream>>>(
       smap, va, vb, w.row_m, w.row_l, out, w.part, nq, nk, d, ktiles_per_split, tiles_n);
   return (int)cudaGetLastError();
 }
 
-int combine(const Layout& w, float* out, int nq, int d, int nsplit, cudaStream_t stream) {
+int combine(const Layout& w, float* out, int rows, int d, int nsplit, cudaStream_t stream) {
   if (nsplit == 1) return 0;
-  const size_t n4 = (size_t)nq * d / 4;
+  const size_t n4 = (size_t)rows * d / 4;
   combine_kernel<<<blocks_for(n4, 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(w.part), w.row_l, reinterpret_cast<float4*>(out), nq, d,
-      nsplit);
+      reinterpret_cast<const float4*>(w.part), w.row_l, reinterpret_cast<float4*>(out), rows,
+      d, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <bool F32>
 int run(int first, int last, const void* q, const void* k, const void* v, const float* bias,
-        float* out, void* workspace, int nq, int nk, int d, float scale, int nsplit,
+        float* out, void* workspace, int lanes, int nq, int nk, int d, float scale, int nsplit,
         int ktiles_per_split, cudaStream_t stream) {
-  const Layout w(F32, nq, nk, d, nsplit, workspace);
+  const Layout w(F32, lanes, nq, nk, d, nsplit, workspace);
   int err = 0;
   for (int phase = first; phase <= last && !err; ++phase) {
     switch (phase) {
-      case 0: err = presplit<F32>(q, k, v, w, nq, nk, d, stream); break;
-      case 1: err = logits<F32>(q, k, bias, w, nq, nk, d, scale, stream); break;
-      case 2: err = rowstats(w, nq, stream); break;
-      case 3: err = output<F32>(w, out, nq, nk, d, nsplit, ktiles_per_split, stream); break;
-      case 4: err = combine(w, out, nq, d, nsplit, stream); break;
+      case 0: err = presplit<F32>(q, k, v, w, lanes, nq, nk, d, stream); break;
+      case 1: err = logits<F32>(q, k, bias, w, lanes, nq, nk, d, scale, stream); break;
+      case 2: err = rowstats(w, lanes * nq, stream); break;
+      case 3:
+        err = output<F32>(w, out, lanes, nq, nk, d, nsplit, ktiles_per_split, stream);
+        break;
+      case 4: err = combine(w, out, lanes * nq, d, nsplit, stream); break;
       default: err = (int)cudaErrorInvalidValue;
     }
   }
@@ -751,24 +777,26 @@ int run(int first, int last, const void* q, const void* k, const void* v, const 
 // an error code for hvr_attn_error_string; a whole call is phases 0..4, and
 // a single phase can be rerun on its own once the phases before it have
 // run.  `workspace` holds hvr_attn_workspace_bytes bytes for the same
-// (f32, nq, nk, d, nsplit).  Requirements the Python wrapper checks:
-// contiguous row-major operands with 16-byte aligned bases, d a multiple of
-// 64, nk >= 1, 1 <= nsplit, and nsplit · ktiles_per_split key tiles (32 keys
-// for f32, 64 for bf16) covering nk with none of the splits empty.
+// (f32, lanes, nq, nk, d, nsplit).  Requirements the Python wrapper checks:
+// contiguous row-major operands (lanes × rows × d) with 16-byte aligned
+// bases, 1 <= lanes <= 64, d a multiple of 64, nk >= 1, 1 <= nsplit, and
+// nsplit · ktiles_per_split key tiles (32 keys for f32, 64 for bf16) covering
+// nk with none of the splits empty.
 
-extern "C" long long hvr_attn_workspace_bytes(int f32, int nq, int nk, int d, int nsplit) {
-  return (long long)Layout(f32 != 0, nq, nk, d, nsplit, nullptr).bytes;
+extern "C" long long hvr_attn_workspace_bytes(int f32, int lanes, int nq, int nk, int d,
+                                              int nsplit) {
+  return (long long)Layout(f32 != 0, lanes, nq, nk, d, nsplit, nullptr).bytes;
 }
 
 extern "C" int hvr_attn_run(int f32, int first, int last, const void* q, const void* k,
                             const void* v, const float* bias, float* out, void* workspace,
-                            int nq, int nk, int d, float scale, int nsplit, int ktiles_per_split,
-                            void* stream) {
+                            int lanes, int nq, int nk, int d, float scale, int nsplit,
+                            int ktiles_per_split, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return f32 ? run<true>(first, last, q, k, v, bias, out, workspace, nq, nk, d, scale, nsplit,
-                         ktiles_per_split, st)
-             : run<false>(first, last, q, k, v, bias, out, workspace, nq, nk, d, scale, nsplit,
-                          ktiles_per_split, st);
+  return f32 ? run<true>(first, last, q, k, v, bias, out, workspace, lanes, nq, nk, d, scale,
+                         nsplit, ktiles_per_split, st)
+             : run<false>(first, last, q, k, v, bias, out, workspace, lanes, nq, nk, d, scale,
+                          nsplit, ktiles_per_split, st);
 }
 
 extern "C" const char* hvr_attn_error_string(int code) {

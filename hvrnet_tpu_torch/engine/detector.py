@@ -18,6 +18,15 @@ NL1/NL3 softmax accumulators (``ops/streaming_attention.py``), and a
 detection costs a slide of one frame plus NL2/NL4 instead of the whole
 window head.
 
+Lanes (``*_batched``, for B video streams in lockstep): the frame program
+runs B frames through one backbone, proposes per lane and picks every
+lane's proposals in one ``nms_static_lanes``; RoIAlign and ``fc_new_1``
+stay per lane (one image each, as in the JAX package, so a bf16 lane takes
+RoIAlign's one-image bf16 branch).  The batched ring is the exact ring, (B,
+T, …) tensors with a position per lane; its detect runs the window head
+over all lanes at once (each NL block one kernel call) and every lane's
+decode through one ``multiclass_nms_static_lanes``.
+
 ``dtype`` is the engine's compute dtype (``core/precision.py``): float32,
 or bfloat16 with float32 parameters, as ``bench.py`` serves.  In bf16 the
 ring's row caches are bf16; boxes, scores, the streaming accumulators, the
@@ -37,7 +46,7 @@ from ..models.builder import build_model_module, build_roi_extractor
 from ..models.layers import FrozenBN
 from ..models.registry import DETECTORS
 from ..ops.boxes import delta2bbox
-from ..ops.nms import nms_static
+from ..ops.nms import multiclass_nms_static_lanes, nms_static_lanes
 from ..utils.config import unwrap
 from .canvas import Canvas
 
@@ -92,11 +101,11 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                 m.bias.zero_()
 
 
-def _rpn_proposals(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
-                   rpn_cfg, means, stds):
+def _rpn_candidates(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
+                    rpn_cfg, means, stds):
     """Top-``nms_pre`` anchors by score (ties toward the lower index, as
-    ``lax.top_k``), decoded and clamped, then ``nms_post`` greedy-NMS picks.
-    Returns (boxes (P, 4), scores (P,), mask (P,)); unused slots are 0."""
+    ``lax.top_k``), decoded and clamped: (proposals (k, 4), scores (k,),
+    valid (k,)), the input of the proposal NMS."""
     scores, deltas = rpn_flat_scores_deltas(cls_map, reg_map)
     avalid = canvas.anchor_valid(pad_shape)
     masked = torch.where(avalid, scores, torch.full_like(scores, -1.0))
@@ -111,12 +120,33 @@ def _rpn_proposals(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
         w = proposals[:, 2] - proposals[:, 0] + 1
         h = proposals[:, 3] - proposals[:, 1] + 1
         valid = valid & (w >= min_size) & (h >= min_size)
-    keep_idx, keep_mask = nms_static(proposals, top_scores,
-                                     float(rpn_cfg["nms_thr"]),
-                                     int(rpn_cfg["nms_post"]), valid=valid)
-    boxes = proposals[keep_idx] * keep_mask[:, None]
-    out_scores = torch.where(keep_mask, top_scores[keep_idx],
-                             torch.zeros_like(top_scores[keep_idx]))
+    return proposals, top_scores, valid
+
+
+def _rpn_proposals(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
+                   rpn_cfg, means, stds):
+    """One frame's proposals: its candidates, then the ``nms_post``
+    greedy-NMS picks.  Returns (boxes (P, 4), scores (P,), mask (P,));
+    unused slots are 0."""
+    cand = _rpn_candidates(cls_map, reg_map, canvas, pad_shape, img_shape,
+                           rpn_cfg, means, stds)
+    boxes, scores, mask = _rpn_pick(*(c[None] for c in cand), rpn_cfg)
+    return boxes[0], scores[0], mask[0]
+
+
+def _rpn_pick(proposals, scores, valid, rpn_cfg):
+    """The ``nms_post`` greedy-NMS picks of every lane's (B, k) candidates,
+    in one shared fixpoint: (boxes (B, P, 4), scores (B, P), mask (B, P));
+    unused slots are 0."""
+    keep_idx, keep_mask = nms_static_lanes(
+        proposals, scores, float(rpn_cfg["nms_thr"]),
+        int(rpn_cfg["nms_post"]), valid=valid)
+    boxes = torch.gather(proposals, 1,
+                         keep_idx[..., None].expand(-1, -1, 4)) \
+        * keep_mask[..., None]
+    out_scores = torch.gather(scores, 1, keep_idx)
+    out_scores = torch.where(keep_mask, out_scores,
+                             torch.zeros_like(out_scores))
     return boxes, out_scores, keep_mask
 
 
@@ -193,9 +223,10 @@ class BaseEngine:
         return self._canvases[key]
 
     def _to_input(self, img, img_shape) -> torch.Tensor:
-        """(1, H, W, 3) canvas — normalised float32, or raw uint8, which is
-        normalised here and zeroed beyond ``img_shape`` (the reference
-        normalises, then pads with zeros) → (1, 3, H, W) float32."""
+        """(B, H, W, 3) canvases — normalised float32, or raw uint8, which
+        is normalised here and zeroed beyond each frame's ``img_shape``
+        ((2,), or (B, 2)) (the reference normalises, then pads with zeros)
+        → (B, 3, H, W) float32."""
         x = torch.as_tensor(img, device=self.device)
         if x.dtype == torch.uint8:
             mean = torch.tensor(self.img_norm["mean"], dtype=torch.float32,
@@ -204,17 +235,21 @@ class BaseEngine:
                                      device=self.device)
             x = (x.float() - mean) * inv
             h, w = x.shape[1], x.shape[2]
+            ish = torch.as_tensor(
+                np.asarray(img_shape, np.float32).reshape(-1, 2),
+                device=self.device)
             yy = torch.arange(h, dtype=torch.float32, device=self.device)
             xx = torch.arange(w, dtype=torch.float32, device=self.device)
-            valid = ((yy[:, None] < float(np.float32(img_shape[0])))
-                     & (xx[None, :] < float(np.float32(img_shape[1]))))
-            x = x * valid[None, :, :, None]
+            valid = ((yy[None, :, None] < ish[:, 0, None, None])
+                     & (xx[None, None, :] < ish[:, 1, None, None]))
+            x = x * valid[..., None]
         return x.float().permute(0, 3, 1, 2).contiguous()
 
     @torch.no_grad()
     @f32_precision()
     def backbone_maps(self, img, img_shape):
-        """(c5, rpn cls, rpn reg) maps, NCHW, of one (1, H, W, 3) canvas."""
+        """(c5, rpn cls, rpn reg) maps, NCHW, of (B, H, W, 3) canvases
+        (one frame: B = 1)."""
         x = self._to_input(img, img_shape)
         c4 = self.model.extract_feat(x)
         cls_map, reg_map = self.model.rpn(c4)
@@ -232,15 +267,45 @@ class BaseEngine:
     @f32_precision()
     def frame_post(self, c5, cls_map, reg_map, img_shape, pad_shape):
         """Proposals → RoIAlign → fc_new_1 from one frame's NCHW maps."""
+        out = self.frame_post_batched(c5, cls_map, reg_map, [img_shape],
+                                      [pad_shape])
+        return {k: v[0] for k, v in out.items()}
+
+    @torch.no_grad()
+    def frame_features_batched(self, imgs, img_shapes, pad_shapes
+                               ) -> Dict[str, Any]:
+        """imgs: (B, H, W, 3), one canvas-padded frame from each of B video
+        streams (normalised float32 or raw uint8); img_shapes, pad_shapes
+        (B, 2).  Returns the frames' window caches with a leading lane
+        axis: fc1 (B, P, D), boxes (B, P, 4), scores (B, P), mask (B, P)."""
+        c5, cls_map, reg_map = self.backbone_maps(imgs, img_shapes)
+        return self.frame_post_batched(c5, cls_map, reg_map, img_shapes,
+                                       pad_shapes)
+
+    @torch.no_grad()
+    @f32_precision()
+    def frame_post_batched(self, c5, cls_map, reg_map, img_shapes,
+                           pad_shapes) -> Dict[str, Any]:
+        """Proposals → RoIAlign → fc_new_1 from B frames' NCHW maps: the
+        candidates per lane, one NMS fixpoint for all lanes, then RoIAlign
+        and fc_new_1 per lane (one image each)."""
         stride = self.anchor_stride
         canvas = self._canvas(c5.shape[2] * stride, c5.shape[3] * stride)
-        boxes, scores, mask = _rpn_proposals(
-            cls_map[0], reg_map[0], canvas, pad_shape, img_shape,
-            self.test_cfg["rpn"], self.rpn_means, self.rpn_stds)
-        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], dim=1)
-        pooled = self.roi_extractor(c5, rois)
-        fc1 = self.model.bbox_head.precompute_fc1(pooled)
-        return dict(fc1=fc1, boxes=boxes, scores=scores, mask=mask)
+        rpn_cfg = self.test_cfg["rpn"]
+        cands = [_rpn_candidates(cls_map[b], reg_map[b], canvas,
+                                 pad_shapes[b], img_shapes[b], rpn_cfg,
+                                 self.rpn_means, self.rpn_stds)
+                 for b in range(c5.shape[0])]
+        boxes, scores, mask = _rpn_pick(*(torch.stack(c) for c in
+                                          zip(*cands)), rpn_cfg)
+        fc1 = []
+        for b in range(c5.shape[0]):
+            rois = torch.cat([torch.zeros_like(boxes[b, :, :1]), boxes[b]],
+                             dim=1)
+            pooled = self.roi_extractor(c5[b:b + 1], rois)
+            fc1.append(self.model.bbox_head.precompute_fc1(pooled))
+        return dict(fc1=torch.stack(fc1), boxes=boxes, scores=scores,
+                    mask=mask)
 
 
 class _RingMixin:
@@ -278,6 +343,100 @@ class _RingMixin:
         return state, self.ring_detect(state, img_shape, scale_factor,
                                        branch)
 
+    def window_detect(self, fc1_stack, boxes, masks, img_shape, scale_factor,
+                      branch=None):
+        """fc1_stack: (T, P, D), boxes: (T, P, 4), masks: (T, P), oldest
+        frame first.  Decodes the centre frame ``key_dim`` in original-image
+        coords: a (dets (max, 5), labels (max,), mask (max,)) triple, or on
+        a multi-branch engine one per head branch unless ``branch`` is
+        given.  One lane of ``window_detect_batched``."""
+        outs = self.window_detect_batched(
+            fc1_stack[None], boxes[None], masks[None], [img_shape],
+            [scale_factor], branch)
+        if isinstance(outs, list):
+            return [tuple(t[0] for t in out) for out in outs]
+        return tuple(t[0] for t in outs)
+
+    # ------------------------------------------------ batched ring (lanes)
+    # B exact rings, one per video stream, as (B, T, …) tensors with a
+    # host-side position per lane.  It is the exact ring on every engine,
+    # a streaming one included, as in the JAX package.
+
+    def ring_reset_batched(self, batch: int, fc1_dim: int) -> Dict[str, Any]:
+        T, P = self.window, self.proposal_num
+        dev = self.device
+        return dict(fc1=torch.zeros((batch, T, P, fc1_dim), dtype=self.dtype,
+                                    device=dev),
+                    boxes=torch.zeros((batch, T, P, 4), device=dev),
+                    masks=torch.zeros((batch, T, P), dtype=torch.bool,
+                                      device=dev),
+                    pos=np.full(batch, -1, np.int64))
+
+    @torch.no_grad()
+    def ring_push_batched(self, state, feats, reset) -> Dict[str, Any]:
+        """Write each lane's frame caches (``feats`` with a leading lane
+        axis) over its oldest slot, in place; ``reset`` (B,) bool instead
+        fills that lane's whole ring with its frame (a video's front
+        padding in one push)."""
+        reset = np.asarray(reset, bool)
+        pos = np.where(reset, 0, (state["pos"] + 1) % self.window)
+        dev = self.device
+        lanes = torch.arange(len(pos), device=dev)
+        fill = torch.as_tensor(np.flatnonzero(reset), device=dev)
+        for key, src in (("fc1", "fc1"), ("boxes", "boxes"),
+                         ("masks", "mask")):
+            new = feats[src].to(state[key].dtype)
+            state[key][lanes, torch.as_tensor(pos, device=dev)] = new
+            if len(fill):
+                state[key][fill] = new[fill][:, None]
+        state["pos"] = pos
+        return state
+
+    def ring_detect_batched(self, state, img_shapes, scale_factors,
+                            branch=None):
+        """Every lane's window centre from its own ring, oldest frame first
+        (each lane rolled by its own position): ``window_detect_batched``
+        on (B, T, …) stacks."""
+        T = self.window
+        order = (np.arange(T)[None] + state["pos"][:, None] + 1) % T
+        dev = self.device
+        lanes = torch.arange(order.shape[0], device=dev)[:, None]
+        order = torch.as_tensor(order, device=dev)
+        return self.window_detect_batched(
+            state["fc1"][lanes, order], state["boxes"][lanes, order],
+            state["masks"][lanes, order], img_shapes, scale_factors, branch)
+
+    def _decode_lanes(self, pairs, rois, img_shapes, scale_factors, valid):
+        """Each head output pair (cls (B, P, C), reg (B, P, 4·k)) decoded
+        per lane (``get_det_bboxes`` without its NMS) and then the class-wise
+        NMS of all lanes in one fixpoint: a (dets (B, max, 5), labels (B,
+        max), mask (B, max)) triple per pair."""
+        rcnn = self.test_cfg["rcnn"]
+        outs = []
+        for cls, reg in pairs:
+            dec = [get_det_bboxes(rois[b], cls[b], reg[b], img_shapes[b],
+                                  scale_factors[b], self.target_means,
+                                  self.target_stds, rescale=True)
+                   for b in range(rois.shape[0])]
+            bboxes, scores = (torch.stack(x) for x in zip(*dec))
+            outs.append(multiclass_nms_static_lanes(
+                bboxes, scores, float(rcnn["score_thr"]),
+                float(rcnn["nms"]["iou_thr"]), int(rcnn["max_per_img"]),
+                valid=valid))
+        return outs
+
+    def _window_lanes(self, fc1_stack, masks):
+        """The head over B lanes' (B, T, P, D) windows: its (cls, reg)
+        pairs, the key frame's rows of each lane."""
+        B, T = fc1_stack.shape[:2]
+        P = self.proposal_num
+        cls, reg = self.model.bbox_head.forward_fc1(
+            fc1_stack.reshape(B, T * P, -1), self.key_dim * P, P,
+            masks.reshape(B, T * P))
+        if isinstance(cls, list):
+            return list(zip(cls, reg))
+        return [(cls, reg)]
+
 
 @DETECTORS.register_module
 class SelsaRCNN(_RingMixin, BaseEngine):
@@ -301,20 +460,17 @@ class SelsaRCNN(_RingMixin, BaseEngine):
 
     @torch.no_grad()
     @f32_precision()
-    def window_detect(self, fc1_stack, boxes, masks, img_shape, scale_factor,
-                      branch=None):
-        """fc1_stack: (T, P, D), boxes: (T, P, 4), masks: (T, P), oldest
-        frame first.  Decodes the centre frame ``key_dim``: (dets (max, 5),
-        labels (max,), mask (max,)) in original-image coords; ``branch`` is
-        ignored (one branch)."""
+    def window_detect_batched(self, fc1_stack, boxes, masks, img_shapes,
+                              scale_factors, branch=None):
+        """fc1_stack: (B, T, P, D), boxes: (B, T, P, 4), masks: (B, T, P),
+        each lane's window oldest frame first.  Decodes each lane's centre
+        frame ``key_dim`` with its row of ``img_shapes`` (B, 2) and
+        ``scale_factors`` (B, 4): (dets (B, max, 5), labels (B, max), mask
+        (B, max)); ``branch`` is ignored (one branch)."""
         kd = self.key_dim
-        T, P = fc1_stack.shape[0], self.proposal_num
-        cls, reg = self.model.bbox_head.forward_fc1(
-            fc1_stack.reshape(T * P, -1), kd * P, P, masks.reshape(T * P))
-        return get_det_bboxes(boxes[kd], cls, reg, img_shape, scale_factor,
-                              self.target_means, self.target_stds,
-                              rescale=True, cfg=self.test_cfg["rcnn"],
-                              valid=masks[kd])
+        return self._decode_lanes(self._window_lanes(fc1_stack, masks),
+                                  boxes[:, kd], img_shapes, scale_factors,
+                                  masks[:, kd])[0]
 
 
 @DETECTORS.register_module
@@ -357,24 +513,19 @@ class HNMBRCNN(_RingMixin, BaseEngine):
 
     @torch.no_grad()
     @f32_precision()
-    def window_detect(self, fc1_stack, boxes, masks, img_shape, scale_factor,
-                      branch=None):
-        """fc1_stack: (T, P, D), boxes: (T, P, 4), masks: (T, P), oldest
-        frame first.  Decodes the centre frame ``key_dim``: one
-        (dets (max, 5), labels (max,), mask (max,)) triple per head branch,
-        or only ``branch``'s when it is given, in original-image coords."""
+    def window_detect_batched(self, fc1_stack, boxes, masks, img_shapes,
+                              scale_factors, branch=None):
+        """fc1_stack: (B, T, P, D), boxes: (B, T, P, 4), masks: (B, T, P),
+        each lane's window oldest frame first.  Decodes each lane's centre
+        frame ``key_dim`` with its row of ``img_shapes`` (B, 2) and
+        ``scale_factors`` (B, 4): one (dets (B, max, 5), labels (B, max),
+        mask (B, max)) triple per head branch, or only ``branch``'s."""
         kd = self.key_dim
-        T, P = fc1_stack.shape[0], self.proposal_num
-        cls_list, reg_list = self.model.bbox_head.forward_fc1(
-            fc1_stack.reshape(T * P, -1), kd * P, P, masks.reshape(T * P))
-        pairs = list(zip(cls_list, reg_list))
+        pairs = self._window_lanes(fc1_stack, masks)
         if branch is not None:
             pairs = [pairs[branch]]
-        outs = [get_det_bboxes(boxes[kd], cls, reg, img_shape, scale_factor,
-                               self.target_means, self.target_stds,
-                               rescale=True, cfg=self.test_cfg["rcnn"],
-                               valid=masks[kd])
-                for cls, reg in pairs]
+        outs = self._decode_lanes(pairs, boxes[:, kd], img_shapes,
+                                  scale_factors, masks[:, kd])
         return outs[0] if branch is not None else outs
 
     # --------------------------------------------------- streaming ring

@@ -10,15 +10,24 @@ the device).  With ``u8_transfer`` the dataset's ``Normalize`` is skipped
 and the canvas stays uint8, normalised on the device by the engine (4×
 fewer bytes to move; the same engine input, since the pipeline resizes in
 uint8 before it normalises).
+
+``parallel_test_frame_stream`` gives the same kind of frames with the
+decode, resize and padding in a thread pool, in order.  Its draws follow
+the JAX package's parallel stream: every video's shuffle first, then each
+frame's pipeline draws, planned serially in frame order, so the frames do
+not depend on the number of workers.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import queue
 import threading
+from collections import deque
 from typing import Dict, Iterable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 from ..data.pipelines import Compose, render
 from .canvas import FrameTooLarge, pad_to_canvas, pick_canvas_shape
@@ -71,6 +80,109 @@ def test_frame_stream(dataset, rank: int = 0, max_long: int = 1008,
             yield frame
     finally:
         dataset.pipeline = saved
+
+
+PREFETCH = 8        # frames of the threaded stream in flight
+
+
+def parallel_test_frame_stream(dataset, rank: int = 0, workers: int = 4,
+                               max_long: int = 1008, max_short: int = 608,
+                               u8_transfer: bool = False,
+                               transfer_batch: int = 1, device=None
+                               ) -> Iterator[Dict]:
+    """Order-preserving threaded ``test_frame_stream`` (counterpart of the
+    JAX package's ``parallel_test_frame_stream``).
+
+    A serial pass first replays the stateful test iterator (flags,
+    offsets, shuffles, the rank's shard), drawing every video's shuffle
+    from the dataset's generator; under ``video_shuffle`` that is another
+    sample of the orders than the sequential stream's, whose shuffles
+    interleave with the frames' draws.  Each frame's pipeline is then
+    planned in frame order (its draws, nothing decoded) as it is handed to
+    ``workers`` threads, which decode, resize and pad it; frames come out
+    in order, up to ``PREFETCH`` of them in flight.
+
+    ``device``: the canvases arrive as tensors on it, moved by the worker
+    that made them, or, with ``transfer_batch`` > 1, that many consecutive
+    same-canvas frames in one copy, sliced back per frame (a change of
+    canvas ends a batch early).  Without it they stay numpy."""
+    pipeline = u8_pipeline(dataset) if u8_transfer else dataset.pipeline
+    entries = []
+    cur_tid, video, order = 0, None, None
+    for idx in dataset.indices_list[rank]:
+        vid = dataset.global_video_list[idx]
+        if cur_tid == 0:
+            video = dataset.img_infos[vid]
+            order = list(range(video["frame_seg_len"]))
+            if dataset.video_shuffle:
+                dataset.rng.shuffle(order)
+            flag = 0
+        else:
+            flag = 2
+        offset = order[cur_tid]
+        cur_tid += 1
+        if cur_tid == video["frame_seg_len"]:
+            flag, cur_tid = 1, 0
+        entries.append((video, offset, flag))
+    one_by_one = device is not None and transfer_batch <= 1
+
+    def plan(entry):
+        video, offset, flag = entry
+        r = dict(img_info=dataset._frame_info(video, offset))
+        dataset.pre_pipeline(r, lazy=True)
+        out = pipeline(r)
+        out["img_meta"].update(key_frame_flag=flag, frame_offset=offset,
+                               seg_len=video["frame_seg_len"],
+                               frame_start_id=video["frame_id"])
+        return out
+
+    def load(out):
+        out["img"] = render(out["img"])
+        frame = runner_frame(out, max_long, max_short, u8_transfer)
+        if one_by_one:
+            frame["img"] = torch.from_numpy(frame["img"]).to(device)
+        return frame
+
+    def batches(frames):
+        """Frames, their canvases moved to ``device`` transfer_batch at a
+        time."""
+        group = []
+
+        def moved():
+            imgs = torch.from_numpy(np.concatenate(
+                [f["img"] for f in group])).to(device)
+            out = [dict(f, img=imgs[i:i + 1]) for i, f in enumerate(group)]
+            group.clear()
+            return out
+
+        for f in frames:
+            if group and group[0]["img"].shape != f["img"].shape:
+                yield from moved()
+            group.append(f)
+            if len(group) >= transfer_batch:
+                yield from moved()
+        if group:
+            yield from moved()
+
+    def frames():
+        with cf.ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
+            todo = iter(entries)
+            futs: deque = deque(pool.submit(load, plan(e))
+                                for e in _take(todo, PREFETCH))
+            while futs:
+                frame = futs.popleft().result()
+                for e in _take(todo, 1):
+                    futs.append(pool.submit(load, plan(e)))
+                yield frame
+
+    if device is not None and transfer_batch > 1:
+        return batches(frames())
+    return frames()
+
+
+def _take(it, n):
+    for _, item in zip(range(n), it):
+        yield item
 
 
 def collate_train(frames: Sequence[Dict], canvas_hw, gt_max: int = 32

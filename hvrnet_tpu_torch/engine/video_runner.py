@@ -19,6 +19,12 @@ detections are recomputed exactly (``window_detect`` over a history of the
 last T + ``flush_every`` pushes) and the accumulators rebuilt
 (``engine.stream_rebuild``), so every emitted detection is either a healthy
 streaming one or exact.
+
+``pair_features`` P > 1 buffers P consecutive interior frames and runs
+their frame programs as one ``engine.frame_features_batched`` call, then
+pushes and detects each in order: only the frame program batches, so the
+windows and the order of emissions are unchanged (a partial buffer at a
+video's end goes frame by frame).
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ class SlidingWindowRunner:
 
     def __init__(self, engine, branch: int = -1, progress_hook=None,
                  timer=None, prepad_provider=None, flush_every: int = 16,
-                 speculative_stream=None):
+                 speculative_stream=None, pair_features: int = 1):
         self.engine = engine
         self.window = engine.window
         self.key_dim = engine.key_dim   # the centre the engine decodes
@@ -63,6 +69,8 @@ class SlidingWindowRunner:
         else:
             spec = bool(speculative_stream)
         self.speculative = spec and engine.stream
+        # interior frames per frame program
+        self.pair_features = max(int(pair_features), 1)
         # chunks replayed and detections recomputed by the last run()
         self.rebuilds = 0
         self.replayed = 0
@@ -184,8 +192,36 @@ class SlidingWindowRunner:
                         scale_factor=frame["scale_factor"],
                         frame_start_id=frame["frame_start_id"])
 
+        pairs: List[Dict] = []      # interior frames waiting for a program
+
+        def flush_pairs():
+            if not pairs:
+                return
+            with self._phase("frame_features"):
+                if len(pairs) == self.pair_features:
+                    fb = eng.frame_features_batched(
+                        torch.cat([torch.as_tensor(fr["img"])
+                                   for fr in pairs]),
+                        np.stack([fr["img_shape"] for fr in pairs]),
+                        np.stack([fr["pad_shape"] for fr in pairs]))
+                    flist = [{k: v[j] for k, v in fb.items()}
+                             for j in range(len(pairs))]
+                else:               # a partial buffer: frame by frame
+                    flist = [eng.frame_features(fr["img"], fr["img_shape"],
+                                                fr["pad_shape"])
+                             for fr in pairs]
+            for fr, feats in zip(pairs, flist):
+                push(feats, fr, fmeta_of(fr), detect=True)
+            pairs.clear()
+
         for frame in frame_stream:
             flag = frame["key_frame_flag"]
+            if flag == 2 and self.pair_features > 1:
+                pairs.append(frame)
+                if len(pairs) == self.pair_features:
+                    flush_pairs()
+                continue
+            flush_pairs()
             with self._phase("frame_features"):
                 feats = eng.frame_features(frame["img"], frame["img_shape"],
                                            frame["pad_shape"])
@@ -222,5 +258,6 @@ class SlidingWindowRunner:
                     push(feats, frame, fmeta, detect=True)
             else:
                 raise ValueError(f"bad key_frame_flag {flag}")
+        flush_pairs()
         flush()
         return results

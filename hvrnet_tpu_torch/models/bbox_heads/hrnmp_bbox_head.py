@@ -166,28 +166,34 @@ class HRNMPBBoxHead(nn.Module):
 
     def forward_fc1(self, fc1: torch.Tensor, cur_start: int, cur_len: int,
                     valid_mask: Optional[torch.Tensor] = None):
-        """fc1: (N, D) window rows, oldest frame first; the key frame's rows
-        are [cur_start, cur_start + cur_len).  Returns
+        """fc1: (N, D) window rows, oldest frame first, or (B, N, D) over B
+        lanes with ``valid_mask`` (B, N); the key frame's rows are
+        [cur_start, cur_start + cur_len).  Returns
         ([cls_branch, cls_final], [reg_branch, reg_final]) for the key rows."""
-        N = fc1.shape[0]
+        N = fc1.shape[-2]
         nongt = min(self.sampler_num * self.t_dim, N)
-        kmask = valid_mask[:nongt] if valid_mask is not None else None
+        kmask = valid_mask[..., :nongt] if valid_mask is not None else None
         s, e = cur_start, cur_start + cur_len
 
-        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[:nongt], kmask))
+        def rows(x, a=None, b=None):
+            return x[..., a:b, :]
+
+        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, rows(fc1, b=nongt), kmask))
 
         fc2 = self.fc_new_2(fc_all_1)
-        q2 = fc2[s:e]
-        fc_all_2_cur = F.relu(q2 + self.selsa_2(q2, fc2[:nongt], kmask))
+        q2 = rows(fc2, s, e)
+        fc_all_2_cur = F.relu(q2 + self.selsa_2(q2, rows(fc2, b=nongt),
+                                                kmask))
         cls_branch = self.fc_cls(fc_all_2_cur)
         reg_branch = self.fc_reg(fc_all_2_cur)
 
-        fc3 = self.fc_new_3(torch.cat([fc1[:s], fc_all_2_cur, fc1[e:]]))
-        fc_all_3 = F.relu(fc3 + self.selsa_3(fc3, fc3[:nongt], kmask))
+        fc3 = self.fc_new_3(torch.cat([rows(fc1, b=s), fc_all_2_cur,
+                                       rows(fc1, a=e)], dim=-2))
+        fc_all_3 = F.relu(fc3 + self.selsa_3(fc3, rows(fc3, b=nongt), kmask))
 
         fc4 = self.fc_new_4(fc_all_3)
-        q4 = fc4[s:e]
-        fc_all_4 = F.relu(q4 + self.selsa_4(q4, fc4[:nongt], kmask))
+        q4 = rows(fc4, s, e)
+        fc_all_4 = F.relu(q4 + self.selsa_4(q4, rows(fc4, b=nongt), kmask))
         return ([cls_branch, self.fc_cls_2(fc_all_4)],
                 [reg_branch, self.fc_reg_2(fc_all_4)])
 

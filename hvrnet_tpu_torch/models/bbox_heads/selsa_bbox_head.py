@@ -17,6 +17,11 @@ does: at test time every cached row; in training (sampler_num 128, t_dim 3,
 Every layer computes in ``dtype`` (``core/precision.py``); the attention's
 logits and softmax are float32 whatever the dtype, and its float32 output
 goes back to ``dtype`` before ``linear_out``.
+
+The block and ``forward_fc1`` also take a leading lane axis (B video
+streams in lockstep, each with its own key mask): the rows of all lanes go
+through each layer together and each block's attention is one kernel call
+for all lanes (the JAX package vmaps the window body).
 """
 from __future__ import annotations
 
@@ -63,7 +68,8 @@ class SelsaAttention(nn.Module):
     def forward(self, roi_feat: torch.Tensor, nongt_feat: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None,
                 return_aff: bool = False):
-        """roi_feat: (Q, D) queries; nongt_feat: (K, D) keys/values.
+        """roi_feat: (Q, D) queries; nongt_feat: (K, D) keys/values; or
+        (B, Q, D) and (B, K, D) over B lanes, ``key_mask`` (B, K).
 
         ``return_aff`` takes the explicit-affinity path the HRNMP mining
         needs, in plain torch (the JAX package computes it outside its
@@ -81,7 +87,7 @@ class SelsaAttention(nn.Module):
             out = widen(w.to(v.dtype)) @ widen(v)
             return self.out_proj(out.to(roi_feat.dtype)), aff
         if key_mask is None:
-            bias = torch.zeros(k.shape[0], dtype=torch.float32,
+            bias = torch.zeros(k.shape[:-1], dtype=torch.float32,
                                device=k.device)
         else:
             bias = torch.where(key_mask, 0.0, NEG_INF).float()
@@ -122,16 +128,17 @@ class SelsaBBoxHead(nn.Module):
     def forward_fc1(self, fc1: torch.Tensor, cur_start: int, cur_len: int,
                     valid_mask: Optional[torch.Tensor] = None,
                     output_all: bool = False):
-        """fc1: (N, D) rows, oldest frame first; the key frame's rows are
-        [cur_start, cur_start + cur_len); ``valid_mask`` (N,) takes padded
-        rows out of the keys.  Returns (cls, reg) for the key rows, or for
-        every row with ``output_all``."""
-        nongt = min(self.sampler_num * self.t_dim, fc1.shape[0])
-        kmask = valid_mask[:nongt] if valid_mask is not None else None
-        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[:nongt], kmask))
+        """fc1: (N, D) rows, oldest frame first, or (B, N, D) over B lanes;
+        the key frame's rows are [cur_start, cur_start + cur_len);
+        ``valid_mask`` (N,) or (B, N) takes padded rows out of the keys.
+        Returns (cls, reg) for the key rows, or for every row with
+        ``output_all``."""
+        nongt = min(self.sampler_num * self.t_dim, fc1.shape[-2])
+        kmask = valid_mask[..., :nongt] if valid_mask is not None else None
+        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[..., :nongt, :], kmask))
         fc2 = self.fc_new_2(fc_all_1)
-        q2 = fc2 if output_all else fc2[cur_start:cur_start + cur_len]
-        fc_all_2 = F.relu(q2 + self.selsa_2(q2, fc2[:nongt], kmask))
+        q2 = fc2 if output_all else fc2[..., cur_start:cur_start + cur_len, :]
+        fc_all_2 = F.relu(q2 + self.selsa_2(q2, fc2[..., :nongt, :], kmask))
         return self.fc_cls(fc_all_2), self.fc_reg(fc_all_2)
 
     def forward(self, bbox_feat: torch.Tensor, cur_start: int, cur_len: int,

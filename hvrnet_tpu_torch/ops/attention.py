@@ -1,4 +1,5 @@
-"""Masked attention: ``softmax(q·kᵀ·scale + bias)·v`` → (nq, d) float32.
+"""Masked attention: ``softmax(q·kᵀ·scale + bias)·v`` → (nq, d) float32,
+or (B, nq, d) over B independent lanes (one per video stream).
 
 Counterpart of ``hvrnet_tpu/ops/attention.py:masked_attention``.  On a CUDA
 tensor it launches the hand-written Hopper kernel
@@ -8,7 +9,11 @@ combine) whose scratch this module allocates; on a CPU tensor it runs
 ``attention_plain``, the straightforward expression that the tests and
 ``chip_smoke.py`` hold the kernel against.
 
-``bias`` is 0 for live keys and −1e30 for masked ones.  Inputs are float32
+``bias`` is 0 for live keys and −1e30 for masked ones.  A leading lane
+axis on q (B, nq, d), k and v (B, nk, d) and bias (B, nk) is one kernel
+launch for all lanes (the counterpart of ``jax.vmap`` over the Pallas
+call, whose batching rule adds a grid axis); each lane keeps its own keys
+and mask.  Inputs are float32
 or bfloat16; logits, softmax and accumulation are float32 (float32 inputs
 as 3xTF32 on the tensor cores); with bfloat16 inputs the softmax weights
 are rounded to bfloat16 before the product with v.  (The plain versions
@@ -45,9 +50,11 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """The plain version: (nq, nk) logits, softmax, product with v."""
+    """The plain version: (nq, nk) logits, softmax, product with v (batched
+    products under a leading lane axis)."""
     f = _acc_dtype(q)
-    aff = (q.to(f) @ k.to(f).T) * scale + bias.to(f)[None, :]
+    aff = ((q.to(f) @ k.to(f).transpose(-1, -2)) * scale
+           + bias.to(f)[..., None, :])
     w = torch.softmax(aff, dim=-1)
     return w.to(v.dtype).to(f) @ v.to(f)
 
@@ -61,16 +68,16 @@ def attention_backward_plain(q, k, v, bias, scale: float, g):
     mask bias."""
     f = _acc_dtype(q)
     qf, kf, vf = q.to(f), k.to(f), v.to(f)
-    aff = qf @ kf.T * scale + bias.to(f)[None, :]
+    aff = qf @ kf.transpose(-1, -2) * scale + bias.to(f)[..., None, :]
     w = torch.softmax(aff, dim=-1)
     g = g.to(f)
-    dv = w.T @ g
-    dw = g @ vf.T
+    dv = w.transpose(-1, -2) @ g
+    dw = g @ vf.transpose(-1, -2)
     tmp = (dw * w).sum(dim=-1, keepdim=True)
     ds = w * (dw - tmp) * scale
     dq = (ds @ kf).to(q.dtype)
-    dk = (ds.T @ qf).to(k.dtype)
-    dbias = ds.sum(dim=0).to(bias.dtype)
+    dk = (ds.transpose(-1, -2) @ qf).to(k.dtype)
+    dbias = ds.sum(dim=-2).to(bias.dtype)
     return dq, dk, dv.to(v.dtype), dbias
 
 
@@ -93,8 +100,8 @@ def bf16_agreement(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
       in the kernel and nothing rounds.)
     """
     vf = v.float()
-    w = torch.softmax((q.float() @ k.float().T) * scale
-                      + bias.float()[None, :], dim=-1)
+    w = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * scale
+                      + bias.float()[..., None, :], dim=-1)
     delta = got - attention_plain(q, k, v, bias, scale)
     u = 2.0 ** -8
     bound = 2 * u * (w @ vf.abs()) + 1e-6        # + f32 rounding
@@ -131,10 +138,12 @@ class _MaskedAttention(torch.autograd.Function):
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """q: (nq, d); k, v: (nk, d); bias: (nk,) float32 → (nq, d) float32.
+    """q: (nq, d); k, v: (nk, d); bias: (nk,) float32 → (nq, d) float32;
+    or the same with a leading lane axis B on all four → (B, nq, d).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``masked_attention.launches``) or raise.  Gradients
+    count the launch in ``masked_attention.launches``, one per call whatever
+    B) or raise.  Gradients
     reach q, k, v and bias through ``attention_backward_plain``."""
     return _MaskedAttention.apply(q, k, v, bias, scale)
 
@@ -142,9 +151,16 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 masked_attention.launches = 0
 
 
+_MAX_LANES = 64          # the kernel's lane grid axis (gridDim.z)
+
+
 def _check(q, k, v, bias):
-    nq, d = q.shape
-    nk = k.shape[0]
+    if q.dim() not in (2, 3):
+        raise ValueError(f"masked_attention takes q (nq, d) or (B, nq, d), "
+                         f"got {tuple(q.shape)}")
+    lead = tuple(q.shape[:-2])
+    nq, d = q.shape[-2:]
+    nk = k.shape[-2] if k.dim() == q.dim() else -1
     for name, t in (("k", k), ("v", v), ("bias", bias)):
         if t.device != q.device:
             raise ValueError(f"masked_attention: {name} on {t.device}, "
@@ -156,13 +172,17 @@ def _check(q, k, v, bias):
     if bias.dtype != torch.float32:
         raise TypeError(f"masked_attention bias must be float32, "
                         f"got {bias.dtype}")
-    if k.shape != (nk, d) or v.shape != (nk, d) or bias.shape != (nk,):
+    if tuple(k.shape) != lead + (nk, d) or tuple(v.shape) != lead + (nk, d) \
+            or tuple(bias.shape) != lead + (nk,):
         raise ValueError(f"masked_attention shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, bias "
                          f"{tuple(bias.shape)}")
     if nk < 1 or d % 64 != 0 or d > 1024:
         raise ValueError(f"masked_attention kernel needs nk >= 1 and d a "
                          f"multiple of 64 up to 1024, got nk={nk}, d={d}")
+    if lead and not 1 <= lead[0] <= _MAX_LANES:
+        raise ValueError(f"masked_attention kernel takes 1 to {_MAX_LANES} "
+                         f"lanes, got {lead[0]}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"masked_attention: {name} is not contiguous")
@@ -202,27 +222,32 @@ PHASES = ("pre-split", "pass 1", "statistics", "pass 2", "combine")
 
 class _Call:
     """One kernel call's arguments and workspace: ``run(first, last)``
-    launches phases ``PHASES[first..last]`` on the current stream."""
+    launches phases ``PHASES[first..last]`` on the current stream.  Lanes
+    multiply the output tiles the split is chosen for and every scratch
+    buffer; a 2-D call is one lane."""
 
     def __init__(self, q, k, v, bias, scale):
-        nq, d = q.shape
-        nk = k.shape[0]
+        nq, d = q.shape[-2:]
+        nk = k.shape[-2]
+        lanes = q.shape[0] if q.dim() == 3 else 1
         f32 = q.dtype == torch.float32
         dev = q.device
         sms = _sm_count(dev.index if dev.index is not None
                         else torch.cuda.current_device())
         self.nsplit, per = _choose_split(
-            _ceil_div(nq, _BM) * _ceil_div(d, _BN),
+            lanes * _ceil_div(nq, _BM) * _ceil_div(d, _BN),
             _ceil_div(nk, _KEYS_PER_STAGE[q.dtype]), sms,
-            _TILE_US[q.dtype], nq * d * 4 / 2.5e6)
+            _TILE_US[q.dtype], lanes * nq * d * 4 / 2.5e6)
         lib = _library()
-        nbytes = lib.hvr_attn_workspace_bytes(int(f32), nq, nk, d, self.nsplit)
-        self.out = torch.empty((nq, d), dtype=torch.float32, device=dev)
+        nbytes = lib.hvr_attn_workspace_bytes(int(f32), lanes, nq, nk, d,
+                                              self.nsplit)
+        self.out = torch.empty(q.shape[:-1] + (d,), dtype=torch.float32,
+                               device=dev)
         self.workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         self._args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       bias.data_ptr(), self.out.data_ptr(),
-                      self.workspace.data_ptr(), nq, nk, d, float(scale),
-                      self.nsplit, per,
+                      self.workspace.data_ptr(), lanes, nq, nk, d,
+                      float(scale), self.nsplit, per,
                       torch.cuda.current_stream(dev).cuda_stream)
         self._f32 = int(f32)
 
@@ -257,9 +282,8 @@ def plan(q, k, v, bias, scale) -> _Call:
 
 def _launch(q, k, v, bias, scale):
     _check(q, k, v, bias)
-    if q.shape[0] == 0:
-        return torch.empty((0, q.shape[1]), dtype=torch.float32,
-                           device=q.device)
+    if q.shape[-2] == 0:
+        return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     out = _Call(q, k, v, bias, scale).run()
     masked_attention.launches += 1
     return out
@@ -269,9 +293,9 @@ def _launch(q, k, v, bias, scale):
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load("masked_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hvr_attn_workspace_bytes.argtypes = [i32] * 5
+    lib.hvr_attn_workspace_bytes.argtypes = [i32] * 6
     lib.hvr_attn_workspace_bytes.restype = ctypes.c_longlong
-    lib.hvr_attn_run.argtypes = ([i32] * 3 + [ptr] * 6 + [i32] * 3
+    lib.hvr_attn_run.argtypes = ([i32] * 3 + [ptr] * 6 + [i32] * 4
                                  + [ctypes.c_float] + [i32] * 2 + [ptr])
     lib.hvr_attn_run.restype = i32
     lib.hvr_attn_error_string.argtypes = [i32]

@@ -12,8 +12,9 @@ runs the streaming ring (speculative, replaying flagged chunks exactly).
 ``--pre-padding random`` (the default) front-pads each video's window with
 half − 1 random frames of the same video, drawn from a generator of their
 own seeded by ``--seed``; ``repeat`` pads with copies of the first frame.
-The shared flags (ranks, ``--device``, ``--decoder``, ``--bf16``, …) are
-those of ``hvrnet_tpu_torch.tools.test``.
+``--pair-features P`` runs P consecutive interior frames through one frame
+program.  The shared flags (ranks, ``--device``, ``--decoder``,
+``--bf16``, …) are those of ``hvrnet_tpu_torch.tools.test``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--stream", action="store_true",
                    help="the streaming-softmax ring")
     p.add_argument("--multi-pass", type=int, default=0)
-    p.add_argument("--pair-features", type=int, default=1)
+    p.add_argument("--pair-features", type=int, default=1, metavar="P",
+                   help="run P consecutive interior frames through one "
+                        "frame program")
     args = p.parse_args(argv)
     if args.multi_pass:
         raise SystemExit("--multi-pass is not ported yet (ROADMAP Queue 1 "

@@ -14,6 +14,14 @@ the CPU.  Images are read with ``--decoder``: ``cv2`` (the default, needs
 cv2) or ``module:function``, an importable callable ``path -> (H, W, 3)
 uint8 BGR`` array.
 
+Throughput: ``--batched B`` runs B videos in lockstep
+(``engine.batched_runner``: one batched frame program and one batched
+window detection per step, the same windows and detections per video);
+``--loader-workers N`` decodes frames in N threads (on the sequential
+runner a threaded stream whose shuffles are drawn before any frame, as in
+the JAX CLI); ``--pair-features P`` runs P consecutive interior frames
+through one frame program on the sequential runner.
+
 Flags of the JAX CLI that the port does not run yet stop the CLI with the
 ROADMAP item that will port them; none is accepted and ignored.
 """
@@ -34,7 +42,9 @@ from ..apis import build_detector, load_params_for_engine
 from ..data.pipelines import resolve_decoder
 from ..data.vid_dataset import build_dataset
 from ..engine.detector import resolve_device
-from ..engine.stream import prefetch_stream, test_frame_stream
+from ..engine.batched_runner import BatchedSlidingWindowRunner
+from ..engine.stream import (parallel_test_frame_stream, prefetch_stream,
+                             test_frame_stream)
 from ..engine.video_runner import SlidingWindowRunner
 from ..utils.config import Config
 from ..utils.dist_io import (collect_results, dump_part, trim_to_local,
@@ -45,11 +55,7 @@ logger = logging.getLogger("hvrnet_tpu_torch")
 # flags of the JAX CLI that stop this one: flag → (refused when, ROADMAP item)
 REFUSED = {
     "aug_test": (bool, "Queue 1 item 5 (aug-test)"),
-    "batched": (bool, "Queue 1 item 5 (the lockstep lanes)"),
     "spmd_lanes": (bool, "Queue 1 item 7 (the SPMD lanes)"),
-    "pair_features": (lambda v: v > 1, "Queue 1 item 5 (pair_features)"),
-    "loader_workers": (lambda v: v > 1,
-                       "Queue 1 item 5 (the threaded loader)"),
     "trace": (lambda v: v is not None,
               "Queue 1 item 8 (the CLIs' --trace and --timing)"),
     "timing": (bool, "Queue 1 item 8 (the CLIs' --trace and --timing)"),
@@ -87,6 +93,26 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="image decoder: cv2, or module:function taking a "
                         "path and returning an (H, W, 3) uint8 BGR array")
     p.add_argument("--show", action="store_true")
+
+
+def exclusive(args: argparse.Namespace) -> None:
+    """The JAX CLI's rules for flags that do not combine, with its
+    messages."""
+    if args.spmd_lanes and not args.batched:
+        raise SystemExit("--spmd-lanes requires --batched B (the lanes are "
+                         "the batched runner's streams)")
+    if args.batched:
+        if args.aug_test:
+            raise SystemExit("--batched and --aug-test are exclusive")
+        if args.timing:
+            raise SystemExit("--timing is not supported with --batched "
+                             "(the lockstep runner has no per-phase timer)")
+        if args.pair_features > 1:
+            raise SystemExit("--pair-features applies to the sequential "
+                             "runner; --batched already batches the feature "
+                             "stage across streams")
+    elif args.u8_transfer and args.aug_test:
+        raise SystemExit("--u8-transfer is not supported with --aug-test")
 
 
 def refuse(args: argparse.Namespace) -> None:
@@ -181,16 +207,32 @@ def run_test(args, cfg, dataset, engine, imread, prepad_provider=None,
             logger.info("rank %d: %d frames done", args.rank, done[0])
 
     h, w = canvas_of(cfg)
-    runner = SlidingWindowRunner(engine, branch=args.branch,
-                                 progress_hook=progress, timer=timer,
-                                 prepad_provider=prepad_provider)
-    stream = prefetch_stream(test_frame_stream(
-        dataset, rank=args.rank, max_long=max(h, w), max_short=min(h, w),
-        u8_transfer=u8_transfer, timer=timer))
-    if timer is not None:
-        stream = _waited(stream, timer)
-    t0 = time.perf_counter()
-    results = runner.run(stream, num_frames=len(dataset))
+    canvas = dict(max_long=max(h, w), max_short=min(h, w))
+    workers = getattr(args, "loader_workers", 1)
+    if getattr(args, "batched", 0):
+        runner = BatchedSlidingWindowRunner(
+            engine, batch=args.batched, branch=args.branch,
+            progress_hook=progress, loader_workers=max(workers, 0),
+            u8_transfer=u8_transfer, timer=timer)
+        t0 = time.perf_counter()
+        results = runner.run(dataset, rank=args.rank, **canvas)
+    else:
+        runner = SlidingWindowRunner(engine, branch=args.branch,
+                                     progress_hook=progress, timer=timer,
+                                     prepad_provider=prepad_provider,
+                                     pair_features=args.pair_features)
+        if workers > 1:
+            stream = parallel_test_frame_stream(
+                dataset, rank=args.rank, workers=workers,
+                u8_transfer=u8_transfer, **canvas)
+        else:
+            stream = prefetch_stream(test_frame_stream(
+                dataset, rank=args.rank, u8_transfer=u8_transfer,
+                timer=timer, **canvas))
+        if timer is not None:
+            stream = _waited(stream, timer)
+        t0 = time.perf_counter()
+        results = runner.run(stream, num_frames=len(dataset))
     wall = time.perf_counter() - t0
     tmpdir = args.tmpdir or os.path.dirname(os.path.abspath(args.out)) or "."
     local = trim_to_local(results, dataset, args.rank)
@@ -240,9 +282,17 @@ def parse_args(argv=None):
                    help="move frames to the device as uint8 and normalise "
                         "there (4× fewer bytes, the same engine input)")
     p.add_argument("--aug-test", action="store_true")
-    p.add_argument("--loader-workers", type=int, default=1)
-    p.add_argument("--pair-features", type=int, default=1)
-    p.add_argument("--batched", type=int, default=0)
+    p.add_argument("--loader-workers", type=int, default=1,
+                   help="> 1: decode frames in this many threads (the "
+                        "sequential runner's threaded stream draws every "
+                        "video's shuffle first); with --batched, the "
+                        "threads that decode each step's frames")
+    p.add_argument("--pair-features", type=int, default=1, metavar="P",
+                   help="run P consecutive interior frames through one "
+                        "frame program (sequential runner)")
+    p.add_argument("--batched", type=int, default=0, metavar="B",
+                   help="drive B video streams in lockstep through the "
+                        "batched frame program and ring")
     p.add_argument("--spmd-lanes", action="store_true")
     p.add_argument("--trace", default=None)
     p.add_argument("--timing", action="store_true")
@@ -255,6 +305,7 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     given, wraps the runner's stages, the stream's pipeline and canvas
     steps and the runner's wait for each frame."""
     args = parse_args(argv)
+    exclusive(args)
     refuse(args)
     setup(args)
     imread = imread or decoder_from_flag(args.decoder)

@@ -348,8 +348,7 @@ def test_random_pre_padding(setup):
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("flag", [["--multi-pass", "3"],
-                                  ["--pair-features", "2"], ["--show"]])
+@pytest.mark.parametrize("flag", [["--multi-pass", "3"], ["--show"]])
 def test_hnl_test_refuses_unported_flags(setup, flag):
     _, cfg, ckpt, work = setup
     with pytest.raises(SystemExit, match="not ported yet \\(ROADMAP Queue "

@@ -112,8 +112,7 @@ def test_bf16_cli_runs(setup, tmp_path):
                        for c in frame)
 
 
-REFUSED = [["--aug-test"], ["--batched", "2"], ["--spmd-lanes"],
-           ["--pair-features", "2"], ["--loader-workers", "2"],
+REFUSED = [["--aug-test"], ["--spmd-lanes", "--batched", "2"],
            ["--trace", "trace_dir"], ["--timing"], ["--show"]]
 
 

@@ -76,6 +76,44 @@ def test_attention_kernel_matches_plain(nq, nk, masked, dtype):
         _assert_bf16_agrees(got, q, k, v, bias, 1 / 32., masked == "all")
 
 
+# lanes (B, nq, nk): one lane; 3 lanes of a ragged key tile; NL2/NL4 and a
+# ragged query count over 4 lanes, whose key counts are not multiples of
+# the key tile (a tail read past a lane's last key must be zeros, not the
+# next lane's keys)
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,nq,nk", [(1, 40, 200), (3, 40, 200),
+                                         (4, 300, 6300), (4, 700, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_attention_kernel_matches_plain(lanes, nq, nk, dtype):
+    """One launch for all lanes, each lane with its own keys and mask (one
+    lane wholly masked): f32 within 1e-4 and 1e-5 of max|plain|, bf16
+    within ``bf16_agreement``'s limits; a one-lane call bit for bit the
+    2-D call on the same inputs."""
+    _card()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(lanes * nq + nk)
+    q, k, v = (torch.from_numpy(rng.normal(size=(lanes, n, 1024)).astype(
+        np.float32)).cuda().to(dt) for n in (nq, nk, nk))
+    live = rng.random((lanes, nk)) > 0.2
+    if lanes > 1:
+        live[-1] = False                # a lane with every key masked
+    bias = torch.from_numpy(np.where(live, 0.0, NEG_INF).astype(
+        np.float32)).cuda()
+    before = masked_attention.launches
+    got = masked_attention(q, k, v, bias, 1 / 32.)
+    assert masked_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (lanes, nq, 1024)
+    if dt == torch.float32:
+        want = attention_plain(q, k, v, bias, 1 / 32.)
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 and err <= 1e-5 * want.abs().max().item()
+    else:
+        _assert_bf16_agrees(got, q, k, v, bias, 1 / 32., False)
+    one = masked_attention(q[:1], k[:1], v[:1], bias[:1], 1 / 32.)[0]
+    assert torch.equal(one, masked_attention(q[0], k[0], v[0], bias[0],
+                                             1 / 32.))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_kernel_is_deterministic(dtype):
