@@ -110,7 +110,31 @@ stops the script with a non-zero exit:
     disk equal to ``--batched 4`` with no loader threads, frames/s beside
     the sequential ``hnl_test``; on 4 videos of 64 frames against the
     sequential ``test`` with the same loader threads.
-13. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+13. ``[aug]``: flip-augmented testing (``test --aug-test``).  The kernel
+    on 2 lanes at (2, 6300, 6300) and (2, 300, 6300), f32 and bf16, as
+    ``[lanes]`` holds and times it.  For HVRNet f32 and bf16 and SELSA f32
+    on one T=21 window of the synthetic video: duplicate augmentations
+    (the frame twice, unflipped, from the frame's own maps) hold the
+    frame's own proposals and fc1, a window head whose lanes are within
+    the head's limits of the one-lane head and, in f32, merged scores and
+    boxes within 1e-4 and 0.128 px of the plain decode; the frame and its
+    mirror hold the window head with the kernel against the plain
+    attention, 4 (HVRNet) or 2 (SELSA) calls of 2 lanes.  Then ``test
+    --aug-test`` from disk over the [cli] tree for the three: 4 and 2
+    launches per detection, frames/s, frame program and window step,
+    peak memory.
+14. ``[multipass]``: HVRNet's 3-pass test graph at T=63.  The kernel on 3
+    lanes at 6300², the window head of one T=63 window with the kernel
+    against the plain attention in f32 and bf16 (NL1 and NL2 one call of 3
+    lanes each, NL3 one of 300 × 18900); ``hnl_test --window 63
+    --multi-pass 3`` from disk over the [cli] tree's 40-frame video in f32
+    and bf16, 3 launches per detection, beside the exact ring's ``hnl_test
+    --window 63``; ``--stream --multi-pass 3`` stops the CLI.
+15. ``[trace]``: ``test --trace DIR --timing`` over an 8-frame video: the
+    printed phase summary lists ``frame_features`` and ``window_detect``,
+    and the trace file holds one ``logits_kernel`` and one
+    ``output_kernel`` CUDA event per launch the kernel counted.
+16. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1577,10 +1601,12 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
     main = importlib.import_module(f"hvrnet_tpu_torch.tools.{module}").main
     timer = CliTimer(torch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     masked_attention.launches = 0
     run = main(argv, imread=read_ppm, timer=timer)
     torch.cuda.synchronize()
     launches = masked_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
     runner = run.pop("runner")
     # the lockstep runner detects every stream at once, and replays nothing
     detects = getattr(runner, "detects", run["frames"])
@@ -1620,8 +1646,9 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
         f"{timer.mean_ms('window_detect'):.3f} ms/detection (CUDA "
         f"events); CLI wall {fps:.3f} frames/s over {run['wall_s']:.3f} s; "
         f"the runner waited on the stream {wait:.3f} of the wall time; "
-        f"host pipeline on the stream's thread {pipe:.3f} ms/frame")
-    run.update(fps=fps, wait_share=wait, pipeline_ms=pipe)
+        f"host pipeline on the stream's thread {pipe:.3f} ms/frame; peak "
+        f"device memory {peak:.2f} GiB")
+    run.update(fps=fps, wait_share=wait, pipeline_ms=pipe, peak_gib=peak)
     torch.cuda.empty_cache()
     return run
 
@@ -2230,21 +2257,21 @@ LANES_MAP_LIMIT = {"float32": (1e-3, LANES_MAP_DEPTHS),
                    "bfloat16": (0.05, LANES_MAP_DEPTHS[:3])}
 
 
-def lanes_attention(torch):
-    """The kernel on B = 4 lanes at the exact ring's shapes (each lane its
-    own keys and mask; lane 1 with half its keys masked) against its plain
-    version, f32 and bf16 at their limits; a 1-lane call bitwise equal to
-    the 2-D call; times of the lane call, of B separate 2-D calls, of the
-    plain version and of SDPA on the same batched shapes; the bound B ×
-    one call's."""
+def lanes_attention(torch, shapes=None, lanes=None, tag="[lanes]"):
+    """The kernel on B lanes (``LANES_B`` at ``LANES_ATTN``, the exact
+    ring's shapes, unless given; each lane its own keys and mask; lane 1
+    with half its keys masked) against its plain version, f32 and bf16 at
+    their limits; a 1-lane call bitwise equal to the 2-D call; times of the
+    lane call, of B separate 2-D calls, of the plain version and of SDPA on
+    the same batched shapes; the bound B × one call's."""
     import torch.nn.functional as F
     from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
                                                 bf16_agreement,
                                                 masked_attention, plan)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    scale, B = D ** -0.5, LANES_B
+    scale, B = D ** -0.5, lanes or LANES_B
     cases = []
-    for nq, nk, label in LANES_ATTN:
+    for nq, nk, label in shapes or LANES_ATTN:
         for dt in (torch.float32, torch.bfloat16):
             f32 = dt == torch.float32
             q, k, v = (torch.randn(B, n, D, device="cuda",
@@ -2304,7 +2331,7 @@ def lanes_attention(torch):
             t["bound_ms"] = B * bound
             t["bound_fraction"] = t["bound_ms"] / t["ms"]
             case.update(t)
-            log(f"[lanes] attention ({CARD}) " + json.dumps(case))
+            log(f"{tag} attention ({CARD}) " + json.dumps(case))
             if not ok:
                 raise RuntimeError(f"masked_attention on lanes disagrees "
                                    f"with its plain version: {case}")
@@ -2437,8 +2464,8 @@ def lanes_recorded(torch, engine, record):
             feats_of[frame_key(imgs[b])] = {k: v[b] for k, v in out.items()}
         return out
 
-    def window_lanes(fc1_stack, masks):
-        pairs = window(fc1_stack, masks)
+    def window_lanes(fc1_stack, masks, passes=None):
+        pairs = window(fc1_stack, masks, passes)
         for b in range(fc1_stack.shape[0]):
             heads.setdefault(window_key(fc1_stack[b], masks[b]),
                              []).append((fc1_stack[b].clone(),
@@ -2489,8 +2516,8 @@ def lanes_fed(torch, engine, config, record, lockstep, tag):
 
     window = engine._window_lanes
 
-    def window_lanes(fc1_stack, masks):
-        own = window(fc1_stack, masks)
+    def window_lanes(fc1_stack, masks, passes=None):
+        own = window(fc1_stack, masks, passes)
         for fc1, mask, pairs in heads.get(
                 window_key(fc1_stack[0], masks[0]), ()):
             if torch.equal(fc1, fc1_stack[0]) and torch.equal(mask, masks[0]):
@@ -2868,6 +2895,344 @@ def lanes_long(torch, np, work, ckpt):
     return {"cli long batched 4": lock, "cli long sequential": seq}
 
 
+# [aug] and [multipass]: a frame and its mirror are 2 lanes of each window
+# head call; the 3 passes of a T=63 window are 3 lanes of NL1 and of NL2,
+# whose NL3 is one call of the key frame's 300 rows against all 18900
+AUG_LANES, MULTIPASS_LANES = 2, 3
+AUG_ATTN = ((6300, 6300, "aug NL1/NL3"), (300, 6300, "aug NL2/NL4"))
+MULTIPASS_ATTN = ((6300, 6300, "multipass NL1/NL2"),)
+# [trace]: a short video for test --trace --timing, and the names of the
+# attention kernel's CUDA kernels (csrc/masked_attention.cu) in a trace
+TRACE_VIDEOS = (("val/ILSVRC2015_val_00000000", 8, (720, 1280)),)
+ATTENTION_KERNELS = ("split_rows", "namespace)::transpose<", "logits_kernel",
+                     "rowstats_kernel", "output_kernel", "combine_kernel")
+
+
+def window_kernel_hold(torch, engine, fc1_stack, masks, tag, passes=None):
+    """The engine's window head on (B, T, P, D) rows (``passes``: the
+    multi-pass graph) with the kernel against the same head with the plain
+    attention: f32 logits within 1e-4 of max(|ref|, 1); bf16 every kernel
+    call within ``bf16_agreement``'s ``worst`` ≤ 1 and the logits within
+    the bf16 budget.  Returns the kernel calls' (lanes, nq, nk)."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
+    from hvrnet_tpu_torch.ops.attention import (attention_plain,
+                                                bf16_agreement,
+                                                masked_attention)
+    calls = []
+
+    def probed(q, k, v, bias, scale):
+        out = masked_attention(q, k, v, bias, scale)
+        call = dict(shape=(q.shape[0], q.shape[1], k.shape[1]))
+        if q.dtype == torch.bfloat16:
+            call.update(bf16_agreement(out, q, k, v, bias, scale))
+        calls.append(call)
+        return out
+
+    def as_lists(pairs):
+        return [c for c, _ in pairs], [r for _, r in pairs]
+
+    with torch.no_grad(), f32_precision():
+        try:
+            selsa_bbox_head.masked_attention = probed
+            got = engine._window_lanes(fc1_stack, masks, passes)
+            selsa_bbox_head.masked_attention = attention_plain
+            want = engine._window_lanes(fc1_stack, masks, passes)
+        finally:
+            selsa_bbox_head.masked_attention = masked_attention
+    shapes = [c["shape"] for c in calls]
+    if engine.dtype == torch.bfloat16:
+        worst = max(c["worst"] for c in calls)
+        cls_d, reg_d = head_budget(as_lists(got), as_lists(want))
+        log(f"{tag} window head on {tuple(fc1_stack.shape)} rows, kernel "
+            f"calls {shapes}: bf16 against their plain version worst "
+            f"{worst:.3g} (limit 1); logits with the kernel vs the plain "
+            f"attention max |Δcls|/max(|cls|, 1) {cls_d:.3g}, max |Δreg| "
+            f"{reg_d:.3g} (limits {BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
+        ok = (worst <= 1 and cls_d <= BF16_CLS_BUDGET
+              and reg_d <= BF16_REG_BUDGET)
+    else:
+        err = logit_err(as_lists(got), as_lists(want))
+        log(f"{tag} window head on {tuple(fc1_stack.shape)} rows, kernel "
+            f"calls {shapes}: logits with the kernel vs the plain attention "
+            f"max |Δ|/max(|ref|, 1) = {err:.3g} (limit 1e-4)")
+        ok = err <= 1e-4
+    if not ok:
+        raise RuntimeError(f"{tag} window head with the kernel disagrees "
+                           "with the plain attention")
+    return shapes
+
+
+def aug_holds(torch, np, engine, tag):
+    """One T=21 window of the synthetic video through the aug path.
+    Duplicate augmentations (the frame twice, unflipped, at scale factor 1:
+    the merge's NMS runs in original-image coordinates, where mmdet's +1
+    box widths make IoU depend on the scale) from the frame's own maps
+    (``frame_post_aug`` of the plain frame program's maps, so the
+    backbone's batch does not enter): the merged proposals are the frame's
+    own (mask equal, boxes within 1e-3 px), each lane's fc1 within 1e-4 of
+    max|fc1|; the two-lane window head within the head's limits of
+    the plain one-lane head (f32 1e-4 of max(|logit|, 1), bf16 the bf16
+    budget), and in f32 ``window_scores_aug`` within 1e-4 in scores and
+    1e-4 × 1280 px in boxes of the plain decode of the same window (the
+    class-wise NMS after it is one function on both paths; the detections'
+    cut at max_per_img among near-tied random-weight scores is not a
+    limit).  Then the frame and its mirror: the kernel against the plain
+    attention on the window's two lanes (``window_kernel_hold``).  Returns
+    the kernel calls' shapes."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    from hvrnet_tpu_torch.engine.stream import mirrored
+    from hvrnet_tpu_torch.models.bbox_heads.bbox_head import get_det_bboxes
+    f32 = engine.dtype == torch.float32
+    frames = list(synthetic_video(np, engine.window, seed=1))
+    kd, dup_pair, flip_pair = engine.key_dim, (False, False), (False, True)
+    plain, dup, flipped = [], [], []
+    fc1_err = box_err = 0.0
+    unit = np.ones(4, np.float32)
+    for f in frames:
+        ish, psh, sf = f["img_shape"], f["pad_shape"], f["scale_factor"]
+        maps = engine.backbone_maps(f["img"], ish)
+        one = engine.frame_post(*maps, ish, psh)
+        two = engine.frame_post_aug(*(m.expand(2, *m.shape[1:])
+                                      for m in maps), [ish] * 2, [psh] * 2,
+                                    [unit] * 2, dup_pair)
+        if not torch.equal(two["mask"], one["mask"]):
+            raise RuntimeError(f"{tag} duplicate augmentations merged "
+                               "another proposal set than the frame's own")
+        box_err = max(box_err, (two["boxes"] - one["boxes"]).abs().max()
+                      .item())
+        scale = one["fc1"].float().abs().max().item()
+        fc1_err = max(fc1_err, (two["fc1"].float() - one["fc1"].float())
+                      .abs().max().item() / scale)
+        plain.append(one)
+        dup.append(two)
+        flipped.append(engine.frame_features_aug(
+            [f["img"], mirrored(f)], [ish] * 2, [psh] * 2, [sf] * 2,
+            flip_pair))
+    fc1_limit = 1e-4 if f32 else 2 * 2.0 ** -8
+    log(f"{tag} duplicate augmentations over {len(frames)} frames: the "
+        f"frame's own proposals, boxes within {box_err:.3g} px "
+        f"(limit 1e-3), fc1 within {fc1_err:.3g} of max|fc1| (limit "
+        f"{fc1_limit:.3g})")
+    if not (box_err <= 1e-3 and fc1_err <= fc1_limit):
+        raise RuntimeError(f"{tag} duplicate augmentations' frame caches "
+                           "differ from the frame's own")
+
+    def stack(feats, key, dim=0):
+        return torch.stack([x[key] for x in feats], dim=dim)
+
+    masks = stack(plain, "mask")
+    with torch.no_grad(), f32_precision():
+        one_pairs = engine._window_lanes(stack(plain, "fc1")[None],
+                                         masks[None])
+        two_pairs = engine._window_lanes(stack(dup, "fc1", 1),
+                                         masks[None].expand(2, -1, -1))
+    for lane in range(2):
+        got = ([c[lane:lane + 1] for c, _ in two_pairs],
+               [r[lane:lane + 1] for _, r in two_pairs])
+        want = ([c for c, _ in one_pairs], [r for _, r in one_pairs])
+        if f32:
+            err = logit_err(got, want)
+            ok, what = err <= 1e-4, f"{err:.3g} (limit 1e-4)"
+        else:
+            cls_d, reg_d = head_budget(got, want)
+            ok = cls_d <= BF16_CLS_BUDGET and reg_d <= BF16_REG_BUDGET
+            what = (f"cls {cls_d:.3g}, reg {reg_d:.3g} (limits "
+                    f"{BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
+        log(f"{tag} duplicate augmentations, lane {lane} of the window "
+            f"head against the one-lane head: {what}")
+        if not ok:
+            raise RuntimeError(f"{tag} a duplicate augmentation's window "
+                               "head differs from the plain head")
+    if f32:
+        ish = frames[kd]["img_shape"]
+        cls, reg = one_pairs[-1]
+        want_b, want_s = get_det_bboxes(
+            stack(plain, "boxes")[kd], cls[0], reg[0], ish, unit,
+            engine.target_means, engine.target_stds, rescale=True)
+        got_b, got_s = engine.window_scores_aug(
+            stack(dup, "fc1", 1), stack(dup, "boxes"), masks, [ish] * 2,
+            [unit] * 2, dup_pair)
+        valid = masks[kd]
+        s_err = (got_s - want_s)[valid].abs().max().item()
+        b_err = (got_b - want_b)[valid].abs().max().item()
+        log(f"{tag} duplicate augmentations' merged scores and boxes "
+            f"against the plain decode of the key frame's {int(valid.sum())} "
+            f"rows: scores within {s_err:.3g} (limit 1e-4), boxes within "
+            f"{b_err:.3g} px (limit {1e-4 * 1280:.3g})")
+        if not (s_err <= 1e-4 and b_err <= 1e-4 * 1280):
+            raise RuntimeError(f"{tag} duplicate augmentations' decode "
+                               "differs from the plain decode")
+    return window_kernel_hold(
+        torch, engine, stack(flipped, "fc1", 1), stack(flipped, "mask")[None]
+        .expand(2, -1, -1), f"{tag} frame and mirror")
+
+
+def phase_aug(torch, np, hvr_weights, selsa_weights):
+    """Flip-augmented testing on the card: the kernel on 2 lanes at the
+    window head's shapes; ``aug_holds`` for HVRNet f32 and bf16 and SELSA
+    f32; then ``test --aug-test`` from disk over the [cli] PPM tree for the
+    same three, 4 (HVRNet) and 2 (SELSA) launches per detection.  Returns
+    the cases and the runs whose launches the kernels line counts."""
+    import shutil
+    cases = lanes_attention(torch, AUG_ATTN, AUG_LANES, "[aug]")
+    engines = lanes_engines(torch, hvr_weights, selsa_weights)
+    for name, engine in engines.items():
+        shapes = aug_holds(torch, np, engine, f"[aug] {name}")
+        want = 2 if name == "selsa" else 4
+        if len(shapes) != want or any(s[0] != AUG_LANES for s in shapes):
+            raise RuntimeError(f"[aug] {name}: kernel calls {shapes}, not "
+                               f"{want} calls of {AUG_LANES} lanes")
+    del engines
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_aug"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "VID"
+    imageset, _ = write_cli_tree(np, root, CLI_VIDEOS)
+    runs, runs16 = {}, {}
+    for name, config, weights, per_det, extra, out in (
+            ("hvrnet", CONFIG, hvr_weights, 4, (), runs),
+            ("selsa", SELSA_CONFIG, selsa_weights, 2, (), runs),
+            ("hvrnet", CONFIG, hvr_weights, 4, ("--bf16",), runs16)):
+        ckpt = work / f"{name}.pth"
+        torch.save({"state_dict": weights}, ckpt)
+        cfg = cli_config(config, root, imageset, work / f"{name}.py")
+        tag = f"{name}{' bf16' if extra else ''}"
+        out[f"aug {name}"] = cli_run(torch, np, "test", [
+            cfg, str(ckpt), "--out", str(work / f"{name}.pkl"), "--tmpdir",
+            str(work / name), "--aug-test", "--eval", *extra],
+            f"test --aug-test ({tag}) T=21", per_det)
+    shutil.rmtree(work, ignore_errors=True)
+    return cases, runs, runs16
+
+
+def phase_multipass(torch, np, hvr_weights):
+    """HVRNet's multi-pass test graph at T=63, 3 passes, on the card: the
+    kernel on 3 lanes at 6300²; one T=63 window's head with the kernel
+    against the plain attention, f32 and bf16 (3 calls: NL1 and NL2 one
+    call of 3 lanes each, NL3 one of 300 × 18900); ``hnl_test --window 63
+    --multi-pass 3`` from disk over the [cli] tree's 40-frame video, f32
+    and bf16, 3 launches per detection, beside the exact ring's ``hnl_test
+    --window 63`` on the same video; ``--stream --multi-pass 3`` stops the
+    CLI.  Returns the cases and the runs whose launches the kernels line
+    counts."""
+    import shutil
+    from hvrnet_tpu_torch.tools import hnl_test
+    cases = lanes_attention(torch, MULTIPASS_ATTN, MULTIPASS_LANES,
+                            "[multipass]")
+    for dtype in (torch.float32, torch.bfloat16):
+        engine = build_engine(torch, np, window=63, weights=hvr_weights,
+                              dtype=dtype)
+        engine.multi_pass = L = MULTIPASS_LANES
+        T, P = engine.window, engine.proposal_num
+        want = [(L, T // L * P, T // L * P)] * 2 + [(1, P, T * P)]
+        feats = [engine.frame_features(f["img"], f["img_shape"],
+                                       f["pad_shape"])
+                 for f in synthetic_video(np, engine.window, seed=1)]
+        shapes = window_kernel_hold(
+            torch, engine, torch.stack([f["fc1"] for f in feats])[None],
+            torch.stack([f["mask"] for f in feats])[None],
+            f"[multipass] T=63 {str(dtype)[6:]}", passes=engine.multi_pass)
+        if shapes != want:
+            raise RuntimeError(f"[multipass] kernel calls {shapes}, not "
+                               f"{want}")
+        del engine, feats
+        torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_multipass"
+    shutil.rmtree(work, ignore_errors=True)
+    imageset, _ = write_cli_tree(np, work / "VID63", CLI_VIDEOS[:1])
+    ckpt = work / "hvrnet.pth"
+    torch.save({"state_dict": hvr_weights}, ckpt)
+    cfg = cli_config(CONFIG, work / "VID63", imageset, work / "hvrnet63.py")
+
+    def argv(name, *extra):
+        return [cfg, str(ckpt), "--out", str(work / f"{name}.pkl"),
+                "--tmpdir", str(work / name), "--window", "63",
+                "--pre-padding", "repeat", "--eval", *extra]
+
+    runs = {"multipass T=63": cli_run(
+        torch, np, "hnl_test", argv("mp", "--multi-pass", "3"),
+        "hnl_test --window 63 --multi-pass 3", 3),
+        "exact T=63 beside multipass": cli_run(
+        torch, np, "hnl_test", argv("exact"), "hnl_test --window 63 "
+        "(exact ring, beside --multi-pass 3)", 4)}
+    runs16 = {"multipass T=63": cli_run(
+        torch, np, "hnl_test", argv("mp16", "--multi-pass", "3", "--bf16"),
+        "hnl_test --window 63 --multi-pass 3 --bf16", 3)}
+    try:
+        hnl_test.main(argv("never", "--multi-pass", "3", "--stream"),
+                      imread=read_ppm)
+    except SystemExit as stop:
+        log(f"[multipass] --stream --multi-pass 3 stopped the CLI: {stop}")
+    else:
+        raise RuntimeError("hnl_test ran --stream with --multi-pass 3")
+    shutil.rmtree(work, ignore_errors=True)
+    return cases, runs, runs16
+
+
+def phase_trace(torch, np, hvr_weights):
+    """``test --trace DIR --timing`` on a short video with HVRNet's config:
+    the printed summary lists ``frame_features`` and ``window_detect``, and
+    the trace holds one ``logits_kernel`` and one ``output_kernel`` CUDA
+    event per launch the kernel counted (4 per detection).  Returns the
+    run."""
+    import io
+    import shutil
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    from hvrnet_tpu_torch.tools import test as test_cli
+    work = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(work, ignore_errors=True)
+    imageset, _ = write_cli_tree(np, work / "VID", TRACE_VIDEOS)
+    ckpt = work / "hvrnet.pth"
+    torch.save({"state_dict": hvr_weights}, ckpt)
+    cfg = cli_config(CONFIG, work / "VID", imageset, work / "hvrnet.py")
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    masked_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        run = test_cli.main([cfg, str(ckpt), "--out", str(work / "r.pkl"),
+                             "--tmpdir", str(work / "parts"), "--trace",
+                             str(work / "trace"), "--timing"],
+                            imread=read_ppm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = masked_attention.launches
+    n = run["frames"]
+    summary = printed.getvalue().strip().splitlines()
+    for line in summary:
+        log(f"[trace] {line}")
+    phases = {line.split()[0] for line in summary if line.strip()}
+    if not {"frame_features", "window_detect"} <= phases:
+        raise RuntimeError("[trace] --timing's summary lacks frame_features "
+                           "or window_detect")
+    files = sorted((work / "trace").glob("*.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"[trace] {len(files)} trace files, not 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {name: sum(name in e.get("name", "") for e in kernels)
+              for name in ("logits_kernel", "output_kernel")}
+    device_ms = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    attn_ms = sum(float(e.get("dur", 0)) for e in kernels
+                  if any(k in e.get("name", "") for k in ATTENTION_KERNELS)
+                  ) / 1e3
+    log(f"[trace] ({CARD}) test --trace --timing over {n} frames in "
+        f"{wall:.3f} s: {files[0].stat().st_size / 2**20:.1f} MiB of trace, "
+        f"{len(kernels)} CUDA kernel events, {device_ms:.3f} ms of device "
+        f"time, {attn_ms:.3f} ms of it the attention kernel's phases; "
+        f"kernel events {counts} against {launches} launches counted")
+    if launches != 4 * n or any(c != launches for c in counts.values()):
+        raise RuntimeError(f"[trace] the trace's attention kernel events "
+                           f"{counts} do not match the {launches} launches "
+                           f"counted ({4 * n} expected)")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, frames=n, wall_s=wall,
+                kernel_events=counts, device_ms=device_ms,
+                attention_ms=attn_ms)
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -2920,6 +3285,13 @@ def route_summary(cases, runs, dtype):
                                        SELSA_TRAIN_SHAPES) for key in keys},
         per_lockstep_detect_b4={key: per_frame(lambda c: c[key], LANES_ATTN)
                                 for key in keys + ("separate_ms",)},
+        per_aug_detect={key: per_frame(lambda c: c[key], AUG_ATTN)
+                        for key in keys + ("separate_ms",)},
+        per_aug_detect_selsa={key: per_frame(lambda c: c[key], AUG_ATTN) / 2
+                              for key in keys + ("separate_ms",)},
+        per_multipass_detect_t63={
+            key: 2 * timed["multipass NL1/NL2"][key]
+            + timed["NL2/NL4 T=63"][key] for key in keys},
         unit=f"per detected frame of the exact ring at T=21: 2 calls at "
              f"6300x6300 + 2 at 300x6300, d 1024, {dtype} "
              + ("(3xTF32 bound)" if f32 else
@@ -2932,7 +3304,12 @@ def route_summary(cases, runs, dtype):
              "900x384 and 300x384; per_lockstep_detect_b4 one HVRNet "
              "lockstep detection of 4 lanes, 2 calls at (4, 6300, 6300) + "
              "2 at (4, 300, 6300), separate_ms the same as 4 separate 2-D "
-             "calls each; launches summed over the paths in "
+             "calls each; per_aug_detect one HVRNet flip-augmented detection "
+             "(a frame and its mirror as 2 lanes), 2 calls at (2, 6300, "
+             "6300) + 2 at (2, 300, 6300), per_aug_detect_selsa SELSA's one "
+             "of each; per_multipass_detect_t63 one detection of the "
+             "3-pass graph at T=63, 2 calls at (3, 6300, 6300) + 1 at 300x"
+             "18900; launches summed over the paths in "
              "launches_by_path, each counted from 0 over its run (30 "
              "frames; train: the warmup + timed steps; cli: the CLI's "
              "run over the [cli] tree, 69 frames, 40 at T=63; train-cli: "
@@ -2940,7 +3317,11 @@ def route_summary(cases, runs, dtype):
              "4 streams over the [lanes] tree, 104 frames, and the CLI over "
              "it and over 4 videos of 64 frames, 4 launches per HVRNet "
              "lockstep detection and 2 per SELSA one, whatever the lane "
-             "count)",
+             "count; aug: test --aug-test over the [cli] tree, 4 per HVRNet "
+             "detection and 2 per SELSA one; multipass: hnl_test --window "
+             "63 --multi-pass 3 over the 40-frame video, 3 per detection, "
+             "beside the exact ring's 4; trace: test --trace --timing over "
+             "8 frames, 4 per detection)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -2990,6 +3371,14 @@ def main() -> int:
                                              selsa_weights, cli)
     cases += lane_cases
     lap("[lanes]")
+    aug_cases, aug, aug16 = phase_aug(torch, np, hvr_weights, selsa_weights)
+    cases += aug_cases
+    lap("[aug]")
+    mp_cases, multipass, multipass16 = phase_multipass(torch, np, hvr_weights)
+    cases += mp_cases
+    lap("[multipass]")
+    traced = phase_trace(torch, np, hvr_weights)
+    lap("[trace]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -3018,10 +3407,12 @@ def main() -> int:
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
-            "selsa train": selsa_train, **cli, **train_cli, **lanes}
+            "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
+            **multipass, "trace": traced}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
-              "selsa train": selsa_train16, **cli16, **lanes16}
+              "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
+              **multipass16}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

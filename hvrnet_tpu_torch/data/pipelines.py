@@ -443,6 +443,40 @@ class MinIoURandomCrop:
                 return results
 
 
+class MultiScaleFlipAug:
+    """The reference's ``test_aug.py:8``: one sample expanded into its
+    scale × flip augmentations, a LIST of results dicts (one per
+    augmentation, scales outer, unflipped first), which the caller merges
+    with ``core/merge_augs.py``.  Each scale runs ``transforms`` with its
+    ``Resize`` rebuilt at that scale; ``flip`` is set before the
+    transforms, so a ``RandomFlip`` among them follows it without
+    drawing."""
+
+    def __init__(self, transforms, img_scale, flip: bool = False, rng=None,
+                 imread: Union[str, Decoder] = "cv2"):
+        self.transforms = Compose(transforms, rng, imread)
+        self.img_scales = (img_scale if isinstance(img_scale, list)
+                           else [img_scale])
+        self.flip = flip
+
+    def __call__(self, results):
+        augs = []
+        for scale in self.img_scales:
+            for flip in ([False, True] if self.flip else [False]):
+                out = dict(results, img=pixels(results["img"], np.copy),
+                           scale_override=tuple(scale), flip=flip)
+                for t in self.transforms.transforms:
+                    if isinstance(t, Resize):
+                        t = Resize(img_scale=tuple(scale),
+                                   keep_ratio=t.keep_ratio)
+                    out = t(out)
+                    if out is None:
+                        break
+                if out is not None:
+                    augs.append(out)
+        return augs
+
+
 class ImageToTensor:
     """Arrays stay numpy on the host; the stream moves the canvas."""
 
@@ -484,6 +518,7 @@ TRANSFORMS = {
     "ImageToTensor": ImageToTensor,
     "DefaultFormatBundle": DefaultFormatBundle,
     "Collect": Collect,
+    "MultiScaleFlipAug": MultiScaleFlipAug,
 }
 
 # the transforms that draw from the dataset's generator
@@ -496,7 +531,6 @@ NOT_PORTED = {
     "Corrupt": "Queue 1 item 8",
     "Albu": "Queue 1 item 8",
     "LoadProposals": "Queue 1 item 8",
-    "MultiScaleFlipAug": "Queue 1 item 5",
 }
 
 
@@ -513,4 +547,6 @@ def build_transform(cfg: Dict, rng=None,
         cfg["rng"] = rng
     elif t == "LoadImageFromFile":
         cfg["imread"] = imread
+    elif t == "MultiScaleFlipAug":
+        cfg.update(rng=rng, imread=imread)
     return TRANSFORMS[t](**cfg)

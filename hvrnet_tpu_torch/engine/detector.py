@@ -27,6 +27,14 @@ T, …) tensors with a position per lane; its detect runs the window head
 over all lanes at once (each NL block one kernel call) and every lane's
 decode through one ``multiclass_nms_static_lanes``.
 
+Flip-augmented testing (``frame_features_aug``, ``window_detect_aug``):
+a frame's A augmentations share one backbone batch, their proposals merge
+in original-image coordinates (``core/merge_augs.py``) and that one set is
+pooled in every augmentation; the window head runs the A augmentations as
+A lanes, and their decodes are mapped back, averaged and NMSed once.
+``HNMBRCNN.multi_pass`` P runs the head's multi-pass test graph on the
+exact ring (P passes as P lanes of NL1 and NL2).
+
 ``dtype`` is the engine's compute dtype (``core/precision.py``): float32,
 or bfloat16 with float32 parameters, as ``bench.py`` serves.  In bf16 the
 ring's row caches are bf16; boxes, scores, the streaming accumulators, the
@@ -40,13 +48,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..core.merge_augs import merge_aug_bboxes, merge_aug_proposals
 from ..models.anchor_heads.rpn_head import rpn_flat_scores_deltas
 from ..models.bbox_heads.bbox_head import get_det_bboxes
 from ..models.builder import build_model_module, build_roi_extractor
 from ..models.layers import FrozenBN
 from ..models.registry import DETECTORS
-from ..ops.boxes import delta2bbox
-from ..ops.nms import multiclass_nms_static_lanes, nms_static_lanes
+from ..ops.boxes import bbox_mapping, delta2bbox
+from ..ops.nms import (multiclass_nms_static, multiclass_nms_static_lanes,
+                       nms_static_lanes)
 from ..utils.config import unwrap
 from .canvas import Canvas
 
@@ -148,6 +158,12 @@ def _rpn_pick(proposals, scores, valid, rpn_cfg):
     out_scores = torch.where(keep_mask, out_scores,
                              torch.zeros_like(out_scores))
     return boxes, out_scores, keep_mask
+
+
+def aug_metas(img_shapes, scale_factors, flips):
+    """Per augmentation the meta dict of ``core/merge_augs.py``."""
+    return [dict(img_shape=ish, scale_factor=sf, flip=bool(flip))
+            for ish, sf, flip in zip(img_shapes, scale_factors, flips)]
 
 
 class BaseEngine:
@@ -289,6 +305,15 @@ class BaseEngine:
         """Proposals → RoIAlign → fc_new_1 from B frames' NCHW maps: the
         candidates per lane, one NMS fixpoint for all lanes, then RoIAlign
         and fc_new_1 per lane (one image each)."""
+        boxes, scores, mask = self._proposals_lanes(
+            c5, cls_map, reg_map, img_shapes, pad_shapes)
+        fc1 = [self._fc1(c5[b:b + 1], boxes[b]) for b in range(c5.shape[0])]
+        return dict(fc1=torch.stack(fc1), boxes=boxes, scores=scores,
+                    mask=mask)
+
+    def _proposals_lanes(self, c5, cls_map, reg_map, img_shapes, pad_shapes):
+        """Each of B images' proposals from its maps: the candidates per
+        lane, then one NMS fixpoint for all lanes (``_rpn_pick``)."""
         stride = self.anchor_stride
         canvas = self._canvas(c5.shape[2] * stride, c5.shape[3] * stride)
         rpn_cfg = self.test_cfg["rpn"]
@@ -296,16 +321,56 @@ class BaseEngine:
                                  pad_shapes[b], img_shapes[b], rpn_cfg,
                                  self.rpn_means, self.rpn_stds)
                  for b in range(c5.shape[0])]
-        boxes, scores, mask = _rpn_pick(*(torch.stack(c) for c in
-                                          zip(*cands)), rpn_cfg)
-        fc1 = []
-        for b in range(c5.shape[0]):
-            rois = torch.cat([torch.zeros_like(boxes[b, :, :1]), boxes[b]],
-                             dim=1)
-            pooled = self.roi_extractor(c5[b:b + 1], rois)
-            fc1.append(self.model.bbox_head.precompute_fc1(pooled))
-        return dict(fc1=torch.stack(fc1), boxes=boxes, scores=scores,
-                    mask=mask)
+        return _rpn_pick(*(torch.stack(c) for c in zip(*cands)), rpn_cfg)
+
+    def _fc1(self, c5, boxes):
+        """RoIAlign of (P, 4) boxes on one image's (1, C, h, w) C5, then
+        fc_new_1: (P, D)."""
+        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], dim=1)
+        return self.model.bbox_head.precompute_fc1(
+            self.roi_extractor(c5, rois))
+
+    # ------------------------------------------- flip-augmented testing
+    # The reference's aug_test_rpn / aug_test_bboxes (test_mixins.py:15-110)
+    # on the window machine: per frame, the augmentations' proposals merge
+    # in original-image coordinates and the same merged set is pooled in
+    # every augmentation; per detection, each augmentation's head decodes
+    # in its own coordinates, maps back, and the means go through one
+    # class-wise NMS.
+
+    @torch.no_grad()
+    def frame_features_aug(self, imgs, img_shapes, pad_shapes, scale_factors,
+                           flips) -> Dict[str, Any]:
+        """imgs: A (1, H, W, 3) canvases, the augmentations of one frame
+        (``flips`` says which are mirrored), with their (2,) img_shapes and
+        pad_shapes and (4,) scale_factors.  The A canvases go through the
+        backbone as one batch.  Returns fc1 (A, P, D) over the frame's
+        merged proposals, their boxes (P, 4) in original-image coordinates
+        and mask (P,)."""
+        batch = torch.cat([torch.as_tensor(img) for img in imgs])
+        c5, cls_map, reg_map = self.backbone_maps(
+            batch, np.asarray(img_shapes, np.float32))
+        return self.frame_post_aug(c5, cls_map, reg_map, img_shapes,
+                                   pad_shapes, scale_factors, flips)
+
+    @torch.no_grad()
+    @f32_precision()
+    def frame_post_aug(self, c5, cls_map, reg_map, img_shapes, pad_shapes,
+                       scale_factors, flips) -> Dict[str, Any]:
+        """``frame_features_aug`` from the A augmentations' NCHW maps: each
+        one's proposals (one NMS fixpoint for all), ``merge_aug_proposals``,
+        then the merged set mapped into each augmentation, pooled on its C5
+        and through fc_new_1."""
+        boxes, scores, mask = self._proposals_lanes(
+            c5, cls_map, reg_map, img_shapes, pad_shapes)
+        metas = aug_metas(img_shapes, scale_factors, flips)
+        merged, keep = merge_aug_proposals(
+            [torch.cat([b, s[:, None]], dim=1) for b, s in zip(boxes, scores)],
+            metas, self.test_cfg["rpn"], list(mask))
+        fc1 = [self._fc1(c5[a:a + 1], bbox_mapping(
+            merged[:, :4], m["img_shape"], m["scale_factor"], m["flip"]))
+            for a, m in enumerate(metas)]
+        return dict(fc1=torch.stack(fc1), boxes=merged[:, :4], mask=keep)
 
 
 class _RingMixin:
@@ -425,17 +490,70 @@ class _RingMixin:
                 valid=valid))
         return outs
 
-    def _window_lanes(self, fc1_stack, masks):
+    def _window_lanes(self, fc1_stack, masks, passes: Optional[int] = None):
         """The head over B lanes' (B, T, P, D) windows: its (cls, reg)
-        pairs, the key frame's rows of each lane."""
-        B, T = fc1_stack.shape[:2]
-        P = self.proposal_num
-        cls, reg = self.model.bbox_head.forward_fc1(
-            fc1_stack.reshape(B, T * P, -1), self.key_dim * P, P,
-            masks.reshape(B, T * P))
+        pairs, the key frame's rows of each lane.  ``passes`` P runs the
+        multi-pass test graph over P equal segments of the window (one
+        pair)."""
+        B, T, P = fc1_stack.shape[:3]
+        head = self.model.bbox_head
+        fc1 = fc1_stack.reshape(B, T * P, -1)
+        valid = masks.reshape(B, T * P)
+        if passes:
+            if T % passes:
+                raise ValueError(f"multi_pass {passes} does not divide the "
+                                 f"window of {T} frames")
+            cls, reg = head.forward_fc1_multi_passes(
+                fc1, T // passes * P, self.key_dim * P, P, valid)
+        else:
+            cls, reg = head.forward_fc1(fc1, self.key_dim * P, P, valid)
         if isinstance(cls, list):
             return list(zip(cls, reg))
         return [(cls, reg)]
+
+    @torch.no_grad()
+    @f32_precision()
+    def window_detect_aug(self, fc1_stacks, boxes_ori, masks, img_shapes,
+                          scale_factors, flips, branch=None):
+        """fc1_stacks: (A, T, P, D), the window of each augmentation, oldest
+        frame first; boxes_ori: (T, P, 4) the merged proposals in
+        original-image coordinates; masks: (T, P).  ``window_scores_aug``,
+        then one class-wise NMS over the key frame's valid rows.  Returns
+        (dets (max, 5) in original-image coordinates, labels, mask)."""
+        bboxes, scores = self.window_scores_aug(
+            fc1_stacks, boxes_ori, masks, img_shapes, scale_factors, flips,
+            branch)
+        rcnn = self.test_cfg["rcnn"]
+        return multiclass_nms_static(
+            bboxes, scores, float(rcnn["score_thr"]),
+            float(rcnn["nms"]["iou_thr"]), int(rcnn["max_per_img"]),
+            valid=masks[self.key_dim])
+
+    @torch.no_grad()
+    @f32_precision()
+    def window_scores_aug(self, fc1_stacks, boxes_ori, masks, img_shapes,
+                          scale_factors, flips, branch=None):
+        """``window_detect_aug`` before its NMS: the A augmentations are A
+        lanes of one window head (the single-pass graph; on HVRNet the
+        final branch, or ``branch``'s); each one's scores (softmax in
+        float32) and boxes decoded from the key frame's merged proposals
+        mapped into it, then ``merge_aug_bboxes``.  Returns the key frame's
+        (bboxes (P, 4·k), scores (P, C)) in original-image coordinates."""
+        A = fc1_stacks.shape[0]
+        kd = self.key_dim
+        pairs = self._window_lanes(fc1_stacks,
+                                   masks[None].expand(A, *masks.shape))
+        cls, reg = pairs[-1 if branch is None else branch]
+        metas = aug_metas(img_shapes, scale_factors, flips)
+        aug_boxes, aug_scores = [], []
+        for a, m in enumerate(metas):
+            aug_scores.append(torch.softmax(cls[a].float(), dim=-1))
+            key_boxes = bbox_mapping(boxes_ori[kd], m["img_shape"],
+                                     m["scale_factor"], m["flip"])
+            aug_boxes.append(delta2bbox(key_boxes, reg[a].float(),
+                                        self.target_means, self.target_stds,
+                                        m["img_shape"]))
+        return merge_aug_bboxes(aug_boxes, aug_scores, metas)
 
 
 @DETECTORS.register_module
@@ -495,6 +613,12 @@ class HNMBRCNN(_RingMixin, BaseEngine):
     #: runner turns this on for its run unless told otherwise.
     stream_rollback: bool = False
 
+    #: an int P runs the head's multi-pass test graph
+    #: (``forward_fc1_multi_passes``) over P equal segments of the window on
+    #: the exact ring, one prediction pair per detection; None is the
+    #: spliced single-pass graph.  The streaming ring refuses it.
+    multi_pass: Optional[int] = None
+
     _STREAM_KEYS = ("fc1", "q1", "k1", "fc3s", "q3", "k3",
                     "m1", "l1", "a1", "m3", "l3", "a3", "M1", "M3")
 
@@ -519,19 +643,30 @@ class HNMBRCNN(_RingMixin, BaseEngine):
         each lane's window oldest frame first.  Decodes each lane's centre
         frame ``key_dim`` with its row of ``img_shapes`` (B, 2) and
         ``scale_factors`` (B, 4): one (dets (B, max, 5), labels (B, max),
-        mask (B, max)) triple per head branch, or only ``branch``'s."""
+        mask (B, max)) triple per head branch, or only ``branch``'s; with
+        ``multi_pass`` set, the multi-pass graph's one triple whatever
+        ``branch`` is."""
         kd = self.key_dim
-        pairs = self._window_lanes(fc1_stack, masks)
-        if branch is not None:
+        passes = self.multi_pass
+        pairs = self._window_lanes(fc1_stack, masks, passes)
+        if branch is not None and not passes:
             pairs = [pairs[branch]]
         outs = self._decode_lanes(pairs, boxes[:, kd], img_shapes,
                                   scale_factors, masks[:, kd])
-        return outs[0] if branch is not None else outs
+        return outs[0] if (branch is not None or passes) else outs
 
     # --------------------------------------------------- streaming ring
+    def _check_stream_no_multipass(self):
+        """The streaming ring caches the single-pass graph's rows: with
+        ``multi_pass`` set it would serve the wrong graph, so it stops."""
+        if self.multi_pass:
+            raise ValueError("the streaming ring does not run the multi-pass "
+                             "graph; set stream = False or multi_pass = None")
+
     def ring_reset(self, fc1_dim: int) -> Dict[str, Any]:
         if not self.stream:
             return super().ring_reset(fc1_dim)
+        self._check_stream_no_multipass()
         T, P = self.window, self.proposal_num
         R = T * P
         bh = self.model_cfg["bbox_head"]
@@ -575,6 +710,7 @@ class HNMBRCNN(_RingMixin, BaseEngine):
     def _stream_push(self, state, feats):
         """Slide the frame into the next slot (under rollback, its health
         verdict sticks in the flag)."""
+        self._check_stream_no_multipass()
         pos = (state["pos"] + 1) % self.window
         upd = self.model.bbox_head.stream_update(
             self.head_state(state), feats["fc1"], feats["mask"], pos,
@@ -587,6 +723,7 @@ class HNMBRCNN(_RingMixin, BaseEngine):
         state["pos"] = pos
 
     def _stream_decode(self, state, img_shape, scale_factor, branch):
+        self._check_stream_no_multipass()
         center = (state["pos"] + 1 + self.key_dim) % self.window
         fwd = self.model.bbox_head.stream_forward(
             self.head_state(state), center, self.stream_rollback)

@@ -64,10 +64,17 @@ def runner_frame(out: Dict, max_long: int = 1008, max_short: int = 608,
 
 def test_frame_stream(dataset, rank: int = 0, max_long: int = 1008,
                       max_short: int = 608, u8_transfer: bool = False,
-                      timer=None) -> Iterator[Dict]:
+                      timer=None, aug_flip: bool = False) -> Iterator[Dict]:
     """Runner-format frames of one rank's whole-video shard, in the
     dataset's stateful order.  ``timer.phase(name)``, when given, wraps the
-    pipeline ("pipeline") and the canvas padding ("canvas") of each frame."""
+    pipeline ("pipeline") and the canvas padding ("canvas") of each frame.
+
+    ``aug_flip``: each frame also carries its augmentations for
+    flip-augmented testing (the reference's ``MultiScaleFlipAug(flip=True)``
+    operating point), ``img_augs`` = [the canvas, its mirror] and ``flips``
+    = (False, True).  The mirror flips the resized, normalised image within
+    its valid width ``round(img_shape[1])``, before the padding (the
+    reference flips before ``Pad``), so the canvas pad stays on the right."""
     saved = dataset.pipeline
     if u8_transfer:
         dataset.pipeline = u8_pipeline(dataset)
@@ -77,9 +84,21 @@ def test_frame_stream(dataset, rank: int = 0, max_long: int = 1008,
                 item = dataset[idx]
             with _phase(timer, "canvas"):
                 frame = runner_frame(item, max_long, max_short, u8_transfer)
+                if aug_flip:
+                    frame["img_augs"] = [frame["img"], mirrored(frame)]
+                    frame["flips"] = (False, True)
             yield frame
     finally:
         dataset.pipeline = saved
+
+
+def mirrored(frame: Dict) -> np.ndarray:
+    """A runner frame's (1, H, W, 3) canvas with the image mirrored within
+    its valid width and the pad left where it was."""
+    iw = int(round(float(frame["img_shape"][1])))
+    img = frame["img"].copy()
+    img[:, :, :iw] = img[:, :, :iw][:, :, ::-1]
+    return img
 
 
 PREFETCH = 8        # frames of the threaded stream in flight

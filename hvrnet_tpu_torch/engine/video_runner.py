@@ -25,6 +25,13 @@ their frame programs as one ``engine.frame_features_batched`` call, then
 pushes and detects each in order: only the frame program batches, so the
 windows and the order of emissions are unchanged (a partial buffer at a
 video's end goes frame by frame).
+
+``aug`` runs flip-augmented testing: each frame carries its augmentations
+(``img_augs``, ``flips``, as ``test_frame_stream(aug_flip=True)`` gives
+them), ``engine.frame_features_aug`` merges their proposals, and each
+detection is ``engine.window_detect_aug`` over the exact window of the last
+T frames' (A, P, D) caches, oldest first.  It never takes the streaming
+ring, and combines with neither ``prepad_provider`` nor ``pair_features``.
 """
 from __future__ import annotations
 
@@ -44,8 +51,18 @@ class SlidingWindowRunner:
 
     def __init__(self, engine, branch: int = -1, progress_hook=None,
                  timer=None, prepad_provider=None, flush_every: int = 16,
-                 speculative_stream=None, pair_features: int = 1):
+                 speculative_stream=None, pair_features: int = 1,
+                 aug: bool = False):
+        if aug and prepad_provider is not None:
+            raise ValueError("aug testing and random pre-padding do not "
+                             "combine: pre-padding frames carry one "
+                             "augmentation's caches")
+        if aug and pair_features > 1:
+            raise ValueError("aug testing and pair_features > 1 do not "
+                             "combine: the augmentations already batch the "
+                             "frame program")
         self.engine = engine
+        self.aug = aug
         self.window = engine.window
         self.key_dim = engine.key_dim   # the centre the engine decodes
         self.branch = branch            # which head branch to keep
@@ -68,7 +85,7 @@ class SlidingWindowRunner:
             spec = bool(vars(engine).get("stream_rollback", True))
         else:
             spec = bool(speculative_stream)
-        self.speculative = spec and engine.stream
+        self.speculative = spec and engine.stream and not aug
         # interior frames per frame program
         self.pair_features = max(int(pair_features), 1)
         # chunks replayed and detections recomputed by the last run()
@@ -108,6 +125,7 @@ class SlidingWindowRunner:
         half = (T + 1) // 2
         results: List = [None] * num_frames
         ring = None
+        cache: deque = deque(maxlen=T)      # the aug window's frame caches
         n_cached = 0
         offsets: deque = deque(maxlen=T)
         meta: deque = deque(maxlen=T)
@@ -172,14 +190,25 @@ class SlidingWindowRunner:
             push_count += 1
             if self.speculative:
                 hist.append(feats)
+            if self.aug:
+                cache.append(feats)
             if not (detect and n_cached == T):
-                ring = eng.ring_push(ring, feats)
+                if not self.aug:
+                    ring = eng.ring_push(ring, feats)
                 return
             m = meta[self.key_dim]
             with self._phase("window_detect"):
-                ring, out = eng.ring_step(ring, feats, m["img_shape"],
-                                          m["scale_factor"],
-                                          branch=self.device_branch)
+                if self.aug:
+                    out = eng.window_detect_aug(
+                        torch.stack([c["fc1"] for c in cache], dim=1),
+                        torch.stack([c["boxes"] for c in cache]),
+                        torch.stack([c["mask"] for c in cache]),
+                        m["img_shapes"], m["scale_factors"], m["flips"],
+                        branch=self.device_branch)
+                else:
+                    ring, out = eng.ring_step(ring, feats, m["img_shape"],
+                                              m["scale_factor"],
+                                              branch=self.device_branch)
             if isinstance(out, list):       # one det set per head branch
                 out = out[self.branch]
             pending.append((out, m["frame_start_id"] + offsets[self.key_dim],
@@ -222,17 +251,30 @@ class SlidingWindowRunner:
                     flush_pairs()
                 continue
             flush_pairs()
-            with self._phase("frame_features"):
-                feats = eng.frame_features(frame["img"], frame["img_shape"],
-                                           frame["pad_shape"])
             fmeta = fmeta_of(frame)
+            with self._phase("frame_features"):
+                if self.aug:
+                    A = len(frame["img_augs"])
+                    fmeta.update(img_shapes=[frame["img_shape"]] * A,
+                                 scale_factors=[frame["scale_factor"]] * A,
+                                 flips=tuple(frame["flips"]))
+                    feats = eng.frame_features_aug(
+                        frame["img_augs"], fmeta["img_shapes"],
+                        [frame["pad_shape"]] * A, fmeta["scale_factors"],
+                        fmeta["flips"])
+                else:
+                    feats = eng.frame_features(
+                        frame["img"], frame["img_shape"], frame["pad_shape"])
             if flag == 0:      # new video: reset + front-pad
                 if self.speculative:
                     # the previous video's last chunk is checked against
                     # its own ring before the reset drops it
                     flush()
                     hist.clear()
-                ring = eng.ring_reset(int(feats["fc1"].shape[-1]))
+                if self.aug:
+                    cache.clear()
+                else:
+                    ring = eng.ring_reset(int(feats["fc1"].shape[-1]))
                 offsets = deque(maxlen=T)
                 meta = deque(maxlen=T)
                 n_cached = 0

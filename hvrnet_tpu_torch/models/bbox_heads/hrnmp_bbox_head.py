@@ -14,7 +14,8 @@ branch cls/reg → fc3 over the spliced input [fc1 rows before the key frame,
 NL2 output, fc1 rows after] → NL3 (all rows) → fc4 → NL4 (key-frame query
 rows) → final cls/reg.  Queries are computed only for the rows each stage
 keeps; the reference computes all rows and slices afterwards, with the same
-result.  ``fc_new_1`` is row-wise and window-independent, so the runner
+result.  The multi-pass test graph (``forward_fc1_multi_passes``) runs
+NL1/NL2 per pass of the window and one NL3 over all passes instead.  ``fc_new_1`` is row-wise and window-independent, so the runner
 computes it once per frame (``precompute_fc1``) and caches its rows.
 
 The streaming ring (``stream_*``, counterpart of the JAX head's
@@ -196,6 +197,42 @@ class HRNMPBBoxHead(nn.Module):
         fc_all_4 = F.relu(q4 + self.selsa_4(q4, rows(fc4, b=nongt), kmask))
         return ([cls_branch, self.fc_cls_2(fc_all_4)],
                 [reg_branch, self.fc_reg_2(fc_all_4)])
+
+    def forward_fc1_multi_passes(self, fc1_all: torch.Tensor, pass_len: int,
+                                 cur_start: int, cur_len: int,
+                                 valid_mask: Optional[torch.Tensor] = None):
+        """The multi-pass test graph (the reference's
+        ``forward_test_multi_passes``, hrnmp_bbox_head.py:911-967) from
+        cached fc1 rows: fc1_all (N, D), or (B, N, D) over B lanes with
+        ``valid_mask`` (B, N), in pass-major, oldest-frame-first order, N a
+        multiple of ``pass_len``.
+
+        Per pass: NL1 over all of its rows against its first ``nongt_pass``
+        = min(sampler_num·t_dim, pass_len), fc_new_2, NL2 with all of its
+        rows as queries.  The passes are lanes of each block's one kernel
+        call.  Then over their concatenation (no NL3 splice): fc_new_3, NL3
+        with the key rows [cur_start, cur_start + cur_len) as queries
+        against the first min(sampler_num·t_dim, N) rows, and the final
+        fc_cls_2 / fc_reg_2: ([cls], [reg]), one prediction pair (NL4 and
+        the branch fcs are not used)."""
+        N, D = fc1_all.shape[-2:]
+        if N % pass_len:
+            raise ValueError(f"{N} window rows are not whole passes of "
+                             f"{pass_len}")
+        lead = fc1_all.shape[:-2]
+        nongt_pass = min(self.sampler_num * self.t_dim, pass_len)
+        fc1 = fc1_all.reshape(-1, pass_len, D)       # passes as lanes
+        kmask = (valid_mask.reshape(-1, pass_len)[:, :nongt_pass]
+                 if valid_mask is not None else None)
+        fc_all_1 = F.relu(fc1 + self.selsa_1(fc1, fc1[:, :nongt_pass], kmask))
+        fc2 = self.fc_new_2(fc_all_1)
+        passes = F.relu(fc2 + self.selsa_2(fc2, fc2[:, :nongt_pass], kmask))
+        fc3 = self.fc_new_3(passes.reshape(lead + (N, D)))
+        nongt = min(self.sampler_num * self.t_dim, N)
+        kmask3 = valid_mask[..., :nongt] if valid_mask is not None else None
+        q3 = fc3[..., cur_start:cur_start + cur_len, :]
+        fc_all_3 = F.relu(q3 + self.selsa_3(q3, fc3[..., :nongt, :], kmask3))
+        return [self.fc_cls_2(fc_all_3)], [self.fc_reg_2(fc_all_3)]
 
     # ------------------------------------------------------ streaming ring
     # The state ``st`` holds mask (T, P) and, flat over the R = T·P rows

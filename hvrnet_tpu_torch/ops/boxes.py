@@ -85,6 +85,36 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(deltas.shape)
 
 
+def bbox_flip(bboxes: torch.Tensor, img_shape) -> torch.Tensor:
+    """Horizontal flip of (..., 4·k) boxes in an image of ``img_shape``
+    (h, w, …), mmdet's +1 convention: x ↦ w − x − 1."""
+    w = float(np.float32(img_shape[1]))
+    flipped = bboxes.clone()
+    flipped[..., 0::4] = w - bboxes[..., 2::4] - 1
+    flipped[..., 2::4] = w - bboxes[..., 0::4] - 1
+    return flipped
+
+
+def bbox_mapping(bboxes: torch.Tensor, img_shape, scale_factor,
+                 flip: bool) -> torch.Tensor:
+    """Original-image boxes into an augmentation's coordinates: scaled,
+    then flipped in its ``img_shape``."""
+    new = bboxes * _as_factor(scale_factor, bboxes)
+    return bbox_flip(new, img_shape) if flip else new
+
+
+def bbox_mapping_back(bboxes: torch.Tensor, img_shape, scale_factor,
+                      flip: bool) -> torch.Tensor:
+    """An augmentation's boxes back into original-image coordinates."""
+    new = bbox_flip(bboxes, img_shape) if flip else bboxes
+    return new / _as_factor(scale_factor, bboxes)
+
+
+def _as_factor(scale_factor, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(scale_factor, dtype=torch.float32,
+                           device=like.device)
+
+
 def bbox2result_np(bboxes: np.ndarray, labels: np.ndarray, num_classes: int):
     """Split (n, 5) dets into per-class numpy lists (mmdet ``bbox2result``);
     callers pre-filter padding rows with the validity mask."""

@@ -13,7 +13,11 @@ runs the streaming ring (speculative, replaying flagged chunks exactly).
 half − 1 random frames of the same video, drawn from a generator of their
 own seeded by ``--seed``; ``repeat`` pads with copies of the first frame.
 ``--pair-features P`` runs P consecutive interior frames through one frame
-program.  The shared flags (ranks, ``--device``, ``--decoder``,
+program.  ``--multi-pass P`` runs the head's multi-pass test graph
+(``forward_fc1_multi_passes``) over P equal segments of the window on the
+exact ring (``--window 63 --multi-pass 3``: HVRNet's three-segment graph);
+P must divide the window, and ``--stream`` does not run it.  The shared
+flags (ranks, ``--device``, ``--decoder``,
 ``--bf16``, …) are those of ``hvrnet_tpu_torch.tools.test``.
 """
 from __future__ import annotations
@@ -41,15 +45,14 @@ def parse_args(argv=None):
                    default="random")
     p.add_argument("--stream", action="store_true",
                    help="the streaming-softmax ring")
-    p.add_argument("--multi-pass", type=int, default=0)
+    p.add_argument("--multi-pass", type=int, default=0, metavar="P",
+                   help="split the window into P segments and run the "
+                        "head's multi-pass test graph; 0 is the spliced "
+                        "single-pass graph")
     p.add_argument("--pair-features", type=int, default=1, metavar="P",
                    help="run P consecutive interior frames through one "
                         "frame program")
-    args = p.parse_args(argv)
-    if args.multi_pass:
-        raise SystemExit("--multi-pass is not ported yet (ROADMAP Queue 1 "
-                         "item 5, forward_test_multi_passes)")
-    return args
+    return p.parse_args(argv)
 
 
 def random_prepad(dataset, rank: int, window: int, seed: int, canvas,
@@ -88,6 +91,13 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     ``timer`` as ``hvrnet_tpu_torch.tools.test.main``'s."""
     args = parse_args(argv)
     refuse(args)
+    if args.multi_pass:
+        if args.window % args.multi_pass:
+            raise SystemExit(f"--multi-pass {args.multi_pass} must divide "
+                             f"the window length {args.window}")
+        if args.stream:
+            raise SystemExit("--stream caches the single-pass spliced graph; "
+                             "combine with --multi-pass is unsupported")
     setup(args)
     imread = imread or decoder_from_flag(args.decoder)
     cfg = Config.fromfile(args.config)
@@ -95,6 +105,7 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     dataset = test_dataset(cfg, args.world_size, args.seed, imread)
     engine = test_engine(cfg, args)
     engine.stream = args.stream
+    engine.multi_pass = args.multi_pass or None
     prepad = None
     if args.pre_padding == "random":
         prepad = random_prepad(dataset, args.rank, args.window, args.seed,

@@ -22,12 +22,20 @@ runner a threaded stream whose shuffles are drawn before any frame, as in
 the JAX CLI); ``--pair-features P`` runs P consecutive interior frames
 through one frame program on the sequential runner.
 
+``--aug-test`` runs flip-augmented testing (the reference's
+``MultiScaleFlipAug(flip=True)``): every frame and its mirror, proposals
+merged per frame, the two heads' scores and boxes averaged per detection,
+on the sequential stream.  ``--timing`` prints the host wall time per
+phase after the run (``utils/profiling.py:PhaseTimer``); ``--trace DIR``
+writes a ``torch.profiler`` trace of the run, host and card, into DIR.
+
 Flags of the JAX CLI that the port does not run yet stop the CLI with the
 ROADMAP item that will port them; none is accepted and ignored.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import logging
@@ -49,16 +57,13 @@ from ..engine.video_runner import SlidingWindowRunner
 from ..utils.config import Config
 from ..utils.dist_io import (collect_results, dump_part, trim_to_local,
                              wait_for_parts)
+from ..utils.profiling import PhaseTimer, trace
 
 logger = logging.getLogger("hvrnet_tpu_torch")
 
 # flags of the JAX CLI that stop this one: flag → (refused when, ROADMAP item)
 REFUSED = {
-    "aug_test": (bool, "Queue 1 item 5 (aug-test)"),
     "spmd_lanes": (bool, "Queue 1 item 7 (the SPMD lanes)"),
-    "trace": (lambda v: v is not None,
-              "Queue 1 item 8 (the CLIs' --trace and --timing)"),
-    "timing": (bool, "Queue 1 item 8 (the CLIs' --trace and --timing)"),
     "show": (bool, "Queue 1 item 8 (--show, which draws with cv2)"),
 }
 
@@ -194,11 +199,11 @@ def setup(args) -> None:
 
 def run_test(args, cfg, dataset, engine, imread, prepad_provider=None,
              u8_transfer: bool = False, timer=None) -> Dict:
-    """The runner over this rank's videos, its part file, and on rank 0 the
-    merge, ``--json_out`` and ``--eval``.  Returns the run's record:
-    ``results`` (merged on rank 0, else this rank's), ``map`` (with
-    ``--eval``), ``runner``, ``dataset``, ``wall_s`` (the runner's) and
-    ``frames`` (this rank's)."""
+    """The runner over this rank's videos (under ``--trace``, traced), its
+    part file, and on rank 0 the merge, ``--json_out`` and ``--eval``.
+    Returns the run's record: ``results`` (merged on rank 0, else this
+    rank's), ``map`` (with ``--eval``), ``runner``, ``dataset``, ``wall_s``
+    (the runner's) and ``frames`` (this rank's)."""
     done = [0]
 
     def progress(k):
@@ -209,30 +214,36 @@ def run_test(args, cfg, dataset, engine, imread, prepad_provider=None,
     h, w = canvas_of(cfg)
     canvas = dict(max_long=max(h, w), max_short=min(h, w))
     workers = getattr(args, "loader_workers", 1)
+    aug = getattr(args, "aug_test", False)
+    trace_dir = getattr(args, "trace", None)
+    traced = trace(trace_dir) if trace_dir else contextlib.nullcontext()
     if getattr(args, "batched", 0):
         runner = BatchedSlidingWindowRunner(
             engine, batch=args.batched, branch=args.branch,
             progress_hook=progress, loader_workers=max(workers, 0),
             u8_transfer=u8_transfer, timer=timer)
         t0 = time.perf_counter()
-        results = runner.run(dataset, rank=args.rank, **canvas)
+        with traced:
+            results = runner.run(dataset, rank=args.rank, **canvas)
     else:
         runner = SlidingWindowRunner(engine, branch=args.branch,
                                      progress_hook=progress, timer=timer,
                                      prepad_provider=prepad_provider,
-                                     pair_features=args.pair_features)
-        if workers > 1:
+                                     pair_features=args.pair_features,
+                                     aug=aug)
+        if workers > 1 and not aug:
             stream = parallel_test_frame_stream(
                 dataset, rank=args.rank, workers=workers,
                 u8_transfer=u8_transfer, **canvas)
         else:
             stream = prefetch_stream(test_frame_stream(
                 dataset, rank=args.rank, u8_transfer=u8_transfer,
-                timer=timer, **canvas))
+                timer=timer, aug_flip=aug, **canvas))
         if timer is not None:
             stream = _waited(stream, timer)
         t0 = time.perf_counter()
-        results = runner.run(stream, num_frames=len(dataset))
+        with traced:
+            results = runner.run(stream, num_frames=len(dataset))
     wall = time.perf_counter() - t0
     tmpdir = args.tmpdir or os.path.dirname(os.path.abspath(args.out)) or "."
     local = trim_to_local(results, dataset, args.rank)
@@ -281,7 +292,10 @@ def parse_args(argv=None):
     p.add_argument("--u8-transfer", action="store_true",
                    help="move frames to the device as uint8 and normalise "
                         "there (4× fewer bytes, the same engine input)")
-    p.add_argument("--aug-test", action="store_true")
+    p.add_argument("--aug-test", action="store_true",
+                   help="flip-augmented testing: each frame and its mirror, "
+                        "proposals merged per frame, scores and boxes "
+                        "averaged per detection")
     p.add_argument("--loader-workers", type=int, default=1,
                    help="> 1: decode frames in this many threads (the "
                         "sequential runner's threaded stream draws every "
@@ -294,8 +308,11 @@ def parse_args(argv=None):
                    help="drive B video streams in lockstep through the "
                         "batched frame program and ring")
     p.add_argument("--spmd-lanes", action="store_true")
-    p.add_argument("--trace", default=None)
-    p.add_argument("--timing", action="store_true")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run (host and "
+                        "card) into DIR")
+    p.add_argument("--timing", action="store_true",
+                   help="print the host wall time per phase after the run")
     return p.parse_args(argv)
 
 
@@ -303,7 +320,9 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``).  ``imread``, a
     decoder callable, overrides ``--decoder``; ``timer.phase(name)``, when
     given, wraps the runner's stages, the stream's pipeline and canvas
-    steps and the runner's wait for each frame."""
+    steps and the runner's wait for each frame, in place of the
+    ``PhaseTimer`` that ``--timing`` makes; with ``--timing`` the timer's
+    ``summary()`` is printed after the run."""
     args = parse_args(argv)
     exclusive(args)
     refuse(args)
@@ -325,8 +344,13 @@ def main(argv=None, imread=None, timer=None) -> Dict:
                                  "configs)")
             engine.img_norm = dict(mean=tuple(norm["mean"]),
                                    std=tuple(norm["std"]))
-    return run_test(args, cfg, dataset, engine, imread,
-                    u8_transfer=args.u8_transfer, timer=timer)
+    if timer is None and args.timing:
+        timer = PhaseTimer()
+    run = run_test(args, cfg, dataset, engine, imread,
+                   u8_transfer=args.u8_transfer, timer=timer)
+    if args.timing:
+        print(timer.summary())
+    return run
 
 
 def _iter_frames(dataset):

@@ -112,8 +112,7 @@ def test_bf16_cli_runs(setup, tmp_path):
                        for c in frame)
 
 
-REFUSED = [["--aug-test"], ["--spmd-lanes", "--batched", "2"],
-           ["--trace", "trace_dir"], ["--timing"], ["--show"]]
+REFUSED = [["--spmd-lanes", "--batched", "2"], ["--show"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED, ids=[f[0] for f in REFUSED])
