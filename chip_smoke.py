@@ -134,7 +134,21 @@ stops the script with a non-zero exit:
     printed phase summary lists ``frame_features`` and ``window_detect``,
     and the trace file holds one ``logits_kernel`` and one
     ``output_kernel`` CUDA event per launch the kernel counted.
-16. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+16. ``[image]``: the single-image API and the still-image Faster R-CNN at
+    full width.  ``inference_detector`` on a 1280×720 BGR image with
+    HVRNet's and SELSA's seeded, calibrated weights, f32 and bf16: ms per
+    image (wall and CUDA events, after a warm-up), 4 and 2 launches per
+    image, the result bitwise ``window_detect`` over T=21 copies of the
+    canvas's frame caches.  ``FasterRCNN`` from HVRNet's config
+    (``BBoxHead``, 31 classes; seeded weights calibrated on the image):
+    the API and ``simple_test`` in f32 and bf16 with times and peak
+    memory, the bf16 head on the f32 engine's pooled RoIs within the bf16
+    budget, ``aug_test`` of two unflipped copies of a 600×1000 image at
+    scale factor 1 within 2e-3 of ``simple_test`` and of the image and
+    its mirror valid rows; ``FasterRCNNTrainer`` and ``SelsaTrainer``
+    with a single sampler through ``train_detector`` for 2 + 2 steps,
+    finite losses, frozen tensors bitwise, trainable ones moved.
+17. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1093,11 +1107,12 @@ def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
         for f in range(min(4, len(batch["imgs"])))])
     torch.cuda.synchronize()
     bh = engine.model.bbox_head
+    head = (f"head sampler_num {bh.sampler_num}, t_dim {bh.t_dim}"
+            if hasattr(bh, "t_dim") else f"head {type(bh).__name__}")
     log(f"{tag} {engine_cls.__name__} R101-C5 training engine in "
         f"{time.time() - t0:.1f} s (seeded random weights, {n_bn} frozen "
         f"BNs calibrated on the first batch): {len(batch['imgs'])} frames, "
-        f"head sampler_num {bh.sampler_num}, t_dim {bh.t_dim}, canvas "
-        f"{CANVAS}")
+        f"{head}, canvas {CANVAS}")
     return engine
 
 
@@ -1766,6 +1781,7 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
     from hvrnet_tpu_torch.engine import HNMBRCNN, SlidingWindowRunner
     from hvrnet_tpu_torch.engine.stream import test_frame_stream
     from hvrnet_tpu_torch.tools import vid_eval
+    from hvrnet_tpu_torch.tools.hnl_test import set_head_window
     from hvrnet_tpu_torch.tools.test import (canvas_of, set_window,
                                              test_dataset)
     from hvrnet_tpu_torch.utils.config import Config, unwrap
@@ -1829,9 +1845,10 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
     # the exact-ring CLI against SlidingWindowRunner over the port's
     # test_frame_stream in this process, on the same weights
     cfg = Config.fromfile(hvr_cfg)
-    set_window(cfg, 21)
+    set_head_window(cfg, 21)
     test_cfg = unwrap(cfg.test_cfg)
     engine = HNMBRCNN(unwrap(cfg.model), test_cfg, device="cuda")
+    set_window(engine, 21)
     engine.load_state_dict(hvr_weights)
 
     ds = test_dataset(cfg, 1, 0, read_ppm)
@@ -3233,6 +3250,273 @@ def phase_trace(torch, np, hvr_weights):
                 attention_ms=attn_ms)
 
 
+# [image]: the single-image API's input, the still-image engine's test_cfg
+# rcnn as the JAX tests take it, and its trainer's steps
+IMAGE_HW = (720, 1280)
+IMAGE_CALLS = 3           # timed calls per engine, after one warm-up call
+FASTER_RCNN_TEST = dict(score_thr=0.02, nms=dict(type="nms", iou_thr=0.5),
+                        max_per_img=20)
+IMAGE_TRAIN_TIMED = 2     # timed steps after TRAIN_WARMUP, per trainer
+
+
+def synthetic_image(np, hw, seed=0):
+    """A BGR uint8 image of ``hw``: a random scene of 16-px blocks."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    scene = rng.integers(0, 256, size=(-(-h // 16), -(-w // 16), 3),
+                         dtype=np.uint8)
+    return np.repeat(np.repeat(scene, 16, 0), 16, 1)[:h, :w].copy()
+
+
+def faster_rcnn_config(config=None):
+    """The still-image Faster R-CNN from HVRNet's config (a ``Config``):
+    its backbone, shared head, RPN and RoI extractor with a ``BBoxHead``
+    of 31 classes and per-class deltas; ``test_cfg.rpn`` and
+    ``FASTER_RCNN_TEST``; ``train_cfg.rpn``, ``rpn_proposal`` and the
+    config's RCNN assigner with its first sampler; its optimizer keys."""
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(config or CONFIG)).as_dict()
+    m, test, train = cfg["model"], cfg["test_cfg"], cfg["train_cfg"]
+    model = dict(type="FasterRCNN", bbox_head=dict(
+        type="BBoxHead", in_channels=256, roi_feat_size=7, num_classes=31,
+        reg_class_agnostic=False), **{k: m[k] for k in (
+            "backbone", "shared_head", "rpn_head", "bbox_roi_extractor")})
+    rcnn = train["rcnn"]
+    first = rcnn["sampler"]
+    first = first[0] if isinstance(first, (list, tuple)) else first
+    return Config(dict(cfg, model=model, test_cfg=dict(
+        rpn=test["rpn"], rcnn=FASTER_RCNN_TEST), train_cfg=dict(
+        rpn=train["rpn"], rpn_proposal=train["rpn_proposal"],
+        rcnn=dict(assigner=rcnn["assigner"], sampler=first,
+                  pos_weight=rcnn.get("pos_weight", -1)))))
+
+
+def image_calls(torch, np, engine, img, tag):
+    """``inference_detector`` on ``img``: one warm-up call, then
+    IMAGE_CALLS with the kernel's launch count set to 0 just before and
+    read just after, each timed by the host clock and by CUDA events (the
+    host's resize and normalisation included).  Returns the run."""
+    from hvrnet_tpu_torch.apis import (detect_image, image_input,
+                                       inference_detector)
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    inference_detector(engine, img)
+    t0 = time.perf_counter()
+    x = image_input(engine.cfg, img)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    masked_attention.launches = 0
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(IMAGE_CALLS):
+        result = inference_detector(engine, img)
+    ev[1].record()
+    torch.cuda.synchronize()
+    run = dict(launches=masked_attention.launches, images=IMAGE_CALLS,
+               wall_ms=(time.perf_counter() - t0) * 1e3 / IMAGE_CALLS,
+               cuda_ms=ev[0].elapsed_time(ev[1]) / IMAGE_CALLS,
+               host_input_ms=host_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    run["detect_ms"] = cuda_ms(torch, lambda: detect_image(engine, x),
+                               iters=IMAGE_CALLS, warmup=1)
+    n_boxes = sum(len(c) for c in result)
+    log(f"[image] {tag} ({CARD}): inference_detector on a "
+        f"{IMAGE_HW[1]}x{IMAGE_HW[0]} image {run['wall_ms']:.3f} ms/image "
+        f"wall, {run['cuda_ms']:.3f} ms/image CUDA events (mean of "
+        f"{IMAGE_CALLS} after a warm-up; image_input alone "
+        f"{host_ms:.3f} ms on the host, detect_image alone "
+        f"{run['detect_ms']:.3f} ms CUDA events); peak device memory "
+        f"{run['peak_gib']:.2f} GiB; kernel launches {run['launches']}; "
+        f"{n_boxes} boxes in {len(result)} classes")
+    if len(result) != engine.num_classes - 1 or not all(
+            c.shape[1:] == (5,) and np.isfinite(c).all() for c in result):
+        raise RuntimeError(f"[image] {tag}: not a {engine.num_classes - 1}"
+                           "-class result of finite boxes")
+    return run, result
+
+
+def image_window_hold(torch, np, engine, img, result, tag):
+    """The API's result bitwise ``window_detect`` over T copies of the
+    same canvas's ``frame_features`` (the final branch on HVRNet)."""
+    from hvrnet_tpu_torch.apis import image_input
+    from hvrnet_tpu_torch.ops.boxes import bbox2result_np
+    x = image_input(engine.cfg, img)
+    feats = engine.frame_features(x["img"], x["img_shape"], x["pad_shape"])
+    out = engine.window_detect(
+        *(torch.stack([feats[k]] * engine.window)
+          for k in ("fc1", "boxes", "mask")),
+        x["img_shape"], x["scale_factor"])
+    dets, labels, mask = (t.cpu().numpy() for t in (
+        out[-1] if isinstance(out, list) else out))
+    want = bbox2result_np(dets[mask], labels[mask], engine.num_classes)
+    same = all(np.array_equal(g, w) for g, w in zip(result, want))
+    log(f"[image] {tag}: the result bitwise window_detect over "
+        f"{engine.window} copies of the canvas's frame_features: {same}")
+    if not same:
+        raise RuntimeError(f"[image] {tag}: inference_detector differs from "
+                           "the window of copies")
+
+
+def faster_holds(torch, np, engine, engine16):
+    """``simple_test`` in f32 and bf16 (ms per image, CUDA events, and peak
+    memory); the bf16 head on the f32 engine's pooled RoIs within the bf16
+    budget of the f32 head; ``aug_test`` of two unflipped copies of a
+    600×1000 image at scale factor 1 within 2e-3 of ``simple_test``, and of
+    the image and its mirror valid rows."""
+    from hvrnet_tpu_torch.apis import image_input
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    from hvrnet_tpu_torch.engine.stream import mirrored
+    x = image_input(engine.cfg, synthetic_image(np, IMAGE_HW, seed=1))
+    args = (x["img"], x["img_shape"], x["pad_shape"], x["scale_factor"])
+    for eng in (engine, engine16):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: eng.simple_test(*args), iters=5,
+                     warmup=1)
+        log(f"[image] FasterRCNN {str(eng.dtype)[6:]} ({CARD}): simple_test "
+            f"{ms:.3f} ms/image on the {tuple(x['img'].shape[1:3])} canvas "
+            f"(CUDA events, mean of 5 after a warm-up); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with torch.no_grad(), f32_precision():
+        c5, cls_map, reg_map = engine.backbone_maps(x["img"],
+                                                    x["img_shape"])
+        boxes, _, _ = engine._proposals_lanes(
+            c5, cls_map, reg_map, [x["img_shape"]], [x["pad_shape"]])
+        rois = torch.cat([torch.zeros_like(boxes[0][:, :1]), boxes[0]], 1)
+        pooled = engine.roi_extractor(c5, rois)
+        want = engine.model.bbox_forward(pooled)
+        got = engine16.model.bbox_forward(pooled)
+    cls_d, reg_d = head_budget(got, want)
+    log(f"[image] FasterRCNN bf16 head on the f32 engine's "
+        f"{tuple(pooled.shape)} pooled RoIs against the f32 head: max "
+        f"|Δcls|/max(|cls|, 1) {cls_d:.3g}, max |Δreg| {reg_d:.3g} (limits "
+        f"{BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
+    if not (cls_d <= BF16_CLS_BUDGET and reg_d <= BF16_REG_BUDGET):
+        raise RuntimeError("[image] the bf16 BBoxHead is outside the bf16 "
+                           "budget")
+
+    # two copies at scale factor 1, where the merge's NMS in original
+    # coordinates sees the plain proposals' IoUs
+    mean = np.asarray(engine.cfg.img_norm_cfg["mean"], np.float32)
+    img = np.zeros((1,) + CANVAS + (3,), np.float32)
+    img[0, :CONTENT[0], :CONTENT[1]] = synthetic_image(np, CONTENT,
+                                                       seed=2) - mean
+    ish = np.array(CONTENT, np.float32)
+    psh = np.array(CANVAS, np.float32)
+    one = np.ones(4, np.float32)
+    plain = engine.simple_test(img, ish, psh, one)
+    dup = engine.aug_test([img, img], [ish] * 2, [psh] * 2, [one] * 2,
+                          (False, False))
+    a, b = (out[0][out[2]].cpu().numpy() for out in (plain, dup))
+    err = (np.abs(a - b) - 2e-3 * np.abs(a)).max() if a.shape == b.shape \
+        and len(a) else float("inf")
+    log(f"[image] FasterRCNN aug_test of two unflipped copies of a "
+        f"{CONTENT[1]}x{CONTENT[0]} image at scale factor 1 against "
+        f"simple_test: {len(b)} and {len(a)} detections, max |Δ| - 2e-3·|ref|"
+        f" {err:.3g} (limit 2e-3)")
+    if not err <= 2e-3:
+        raise RuntimeError("[image] aug_test of duplicates differs from "
+                           "simple_test")
+    flip = engine.aug_test(
+        [img, mirrored(dict(img=img, img_shape=ish))], [ish] * 2, [psh] * 2,
+        [one] * 2, (False, True))
+    dets, labels, mask = (t.cpu().numpy() for t in flip)
+    kept = dets[mask]
+    ok = (np.isfinite(kept).all() and (kept[:, 4] >= 0).all()
+          and (kept[:, 4] <= 1).all() and (labels[mask] >= 0).all()
+          and (labels[mask] < engine.num_classes - 1).all())
+    log(f"[image] FasterRCNN aug_test of the image and its mirror: "
+        f"{len(kept)} valid rows, finite boxes and scores in [0, 1]: {ok}")
+    if not (ok and len(kept)):
+        raise RuntimeError("[image] aug_test of the image and its mirror "
+                           "gave invalid rows")
+
+
+def image_training(torch, np, engine_cls, cfg, tag, launches_per_step,
+                   trained):
+    """``train_detector`` at full width (f32) for TRAIN_WARMUP +
+    IMAGE_TRAIN_TIMED steps on a synthetic batch, seeded weights with
+    frozen BNs calibrated on it: finite losses, the launches, frozen
+    tensors bitwise and trainable ones moved."""
+    import shutil
+    work_dir = ROOT / "build" / f"chip_smoke_image_{engine_cls.__name__}"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    batch = synthetic_train_batch(np, seed=3, videos=1)
+    engine = calibrated_training_engine(torch, engine_cls, cfg, batch, tag)
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    _, summary = timed_training(torch, np, engine, batch, cfg, work_dir,
+                                SELSA_TRAIN_STAGES, tag, launches_per_step,
+                                timed=IMAGE_TRAIN_TIMED)
+    log(f"{tag} ({CARD}): {summary['step_ms']:.3f} ms/step (CUDA events), "
+        f"peak device memory {summary['peak_gib']:.2f} GiB")
+    check_train_weights(torch, engine, before, tag, trained)
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_image(torch, np, hvr_weights, selsa_weights):
+    """The single-image API and the still-image Faster R-CNN at full
+    width.  HVRNet and SELSA (the configs' R101-C5, 300 proposals, T=21,
+    the earlier phases' seeded, calibrated weights), f32 and bf16:
+    ``inference_detector`` on a 1280×720 BGR image, 4 (HVRNet) and 2
+    (SELSA) launches per image, the result bitwise the window of T copies.
+    ``FasterRCNN`` from HVRNet's config (``faster_rcnn_config``, seeded
+    weights calibrated on the image): the API, ``simple_test``, its bf16
+    head, ``aug_test``; ``FasterRCNNTrainer`` and ``SelsaTrainer`` with a
+    single sampler through ``train_detector``.  Returns the runs whose
+    launches the kernels line counts, f32 and bf16."""
+    from hvrnet_tpu_torch.apis import image_input, init_detector
+    from hvrnet_tpu_torch.engine import FasterRCNN, SelsaRCNN
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    from hvrnet_tpu_torch.utils.config import Config
+    img = synthetic_image(np, IMAGE_HW)
+    runs, runs16 = {}, {}
+    for name, config, weights, per_image in (
+            ("hvrnet", CONFIG, hvr_weights, 4),
+            ("selsa", SELSA_CONFIG, selsa_weights, 2)):
+        for dtype, out in ((torch.float32, runs), (torch.bfloat16, runs16)):
+            tag = f"{name} {str(dtype)[6:]}"
+            engine = init_detector(str(config), dtype=dtype, device="cuda")
+            engine.load_state_dict(weights)
+            run, result = image_calls(torch, np, engine, img, tag)
+            if run["launches"] != per_image * IMAGE_CALLS:
+                raise RuntimeError(f"[image] {tag}: {run['launches']} kernel "
+                                   f"launches, not {per_image} per image")
+            image_window_hold(torch, np, engine, img, result, tag)
+            out[f"image {name}"] = run
+            del engine
+            torch.cuda.empty_cache()
+
+    fcfg = faster_rcnn_config()
+    engine = init_detector(fcfg, device="cuda")
+    n_bn = calibrate_frozen_bn(engine, [image_input(engine.cfg, img)])
+    log(f"[image] FasterRCNN R101-C5 from {CONFIG.name} (BBoxHead, 31 "
+        f"classes, {engine.proposal_num} proposals), seeded random weights, "
+        f"{n_bn} frozen BNs calibrated on the image")
+    engine16 = init_detector(fcfg, dtype=torch.bfloat16, device="cuda")
+    engine16.load_state_dict(engine.model.state_dict())
+    for eng in (engine, engine16):
+        image_calls(torch, np, eng, img, f"FasterRCNN {str(eng.dtype)[6:]}")
+    faster_holds(torch, np, engine, engine16)
+    del engine, engine16
+    torch.cuda.empty_cache()
+
+    trained = ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
+               "shared_head.", "bbox_head.")
+    image_training(torch, np, FasterRCNN, fcfg.as_dict(),
+                   "[image] FasterRCNNTrainer", 0, trained)
+    selsa = Config.fromfile(str(SELSA_CONFIG)).as_dict()
+    rcnn = selsa["train_cfg"]["rcnn"]
+    selsa["train_cfg"]["rcnn"] = dict(rcnn, sampler=rcnn["sampler"][0])
+    runs["image selsa train"] = image_training(
+        torch, np, SelsaRCNN, selsa, "[image] SelsaTrainer one sampler", 2,
+        trained)
+    return runs, runs16
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -3379,6 +3663,8 @@ def main() -> int:
     lap("[multipass]")
     traced = phase_trace(torch, np, hvr_weights)
     lap("[trace]")
+    image, image16 = phase_image(torch, np, hvr_weights, selsa_weights)
+    lap("[image]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -3408,11 +3694,11 @@ def main() -> int:
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
-            **multipass, "trace": traced}
+            **multipass, "trace": traced, **image}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
-              **multipass16}
+              **multipass16, **image16}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,10 @@
-"""The entry points (counterparts of ``hvrnet_tpu/apis.py:train_detector``
-and ``hvrnet_tpu/models/builder.py:build_detector``), on one device.
+"""The entry points (counterparts of ``hvrnet_tpu/apis.py:train_detector``,
+``init_detector`` and ``inference_detector``, and of
+``hvrnet_tpu/models/builder.py:build_detector``), on one device.
+
+    engine = init_detector("configs/faster_rcnn_r101_hrnmp_c5.py",
+                           "work_dirs/hvrnet.pth")             # on the card
+    per_class = inference_detector(engine, bgr_uint8_image)
 
     engine = build_detector(cfg.model, train_cfg=cfg.train_cfg,
                             dtype=torch.bfloat16)              # on the card
@@ -11,8 +16,12 @@ The engine's dtype is the training's compute dtype (float32 parameters
 either way); the config's ``fp16`` and ``optimizer.paramwise_options``
 keys reach the trainer.  The engine's type picks the trainer:
 ``HNMBRCNN`` and ``HNLRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` →
-``SelsaTrainer``.  ``data`` is a training dataset (``data/vid_dataset.py``;
-``engine/stream.py:train_batch_iterator`` makes its samples) or a list of
+``SelsaTrainer``, ``FasterRCNN`` and ``FastRCNN`` →
+``FasterRCNNTrainer`` (whose samples may also be still images: ``img``
+(H, W, 3), ``gt_bboxes`` (G, 4), ``gt_labels`` and ``gt_mask`` (G,),
+``img_shape`` and ``pad_shape`` (2,)).  ``data`` is a training dataset
+(``data/vid_dataset.py``; ``engine/stream.py:train_batch_iterator``
+makes its samples) or a list of
 ``collate_train`` samples: ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
 (F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
@@ -30,17 +39,19 @@ import os
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
-from .engine.detector import HNMBRCNN, SelsaRCNN
+from .engine.detector import FasterRCNN, HNMBRCNN, SelsaRCNN
 from .engine.stream import train_batch_iterator
-from .engine.train import HNMBTrainer, SelsaTrainer
+from .engine.train import (FasterRCNNTrainer, HNMBTrainer, SelsaTrainer,
+                           still_image)
 from .models.registry import DETECTORS
 from .utils.checkpoint import (load_checkpoint, resolve_checkpoint,
                                save_checkpoint)
-from .utils.config import unwrap
+from .utils.config import Config, unwrap
 
 logger = logging.getLogger("hvrnet_tpu_torch")
 
@@ -48,10 +59,10 @@ logger = logging.getLogger("hvrnet_tpu_torch")
 def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    dtype: torch.dtype = torch.float32, device="cuda",
                    seed: int = 0):
-    """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN`` or
-    ``SelsaRCNN``) computing in ``dtype``, with seeded random weights: a
-    serving engine with a ``test_cfg``, a training engine with a
-    ``train_cfg``."""
+    """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN``,
+    ``SelsaRCNN``, ``FasterRCNN`` or ``FastRCNN``) computing in ``dtype``,
+    with seeded random weights: a serving engine with a ``test_cfg``, a
+    training engine with a ``train_cfg``."""
     model_cfg = unwrap(model_cfg)
     cls = DETECTORS.get(model_cfg["type"])
     if cls is None:
@@ -141,6 +152,8 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         trainer_cls = HNMBTrainer
     elif isinstance(engine, SelsaRCNN):
         trainer_cls = SelsaTrainer
+    elif isinstance(engine, FasterRCNN):
+        trainer_cls = FasterRCNNTrainer
     else:
         raise NotImplementedError(f"no port trainer for "
                                   f"{type(engine).__name__}")
@@ -160,6 +173,9 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         if calibrate_bn:
             stream = itertools.chain([probe], stream)
     if calibrate_bn:
+        if "imgs" not in probe:              # one still image
+            one = still_image(probe)
+            probe = dict(imgs=one["imgs"], img_shape=[one["img_shape"]])
         frames = [dict(img=probe["imgs"][f:f + 1],
                        img_shape=probe["img_shape"][f])
                   for f in range(min(4, len(probe["imgs"])))]
@@ -221,3 +237,74 @@ def train_detector(engine, data, cfg: Dict[str, Any],
             if mean_ap is not None:
                 logger.info("epoch %d mAP: %.4f", epoch, mean_ap)
     return trainer
+
+
+def init_detector(config, checkpoint: Optional[str] = None,
+                  dtype: torch.dtype = torch.float32, device="cuda",
+                  seed: int = 0):
+    """A serving engine from a config (a path or a ``Config``) and its
+    ``test_cfg``, with ``checkpoint``'s weights (``load_params_for_engine``)
+    or, without one, its seeded random weights, which it logs; in bf16 the
+    bbox head's weights are pre-cast.  The engine keeps the config as
+    ``engine.cfg`` for ``inference_detector``."""
+    if isinstance(config, str):
+        config = Config.fromfile(config)
+    engine = build_detector(config.model, None, config.test_cfg, dtype=dtype,
+                            device=device, seed=seed)
+    if checkpoint is None:
+        logger.info("init_detector: no checkpoint, the engine keeps its "
+                    "seeded random weights (seed %d)", seed)
+    load_params_for_engine(engine, checkpoint)
+    engine.cast_head_params_bf16()      # a no-op in float32
+    engine.cfg = config
+    return engine
+
+
+def image_input(cfg, img: np.ndarray, canvas_hw=None) -> Dict[str, Any]:
+    """The test pipeline of the JAX package's ``inference_detector`` on one
+    BGR uint8 (H, W, 3) image: float32, a keep-ratio resize to (1000, 600)
+    (``data/resize.py:resize_bilinear_f32``, cv2's float rounding),
+    ``cfg.img_norm_cfg``, padding to a multiple of 16 and onto the canvas
+    (``canvas_hw``, else ``pick_canvas_shape``'s).  Returns ``img`` (1, H,
+    W, 3) float32, ``img_shape`` and ``pad_shape`` (2,), ``scale_factor``
+    (4,)."""
+    from .data.pipelines import Normalize, Pad, Resize
+    from .engine.canvas import pad_to_canvas, pick_canvas_shape
+    r = dict(img=np.asarray(img).astype(np.float32), img_shape=img.shape,
+             ori_shape=img.shape, bbox_fields=[])
+    r = Resize(img_scale=(1000, 600), keep_ratio=True)(r)
+    r = Pad(size_divisor=16)(Normalize(**dict(cfg.img_norm_cfg))(r))
+    canvas_hw = canvas_hw or pick_canvas_shape(*r["pad_shape"][:2])
+    return dict(img=pad_to_canvas(r["img"], canvas_hw)[None],
+                img_shape=np.asarray(r["img_shape"][:2], np.float32),
+                pad_shape=np.asarray(r["pad_shape"][:2], np.float32),
+                scale_factor=r["scale_factor"])
+
+
+def detect_image(engine, x: Dict[str, Any]):
+    """One ``image_input`` through the engine: a video engine (one with
+    ``window_detect``) detects the frame broadcast over its window of
+    ``engine.window`` frames (on HVRNet the final branch); ``FasterRCNN``
+    runs ``simple_test``.  Returns (dets (max, 5) in original-image
+    coordinates, labels (max,), mask (max,)) on the engine's device."""
+    if not hasattr(engine, "window_detect"):
+        return engine.simple_test(x["img"], x["img_shape"], x["pad_shape"],
+                                  x["scale_factor"])
+    feats = engine.frame_features(x["img"], x["img_shape"], x["pad_shape"])
+    T = engine.window or 1
+    out = engine.window_detect(
+        *(feats[k][None].expand(T, *feats[k].shape)
+          for k in ("fc1", "boxes", "mask")),
+        x["img_shape"], x["scale_factor"])
+    return out[-1] if isinstance(out, list) else out
+
+
+def inference_detector(engine, img: np.ndarray, canvas_hw=None):
+    """Detect objects in one BGR uint8 (H, W, 3) image: ``image_input``
+    with the engine's ``cfg``, then ``detect_image``.  Returns per class
+    (the ``num_classes - 1`` foreground classes) an (n, 5) array of x1,
+    y1, x2, y2, score in original-image coordinates."""
+    from .ops.boxes import bbox2result_np
+    out = detect_image(engine, image_input(engine.cfg, img, canvas_hw))
+    dets, labels, mask = (t.cpu().numpy() for t in out)
+    return bbox2result_np(dets[mask], labels[mask], engine.num_classes)

@@ -1,3 +1,4 @@
 from .batched_runner import BatchedSlidingWindowRunner  # noqa: F401
-from .detector import HNLRCNN, HNMBRCNN, SelsaRCNN  # noqa: F401
+from .detector import (FastRCNN, FasterRCNN, HNLRCNN,  # noqa: F401
+                       HNMBRCNN, SelsaRCNN)
 from .video_runner import SlidingWindowRunner  # noqa: F401

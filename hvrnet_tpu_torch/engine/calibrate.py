@@ -29,6 +29,7 @@ def calibrate_frozen_bn(engine, frames: Sequence[dict]) -> int:
     ``img_shape``).  Returns the number of BNs written."""
     model = engine.model
     bns = [m for part in (model.backbone, model.shared_head)
+           if part is not None
            for m in part.modules() if isinstance(m, FrozenBN)]
     sums = {bn: [0.0, 0.0] for bn in bns}
 

@@ -1,6 +1,6 @@
 """Detector engines (counterpart of ``hvrnet_tpu/engine/detector.py``:
 ``BaseEngine`` frame program, ``_RingMixin`` exact ring, ``SelsaRCNN`` and
-``HNMBRCNN`` single-pass windows).
+``HNMBRCNN`` single-pass windows, and the still-image ``FasterRCNN``).
 
 Per frame, ``frame_features`` runs once: backbone C4 → dilated C5 shared
 head → RPN → static-NMS proposals → RoIAlign → ``fc_new_1``.  Per-frame
@@ -90,8 +90,9 @@ def f32_precision():
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Random weights from a seed, with the JAX package's init scheme:
-    He-normal convolutions, normal(0, 0.01) dense layers and RPN convs, zero
-    biases, identity frozen BNs."""
+    He-normal convolutions, normal(0, 0.01) dense layers (a layer's
+    ``init_std`` where it has one) and RPN convs, zero biases, identity
+    frozen BNs."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -101,7 +102,9 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                        or "linear_out" in name else (2.0 / fan_in) ** 0.5)
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
             elif isinstance(m, torch.nn.Linear):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.01)
+                std = getattr(m, "init_std", 0.01)
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * std)
             elif isinstance(m, FrozenBN):
                 for buf, val in (("weight", 1.0), ("bias", 0.0),
                                  ("running_mean", 0.0), ("running_var", 1.0)):
@@ -169,8 +172,9 @@ def aug_metas(img_shapes, scale_factors, flips):
 class BaseEngine:
     """Model construction, weights and the per-frame program.
 
-    A serving engine takes a ``test_cfg``, whose ``bbox_head`` overrides
-    the head's ``t_dim`` and ``sampler_num``; a training engine takes a
+    A serving engine takes a ``test_cfg``, whose ``bbox_head`` (where it
+    has one) overrides the head's ``t_dim`` and ``sampler_num``; a training
+    engine takes a
     ``train_cfg`` and no ``test_cfg``, and keeps the model config's."""
 
     def __init__(self, model_cfg: Dict[str, Any],
@@ -184,7 +188,7 @@ class BaseEngine:
         self.test_cfg = unwrap(test_cfg) if test_cfg else None
         self.train_cfg = unwrap(train_cfg) if train_cfg else None
         bh = dict(model_cfg["bbox_head"])
-        if self.test_cfg is not None:
+        if self.test_cfg is not None and "bbox_head" in self.test_cfg:
             bh["t_dim"] = int(self.test_cfg["bbox_head"]["t_dim"])
             bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
         self.model_cfg = model_cfg = dict(model_cfg, bbox_head=bh)
@@ -793,4 +797,87 @@ class HNMBRCNN(_RingMixin, BaseEngine):
 class HNLRCNN(HNMBRCNN):
     """The config's intra+inter-video variant (``net_type = 'HNLRCNN'``):
     HVRNet's engine and trainer under its own name, as in the JAX
+    package."""
+
+
+@DETECTORS.register_module
+class FasterRCNN(BaseEngine):
+    """The plain still-image Faster R-CNN, the single-frame R101-C5
+    baseline SELSA and HVRNet build on (``BBoxHead``).  ``simple_test``:
+    the backbone, the image's proposals from C4, RoIAlign on C5, the head
+    and ``get_det_bboxes``; ``aug_test``: the reference's multi-scale-flip
+    test of one image.  It has no window and no ring (no ``window_detect``),
+    so ``apis.inference_detector`` calls ``simple_test``."""
+
+    def __init__(self, model_cfg, test_cfg=None, device="cuda",
+                 seed: int = 0, train_cfg=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(model_cfg, test_cfg, device, seed, train_cfg, dtype)
+        self.key_dim = 0
+
+    def _head(self, c5, boxes):
+        """RoIAlign of (P, 4) boxes on one image's (1, C, h, w) C5, then the
+        bbox head: (cls (P, C), reg (P, 4·k)) in the compute dtype."""
+        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], dim=1)
+        return self.model.bbox_forward(self.roi_extractor(c5, rois))
+
+    @torch.no_grad()
+    @f32_precision()
+    def simple_test(self, img, img_shape, pad_shape, scale_factor):
+        """img: (1, H, W, 3) canvas-padded image (normalised float32 or raw
+        uint8) with its (2,) img_shape and pad_shape and (4,)
+        scale_factor.  Returns (dets (max, 5) in original-image
+        coordinates, labels (max,), mask (max,))."""
+        c5, cls_map, reg_map = self.backbone_maps(img, img_shape)
+        boxes, _, mask = self._proposals_lanes(c5, cls_map, reg_map,
+                                               [img_shape], [pad_shape])
+        cls, reg = self._head(c5, boxes[0])
+        return get_det_bboxes(boxes[0], cls, reg, img_shape, scale_factor,
+                              self.target_means, self.target_stds,
+                              rescale=True, cfg=self.test_cfg["rcnn"],
+                              valid=mask[0])
+
+    @torch.no_grad()
+    @f32_precision()
+    def aug_test(self, imgs, img_shapes, pad_shapes, scale_factors, flips):
+        """imgs: A (1, H, W, 3) canvases, the augmentations of one image
+        (``flips`` says which are mirrored), with their (2,) img_shapes and
+        pad_shapes and (4,) scale_factors; one backbone batch.  Each
+        augmentation's proposals (one NMS fixpoint for all),
+        ``merge_aug_proposals``; the merged set mapped into each
+        augmentation, pooled and through the head, its softmax and the
+        decode of every class's deltas; ``merge_aug_bboxes`` and one
+        class-wise NMS.  Returns (dets (max, 5) in original-image
+        coordinates, labels (max,), mask (max,))."""
+        batch = torch.cat([torch.as_tensor(img) for img in imgs])
+        c5, cls_map, reg_map = self.backbone_maps(
+            batch, np.asarray(img_shapes, np.float32))
+        boxes, scores, mask = self._proposals_lanes(
+            c5, cls_map, reg_map, img_shapes, pad_shapes)
+        metas = aug_metas(img_shapes, scale_factors, flips)
+        merged, keep = merge_aug_proposals(
+            [torch.cat([b, s[:, None]], dim=1) for b, s in zip(boxes, scores)],
+            metas, self.test_cfg["rpn"], list(mask))
+        aug_boxes, aug_scores = [], []
+        for a, m in enumerate(metas):
+            boxes_a = bbox_mapping(merged[:, :4], m["img_shape"],
+                                   m["scale_factor"], m["flip"])
+            cls, reg = self._head(c5[a:a + 1], boxes_a)
+            aug_scores.append(torch.softmax(cls.float(), dim=-1))
+            # every class's deltas decode (the reference's aug_test), not
+            # only the top class's
+            aug_boxes.append(delta2bbox(boxes_a, reg.float(),
+                                        self.target_means, self.target_stds,
+                                        m["img_shape"]))
+        bboxes, scores = merge_aug_bboxes(aug_boxes, aug_scores, metas)
+        rcnn = self.test_cfg["rcnn"]
+        return multiclass_nms_static(
+            bboxes, scores, float(rcnn["score_thr"]),
+            float(rcnn["nms"]["iou_thr"]), int(rcnn["max_per_img"]),
+            valid=keep)
+
+
+@DETECTORS.register_module
+class FastRCNN(FasterRCNN):
+    """The proposal-fed variant's name: the same engine, as in the JAX
     package."""

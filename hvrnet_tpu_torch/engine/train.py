@@ -1,5 +1,7 @@
 """Training steps (counterpart of ``hvrnet_tpu/engine/train.py``:
-``BaseTrainer`` on one device, ``SelsaTrainer`` and ``HNMBTrainer``).
+``BaseTrainer`` on one device, ``SelsaTrainer`` and ``HNMBTrainer``; and of
+``hvrnet_tpu/engine/train_two_stage.py:FasterRCNNTrainer``, the still-image
+detector's).
 
 SELSA, one step (``selsa_rcnn.py:85-246``) over F frames of one video, the
 key frame ``key_dim`` among them:
@@ -13,7 +15,7 @@ key frame ``key_dim`` among them:
      SELSA head over their F·num rows (NL1 and NL2 through the attention
      kernel), the key frame's rows out;
   4. cross entropy re-weighted to the ``sampler[1].num`` hardest RoIs
-     (OHEM) and smooth-L1;
+     (OHEM; with a single sampler every sampled RoI) and smooth-L1;
   5. backward, the global-norm clip and SGD (``engine/optim.py``).
 
 HVRNet, one step, in the reference's order (``hnmb_rcnn.py:224-569``):
@@ -194,7 +196,9 @@ def _rpn_loss(cls_map: torch.Tensor, reg_map: torch.Tensor, tgt,
 class SelsaTrainer(BaseTrainer):
     """SELSA training: backbone (from ``layer2``), RPN, shared head and
     SELSA head all train; the RPN loss on the key frame and the head's
-    losses on the key frame's RoIs after OHEM."""
+    losses on the key frame's RoIs, after OHEM when ``train_cfg.rcnn``
+    names a second sampler (with one sampler, every sampled RoI at its
+    label weight, normalised by their count, as the JAX trainer does)."""
 
     def loss_from_c4(self, c4: torch.Tensor, sample: Dict[str, Any],
                      noise=None
@@ -211,10 +215,14 @@ class SelsaTrainer(BaseTrainer):
         rcnn = tcfg["rcnn"]
         assigner = rcnn["assigner"]
         samplers = rcnn["sampler"]
-        if not isinstance(samplers, (list, tuple)) or len(samplers) != 2:
-            raise ValueError("SelsaTrainer needs train_cfg.rcnn.sampler as "
-                             "[first-stage sampler, OHEM sampler]")
-        first, ohem = samplers
+        if not isinstance(samplers, (list, tuple)):
+            first, ohem = samplers, None
+        elif len(samplers) >= 2:
+            first, ohem = samplers[0], samplers[1]
+        else:
+            raise ValueError("SelsaTrainer takes train_cfg.rcnn.sampler as "
+                             "one sampler, or [first-stage sampler, OHEM "
+                             "sampler]")
         kd, P = eng.key_dim, int(first["num"])
         n_frames = c4.shape[0]
         stride = eng.anchor_stride
@@ -270,16 +278,122 @@ class SelsaTrainer(BaseTrainer):
             key = srs[kd]
             cls, reg = widen(cls), widen(reg)
             ce = softmax_cross_entropy(cls, key.labels)
-            lw, bw, sel, _ = ohem_weights(
-                key.labels, ce, key.valid, int(ohem["num"]),
-                float(ohem["pos_fraction"]))
-            navg = sel.sum().float().clamp_min(1.0)
+            if ohem is None:
+                lw, bw = key.label_weights, key.bbox_weights
+                navg = (lw > 0).sum().float().clamp_min(1.0)
+            else:
+                lw, bw, sel, _ = ohem_weights(
+                    key.labels, ce, key.valid, int(ohem["num"]),
+                    float(ohem["pos_fraction"]))
+                navg = sel.sum().float().clamp_min(1.0)
             loss_cls = (ce * lw).sum() / navg
             loss_bbox = (smooth_l1(reg.reshape(-1, 4), key.bbox_targets,
                                    self.loss_beta) * bw).sum() / navg
             logs = dict(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox,
                         loss_cls=loss_cls, loss_bbox=loss_bbox,
                         acc=accuracy(cls.detach(), key.labels, mask=lw > 0))
+        return loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox, logs
+
+
+def still_image(sample: Dict[str, Any]) -> Dict[str, Any]:
+    """A sample in the still-image layout: ``imgs`` (1, H, W, 3),
+    ``gt_bboxes`` (G, 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape``
+    and ``pad_shape`` (2,).  From the still-image layout (``img`` (H, W, 3)
+    or (1, H, W, 3)) or the video layout (``imgs`` (F, H, W, 3): frame
+    0)."""
+    keys = ("gt_bboxes", "gt_labels", "gt_mask", "img_shape", "pad_shape")
+    if "img" in sample:
+        img = sample["img"]
+        return dict(imgs=img[None] if img.ndim == 3 else img,
+                    **{k: sample[k] for k in keys})
+    return dict(imgs=sample["imgs"][:1], **{k: sample[k][0] for k in keys})
+
+
+class FasterRCNNTrainer(BaseTrainer):
+    """The still-image Faster R-CNN objective (counterpart of
+    ``hvrnet_tpu/engine/train_two_stage.py:FasterRCNNTrainer``, the
+    reference's ``two_stage.py:forward_train`` with one RCNN stage): the RPN
+    loss on the image's sampled anchors; ``train_cfg.rpn_proposal``
+    proposals from the detached maps; one assign/sample stage
+    (``train_cfg.rcnn``, its first sampler); softmax cross entropy and the
+    labelled class's smooth-L1 over the sampled RoIs, both divided by the
+    count of weighted RoIs.  Backbone (from ``layer2``), RPN, shared head
+    and head train.  A sample is in the still-image or the video layout
+    (``still_image``)."""
+
+    def backbone(self, sample: Dict[str, Any]) -> torch.Tensor:
+        return super().backbone(still_image(sample))
+
+    def loss_from_c4(self, c4: torch.Tensor, sample: Dict[str, Any],
+                     noise=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, logs) of one step from the image's (1, 1024, h, w)
+        C4.  ``noise``: ((pos, neg) (A,) U(0, 1) priorities over the
+        anchors, (pos, neg) (G + P,) over the RoI candidates), the JAX
+        step's ``split(rng, 2)`` draws; from the trainer's generator when
+        absent."""
+        eng = self.engine
+        model = eng.model
+        tcfg = eng.train_cfg
+        rcnn = tcfg["rcnn"]
+        rcnn = rcnn[0] if isinstance(rcnn, (list, tuple)) else rcnn
+        assigner, samp = rcnn["assigner"], rcnn["sampler"]
+        samp = samp[0] if isinstance(samp, (list, tuple)) else samp
+        agnostic = eng.model_cfg["bbox_head"].get("reg_class_agnostic", False)
+        s = still_image(sample)
+        stride = eng.anchor_stride
+        canvas = eng._canvas(c4.shape[2] * stride, c4.shape[3] * stride)
+        img_shape = np.asarray(s["img_shape"])
+        pad_shape = np.asarray(s["pad_shape"])
+        gt = {k: torch.as_tensor(np.asarray(s[k]), device=eng.device)
+              for k in ("gt_bboxes", "gt_labels", "gt_mask")}
+        (apos, aneg), (rpos, rneg) = noise or ((None, None), (None, None))
+
+        with self._phase("rpn"):
+            cls_map, reg_map = model.rpn(c4)
+            tgt = anchor_target_single(
+                canvas.anchors, canvas.anchor_valid(pad_shape),
+                gt["gt_bboxes"], gt["gt_mask"], img_shape, tcfg["rpn"],
+                eng.rpn_means, eng.rpn_stds, pos_noise=apos, neg_noise=aneg,
+                generator=self.generator)
+            loss_rpn_cls, loss_rpn_bbox = _rpn_loss(cls_map[0], reg_map[0],
+                                                    tgt)
+
+        with self._phase("proposals"), torch.no_grad():
+            boxes, _, pmask = _rpn_proposals(
+                cls_map[0], reg_map[0], canvas, pad_shape, img_shape,
+                tcfg["rpn_proposal"], eng.rpn_means, eng.rpn_stds)
+            sr = random_sample_and_target(
+                boxes, pmask, gt["gt_bboxes"], gt["gt_mask"],
+                gt["gt_labels"], num=int(samp["num"]),
+                pos_fraction=float(samp["pos_fraction"]),
+                add_gt_as_proposals=bool(samp.get("add_gt_as_proposals",
+                                                  True)),
+                pos_iou_thr=float(assigner["pos_iou_thr"]),
+                neg_iou_thr=float(assigner["neg_iou_thr"]),
+                min_pos_iou=float(assigner["min_pos_iou"]),
+                target_means=eng.target_means, target_stds=eng.target_stds,
+                pos_weight=float(rcnn.get("pos_weight", -1)),
+                pos_noise=rpos, neg_noise=rneg, generator=self.generator)
+
+        with self._phase("head"):
+            c5 = model.shared(c4)
+            rois = torch.cat([torch.zeros_like(sr.rois[:, :1]), sr.rois], 1)
+            cls, reg = model.bbox_forward(eng.roi_extractor(c5, rois))
+            cls, reg = widen(cls), widen(reg)
+            lw = sr.label_weights
+            navg = (lw > 0).sum().float().clamp_min(1.0)
+            loss_cls = (softmax_cross_entropy(cls, sr.labels) * lw).sum() \
+                / navg
+            reg = reg.reshape(reg.shape[0], -1, 4)
+            if not agnostic:
+                reg = torch.gather(reg, 1, sr.labels.clamp_min(0)[
+                    :, None, None].expand(-1, 1, 4))
+            loss_bbox = (smooth_l1(reg[:, 0], sr.bbox_targets, self.loss_beta)
+                         * sr.bbox_weights).sum() / navg
+            logs = dict(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox,
+                        loss_cls=loss_cls, loss_bbox=loss_bbox,
+                        acc=accuracy(cls.detach(), sr.labels, mask=lw > 0))
         return loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox, logs
 
 

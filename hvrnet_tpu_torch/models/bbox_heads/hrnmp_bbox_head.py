@@ -380,3 +380,23 @@ class HRNMPBBoxHead(nn.Module):
             for key in ("m", "l", "a"):
                 st[key + name] = acc[key]
             st["M" + name] = M
+
+
+# The reference package exports HNLBBoxHead, HNMBBBoxHead and HMPBBoxHead,
+# earlier iterations of the hierarchical relation head whose source files
+# it does not ship; as in the JAX package, each is this head under its
+# name, so configs naming them build.
+
+@HEADS.register_module
+class HNLBBoxHead(HRNMPBBoxHead):
+    """Intra+inter-video non-local head (the HRNMP head)."""
+
+
+@HEADS.register_module
+class HNMBBBoxHead(HRNMPBBoxHead):
+    """Mini-batch video relation head (the HRNMP head)."""
+
+
+@HEADS.register_module
+class HMPBBoxHead(HRNMPBBoxHead):
+    """Hierarchical message-passing head (the HRNMP head)."""

@@ -22,6 +22,6 @@ def build_model_module(model_cfg: Dict[str, Any],
     parameters."""
     m = unwrap(model_cfg)
     return TwoStageModule(backbone=m["backbone"],
-                          shared_head=m["shared_head"],
+                          shared_head=m.get("shared_head"),
                           rpn_head=m["rpn_head"], bbox_head=m["bbox_head"],
                           dtype=dtype)

@@ -2,15 +2,16 @@
 (counterpart of ``hvrnet_tpu/models/two_stage.py``).
 
 The C5 configuration both shipped configs use: ``feat_from_shared_head``
-moves the dilated stage 4 and its 1×1→256 conv before RoI pooling.  The
-submodule names (``backbone``, ``shared_head``, ``rpn_head``, ``bbox_head``)
+moves the dilated stage 4 and its 1×1→256 conv before RoI pooling.  A
+config without a ``shared_head`` pools C4 itself (``shared`` is then the
+identity), as the JAX module allows.  The submodule names (``backbone``, ``shared_head``, ``rpn_head``, ``bbox_head``)
 are mmdet's, so the module's ``state_dict`` is a reference checkpoint's.
 Every submodule computes in the module's ``dtype`` (float32 parameters).
 """
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -36,12 +37,14 @@ def build_submodule(cfg: Dict[str, Any], registry,
 
 class TwoStageModule(nn.Module):
 
-    def __init__(self, backbone: dict, shared_head: dict, rpn_head: dict,
-                 bbox_head: dict, dtype: torch.dtype = torch.float32):
+    def __init__(self, backbone: dict, shared_head: Optional[dict],
+                 rpn_head: dict, bbox_head: dict,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.backbone = build_submodule(backbone, BACKBONES, dtype)
-        self.shared_head = build_submodule(shared_head, SHARED_HEADS, dtype)
+        self.shared_head = (build_submodule(shared_head, SHARED_HEADS, dtype)
+                            if shared_head else None)
         self.rpn_head = build_submodule(rpn_head, HEADS, dtype)
         self.bbox_head = build_submodule(bbox_head, HEADS, dtype)
 
@@ -50,9 +53,15 @@ class TwoStageModule(nn.Module):
         return self.backbone(img)[0]
 
     def shared(self, c4):
-        """C4 → C5 (dilated stage 4 + external 1×1→256)."""
-        return self.shared_head(c4)
+        """C4 → C5 (dilated stage 4 + external 1×1→256); C4 itself without
+        a shared head."""
+        return c4 if self.shared_head is None else self.shared_head(c4)
 
     def rpn(self, c4):
         """C4 → (cls logits, reg deltas) maps."""
         return self.rpn_head(c4)
+
+    def bbox_forward(self, pooled, *args):
+        """The bbox head on (N, C, 7, 7) pooled RoIs; a relation head also
+        takes its row range and key mask in ``args``."""
+        return self.bbox_head(pooled, *args)

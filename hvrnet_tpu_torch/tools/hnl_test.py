@@ -6,12 +6,13 @@
 
 runs the 4-block HRNMP head over every video of the config's ``data.test``
 tree on the card, at a window of ``--window`` frames (63 by default, the
-reference harness's cache; the window sets frame_interval, t_dim and
-key_dim together), and with ``--eval`` prints the VID mAP.  ``--stream``
-runs the streaming ring (speculative, replaying flagged chunks exactly).
-``--pre-padding random`` (the default) front-pads each video's window with
-half − 1 random frames of the same video, drawn from a generator of their
-own seeded by ``--seed``; ``repeat`` pads with copies of the first frame.
+reference harness's cache; the window sets the head's t_dim and key_dim
+and the ring's length, as the JAX ``hnl_test`` does), and with ``--eval``
+prints the VID mAP.  ``--stream`` runs the streaming ring (speculative,
+replaying flagged chunks exactly).  ``--pre-padding random`` (the default)
+front-pads each video's window with half − 1 random frames of the same
+video, drawn from a generator of their own seeded by ``--seed``;
+``repeat`` pads with copies of the first frame.
 ``--pair-features P`` runs P consecutive interior frames through one frame
 program.  ``--multi-pass P`` runs the head's multi-pass test graph
 (``forward_fc1_multi_passes``) over P equal segments of the window on the
@@ -34,13 +35,24 @@ from .test import (add_common_args, canvas_of, decoder_from_flag, refuse,
                    run_test, set_window, setup, test_dataset, test_engine)
 
 
+def set_head_window(cfg, window: int) -> None:
+    """``--window W`` as the JAX ``hnl_test`` sets it before it builds the
+    engine: the head's t_dim W and key_dim ``(W - 1) // 2`` (the engine's
+    window follows with ``set_window``); the dataset keeps the config's
+    frame_interval."""
+    if window < 1:
+        raise SystemExit(f"--window {window}: the window is at least 1 frame")
+    cfg.test_cfg["bbox_head"]["t_dim"] = window
+    cfg.test_cfg["bbox_head"]["key_dim"] = (window - 1) // 2
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="HVRNet VID test")
     add_common_args(p)
     p.add_argument("--out", default="results_hnl.pkl")
     p.add_argument("--window", type=int, default=63,
-                   help="window length (2·k + 1); sets frame_interval, "
-                        "t_dim and key_dim together")
+                   help="window length W: the head's t_dim, the ring's "
+                        "length, key frame (W - 1) // 2")
     p.add_argument("--pre-padding", choices=["random", "repeat"],
                    default="random")
     p.add_argument("--stream", action="store_true",
@@ -101,9 +113,10 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     setup(args)
     imread = imread or decoder_from_flag(args.decoder)
     cfg = Config.fromfile(args.config)
-    set_window(cfg, args.window)
+    set_head_window(cfg, args.window)
     dataset = test_dataset(cfg, args.world_size, args.seed, imread)
     engine = test_engine(cfg, args)
+    set_window(engine, args.window)
     engine.stream = args.stream
     engine.multi_pass = args.multi_pass or None
     prepad = None

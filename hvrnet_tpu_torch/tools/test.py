@@ -63,8 +63,8 @@ logger = logging.getLogger("hvrnet_tpu_torch")
 
 # flags of the JAX CLI that stop this one: flag → (refused when, ROADMAP item)
 REFUSED = {
-    "spmd_lanes": (bool, "Queue 1 item 7 (the SPMD lanes)"),
-    "show": (bool, "Queue 1 item 8 (--show, which draws with cv2)"),
+    "spmd_lanes": (bool, "Queue 1 item 6 (multi-GPU: the SPMD lanes)"),
+    "show": (bool, "Queue 1 item 7 (--show, which draws with cv2)"),
 }
 
 
@@ -139,15 +139,15 @@ def decoder_from_flag(name: str):
     return getattr(importlib.import_module(module), func)
 
 
-def set_window(cfg, window: int) -> None:
-    """One quantity: the window sets the dataset's frame_interval and the
-    head's t_dim and key_dim together."""
-    if window < 1 or window % 2 == 0:
-        raise SystemExit(f"--window {window}: the window is 2·k + 1 frames")
-    half = (window - 1) // 2
-    cfg.test_cfg["relation_setup"]["frame_interval"] = half
-    cfg.test_cfg["bbox_head"]["t_dim"] = window
-    cfg.test_cfg["bbox_head"]["key_dim"] = half
+def set_window(engine, window: int) -> None:
+    """``--window W`` as the JAX ``test`` sets it: the engine's window
+    (the ring's length) and its key frame ``(W - 1) // 2``.  The head keeps
+    the config's t_dim, so it keys the first ``sampler_num·t_dim`` rows of
+    a longer window, as the JAX head does."""
+    if window < 1:
+        raise SystemExit(f"--window {window}: the window is at least 1 frame")
+    engine.window = window
+    engine.key_dim = (window - 1) // 2
 
 
 def canvas_of(cfg) -> Tuple[int, int]:
@@ -287,8 +287,9 @@ def parse_args(argv=None):
     add_common_args(p)
     p.add_argument("--out", default="results.pkl")
     p.add_argument("--window", type=int, default=None,
-                   help="window length (2·k + 1); sets frame_interval, "
-                        "t_dim and key_dim together")
+                   help="window length W: the ring holds W frames and "
+                        "detects frame (W - 1) // 2; the head keeps the "
+                        "config's t_dim")
     p.add_argument("--u8-transfer", action="store_true",
                    help="move frames to the device as uint8 and normalise "
                         "there (4× fewer bytes, the same engine input)")
@@ -329,10 +330,10 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     setup(args)
     imread = imread or decoder_from_flag(args.decoder)
     cfg = Config.fromfile(args.config)
-    if args.window:
-        set_window(cfg, args.window)
     dataset = test_dataset(cfg, args.world_size, args.seed, imread)
     engine = test_engine(cfg, args)
+    if args.window:
+        set_window(engine, args.window)
     if args.u8_transfer:
         # the device normalises with THIS config's values
         norm = next((t for t in cfg.data.test["pipeline"]

@@ -36,7 +36,7 @@ from .test import decoder_from_flag
 
 logger = logging.getLogger("hvrnet_tpu_torch")
 
-MULTI_DEVICE = "Queue 1 item 7 (multi-GPU)"
+MULTI_DEVICE = "Queue 1 item 6 (multi-GPU)"
 # the JAX CLI's multi-device flags, each with the one value that means a
 # single device here (None: refused whatever its value)
 REFUSED = dict(n_devices=1, coordinator=None, num_processes=1, process_id=0)

@@ -160,6 +160,22 @@ def test_batched_matches_the_sequential_runner(setup, batched):
     assert_results_close(batched["plain"]["results"], seq["results"])
 
 
+def test_batched_window_matches_jax(setup):
+    """``test --batched 2 --window 5``, above the config's t_dim 3: both
+    CLIs set the engine's window and key frame and keep the head's t_dim
+    (the head keys 24 of the window's 40 rows); within the end-to-end
+    limits of the JAX CLI's run."""
+    cfg, ckpt = setup["hnmb"]
+    work = setup["work"]
+    want = work / "jax_batched_w5.pkl"
+    jax_test_cli([cfg, ckpt, "--batched", "2", "--window", "5", "--out",
+                  str(want), "--tmpdir", str(work / "jax_w5")], seed=SEED)
+    run = _port(setup, "batched_w5", "--batched", "2", "--window", "5")
+    eng = run["runner"].engine
+    assert (eng.window, eng.key_dim, eng.model.bbox_head.t_dim) == (5, 2, 3)
+    assert_results_close(run["results"], load(want))
+
+
 def test_lockstep_streams_need_one_canvas(tmp_path):
     """A step that mixes a portrait and a landscape canvas stops with the
     cause named (the JAX runner fails there in ``np.stack``)."""
@@ -240,7 +256,7 @@ EXCLUSIVE = [(["--batched", "2", "--aug-test"], "are exclusive"),
               "applies to the sequential runner"),
              (["--spmd-lanes"], "requires --batched B"),
              (["--batched", "2", "--spmd-lanes"],
-              "not ported yet \\(ROADMAP Queue 1 item 7")]
+              "not ported yet \\(ROADMAP Queue 1 item 6")]
 
 
 @pytest.mark.parametrize("flags,message", EXCLUSIVE,

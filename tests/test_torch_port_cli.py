@@ -162,6 +162,16 @@ def assert_cli_matches(got, want, backbone, end_to_end_score_tol=1e-4):
     return assert_results_close(got, want, score_tol=end_to_end_score_tol)
 
 
+def fill_gaps(results):
+    """(results with each undetected frame's ``None`` as 30 empty classes,
+    the indices of those frames).  At an even window the reference's
+    sliding-window loop never detects a video's last frame (its tail
+    drain ends one frame short), in both packages."""
+    empty = [np.zeros((0, 5), np.float32)] * 30
+    gaps = [i for i, r in enumerate(results) if r is None]
+    return [empty if r is None else r for r in results], gaps
+
+
 @contextlib.contextmanager
 def jax_backbone(model_cfg, test_cfg, jax_cls, ckpt):
     """Port engines take their (c5, rpn cls, rpn reg) maps from the JAX
@@ -231,6 +241,28 @@ def test_hnl_test_cli_matches_jax(setup, jax_runs, ring, backbone):
     assert run["map"] == vid_eval.main([str(out), cfg])[0]
     if ring == "stream":
         assert run["runner"].speculative
+
+
+def test_hnl_test_even_window_matches_jax(setup):
+    """``hnl_test --window 4``, an even window, as the JAX CLI takes it:
+    the head's t_dim 4 and key_dim 1, a ring of 4 frames detecting frame
+    1; with the JAX backbone maps, the JAX CLI's detections within the
+    limits, and the same undetected last frames (``fill_gaps``)."""
+    _, cfg, ckpt, work = setup
+    common = ["--window", "4", "--pre-padding", "repeat"]
+    want = work / "jax_w4.pkl"
+    jax_cli("hnl_test", [cfg, ckpt, *common, "--out", str(want), "--tmpdir",
+                         str(work / "jax_w4")], seed=2)
+    out = work / "port_w4.pkl"
+    with jax_backbone(*tiny_hnmb_cfg(), JaxHNMBRCNN, ckpt):
+        run = hnl_test.main(port_args(cfg, ckpt, out, *common, "--seed", "2",
+                                      "--tmpdir", str(work / "port_w4")))
+    eng = run["runner"].engine
+    assert (eng.window, eng.key_dim, eng.model.bbox_head.t_dim) == (4, 1, 4)
+    (got, gaps), (want, want_gaps) = fill_gaps(load(out)), fill_gaps(
+        load(want))
+    assert gaps == want_gaps and len(gaps) == 4       # one per video
+    assert_cli_matches(got, want, "jax")
 
 
 def test_vid_eval_matches_jax(setup, jax_runs, capsys):
@@ -352,7 +384,7 @@ def test_random_pre_padding(setup):
 def test_hnl_test_refuses_unported_flags(setup, flag):
     _, cfg, ckpt, work = setup
     with pytest.raises(SystemExit, match="not ported yet \\(ROADMAP Queue "
-                                         "1 item [58]"):
+                                         "1 item 7"):
         hnl_test.main(port_args(cfg, ckpt, work / "no.pkl", *flag))
 
 

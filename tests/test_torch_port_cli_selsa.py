@@ -16,8 +16,8 @@ from hvrnet_tpu_torch.tools import hnl_test
 from hvrnet_tpu_torch.tools import test as test_cli
 from tests.test_engine_hnmb import tiny_hnmb_cfg
 from tests.test_engine_selsa import tiny_selsa_cfg
-from tests.test_torch_port_cli import (assert_cli_matches, jax_backbone,
-                                       jax_cli, load, port_args,
+from tests.test_torch_port_cli import (assert_cli_matches, fill_gaps,
+                                       jax_backbone, jax_cli, load, port_args,
                                        shared_checkpoint, write_config)
 from tests.test_torch_port_data import build_tree
 
@@ -119,7 +119,7 @@ REFUSED = [["--spmd-lanes", "--batched", "2"], ["--show"]]
 def test_test_cli_refuses_unported_flags(setup, flag):
     cfg, ckpt, work, _ = setup
     with pytest.raises(SystemExit, match="not ported yet \\(ROADMAP Queue "
-                                         "1 item [578]"):
+                                         "1 item [67]"):
         test_cli.main(port_args(cfg, ckpt, work / "no.pkl", *flag))
 
 
@@ -136,16 +136,52 @@ def test_test_cli_has_no_show_options(setup, flag, capsys):
 
 
 def test_window_is_one_quantity(setup):
-    """``--window`` sets the dataset's frame_interval and the head's t_dim
-    and key_dim together; an even window stops the CLI."""
+    """``test --window W`` sets what the JAX ``test`` sets: the engine's
+    window and its key frame ``(W - 1) // 2``, for odd and even W; the
+    head keeps the config's t_dim and the dataset its frame_interval.
+    ``hnl_test``'s own setter also sets the head's t_dim and key_dim."""
     from hvrnet_tpu_torch.utils.config import Config
     cfg, _, _, _ = setup
-    c = Config.fromfile(cfg)
-    test_cli.set_window(c, 7)
-    assert c.test_cfg.relation_setup.frame_interval == 3
-    assert (c.test_cfg.bbox_head.t_dim, c.test_cfg.bbox_head.key_dim) == (7, 3)
-    with pytest.raises(SystemExit, match="2·k \\+ 1"):
-        test_cli.set_window(c, 6)
+    for window in (7, 6):
+        c = Config.fromfile(cfg)
+        eng = SelsaRCNN(c.model, c.test_cfg, device="cpu")
+        test_cli.set_window(eng, window)
+        assert (eng.window, eng.key_dim) == (window, (window - 1) // 2)
+        assert eng.model.bbox_head.t_dim == 3
+        assert c.test_cfg.relation_setup.frame_interval == 1
+        hnl_test.set_head_window(c, window)
+        assert (c.test_cfg.bbox_head.t_dim, c.test_cfg.bbox_head.key_dim) \
+            == (window, (window - 1) // 2)
+        assert c.test_cfg.relation_setup.frame_interval == 1
+    with pytest.raises(SystemExit, match="at least 1"):
+        test_cli.set_window(eng, 0)
+
+
+@pytest.mark.parametrize("window", [5, 4])
+def test_window_above_the_config_matches_jax(setup, window):
+    """``test --window W`` above the tiny config's t_dim 3, odd and even:
+    both CLIs keep the head's t_dim, so the head keys the first
+    ``sampler_num·t_dim`` = 24 of the window's W·8 rows, and detect frame
+    ``(W - 1) // 2``.  The port's run holds the JAX CLI's detections at
+    the limits of ``assert_cli_matches`` with the JAX backbone maps, and
+    at W = 4 the same undetected last frames (``fill_gaps``; the
+    lockstep route is held in ``tests/test_torch_port_batched_cli.py``)."""
+    cfg, ckpt, work, _ = setup
+    want = work / f"jax_w{window}.pkl"
+    jax_cli("test", [cfg, ckpt, "--window", str(window), "--out", str(want),
+                     "--tmpdir", str(work / f"jax_w{window}")], seed=1)
+    out = work / f"port_w{window}.pkl"
+    with jax_backbone(*tiny_selsa_cfg(), JaxSelsaRCNN, ckpt):
+        run = test_cli.main(port_args(
+            cfg, ckpt, out, "--seed", "1", "--window", str(window),
+            "--tmpdir", str(work / f"port_w{window}")))
+    assert (run["runner"].window, run["runner"].key_dim) == \
+        (window, (window - 1) // 2)
+    assert run["runner"].engine.model.bbox_head.t_dim == 3
+    (got, gaps), (want, want_gaps) = fill_gaps(load(out)), fill_gaps(
+        load(want))
+    assert gaps == want_gaps and len(gaps) == (4 if window == 4 else 0)
+    assert_cli_matches(got, want, "jax")
 
 
 @pytest.fixture

@@ -601,14 +601,22 @@ def test_float64_recompute_matches_finite_differences(setup, whole_step,
 
 
 def test_selsa_trainer_needs_the_ohem_sampler(setup):
-    """The step weights the key frame's RoIs by OHEM only: a single
-    sampler in ``train_cfg.rcnn`` is refused before any work."""
+    """OHEM is the second sampler of ``train_cfg.rcnn``: a single sampler
+    trains without it (as the JAX trainer does; held against JAX in
+    ``tests/test_torch_port_image.py``), and a list of one sampler is
+    refused before any work."""
     trainer = port_trainer(setup)
     tcfg = trainer.engine.train_cfg
     trainer.engine.train_cfg = dict(tcfg, rcnn=dict(
-        tcfg["rcnn"], sampler=tcfg["rcnn"]["sampler"][0]))
-    with pytest.raises(ValueError, match="OHEM sampler"):
+        tcfg["rcnn"], sampler=tcfg["rcnn"]["sampler"][:1]))
+    with pytest.raises(ValueError, match="one sampler, or"):
         trainer.loss_from_c4(torch.zeros(3, 8, 8, 12), setup[5])
+    trainer.engine.train_cfg = dict(tcfg, rcnn=dict(
+        tcfg["rcnn"], sampler=tcfg["rcnn"]["sampler"][0]))
+    sample = setup[5]
+    loss, logs = trainer.loss_from_c4(trainer.backbone(sample), sample)
+    assert torch.isfinite(loss) and set(logs) == {
+        "loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "acc"}
 
 
 def test_train_detector_trains_selsa_and_resumes(setup, work_dir):

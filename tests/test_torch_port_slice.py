@@ -182,7 +182,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
     """With JAX, the JAX package, cv2 and PIL blocked (as on the card
     machine), every port module imports, one frame of a VID tree goes
     through the test pipeline and the stream with an injected numpy
-    decoder, and a float frame through the training transforms."""
+    decoder, a float frame through the training transforms, and an image
+    through the single-image API's pipeline (``apis.image_input``)."""
     from tests.test_vid_dataset import TEST_PIPELINE, write_xml
     root = tmp_path / "VID"
     write_xml(str(root / "Annotations" / "v" / "000000.xml"), 72, 48,
@@ -220,6 +221,12 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "    gt_bboxes=np.float32([[10, 8, 40, 32]]),\n"
             "    gt_labels=np.int64([1]), bbox_fields=['gt_bboxes']))\n"
             "assert r['img'].dtype == np.float32\n"
+            "from hvrnet_tpu_torch.apis import image_input\n"
+            "from hvrnet_tpu_torch.utils.config import Config\n"
+            "x = image_input(Config(dict(img_norm_cfg=dict(\n"
+            "    mean=[1., 2., 3.], std=[1., 1., 1.]))),\n"
+            "    np.full((30, 50, 3), 9, np.uint8))\n"
+            "assert x['img'].shape == (1, 608, 1008, 3), x['img'].shape\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          timeout=120, capture_output=True, text=True)

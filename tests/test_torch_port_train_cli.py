@@ -198,7 +198,7 @@ def test_selsa_trains_on_the_vid_det_concat(trees, work_dir):  # noqa: F811
 def test_multi_device_flags_are_refused(flag):
     config = str(Path(__file__).resolve().parents[1] / "configs"
                  / "faster_rcnn_r101_hrnmp_c5.py")
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
+    with pytest.raises(SystemExit, match="Queue 1 item 6"):
         train.parse_args([config, *flag])
     train.parse_args([config, "--n-devices", "1"])
 
