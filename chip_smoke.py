@@ -148,7 +148,20 @@ stops the script with a non-zero exit:
     its mirror valid rows; ``FasterRCNNTrainer`` and ``SelsaTrainer``
     with a single sampler through ``train_detector`` for 2 + 2 steps,
     finite losses, frozen tensors bitwise, trainable ones moved.
-17. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+17. ``[zoo]``: the multi-stage R-CNN zoo at full width on HVRNet's R101-C5
+    trunk (``zoo_configs``): Cascade R-CNN (3 ``SharedFCBBoxHead`` stages,
+    31 classes, 600×1000 on the 608×1008 canvas) and Mask R-CNN (81
+    classes, ``FCNMaskHead``, 800×1333 on 800×1344), seeded weights (the
+    heads' ``fc_cls`` / ``fc_reg`` spread so that scores clear 0.05), frozen
+    BNs calibrated on the image.  ``simple_test`` in f32 and bf16: ms per
+    image (CUDA events), stages, the host paste of the masks, peak memory;
+    the card's f32 result against the port's CPU run fed the card's trunk
+    maps (picks and labels identical, boxes, scores and mask probabilities
+    within the CPU tests' limits); the bf16 heads on the f32 pooled RoIs
+    within the bf16 budget; ``TwoStageTrainer`` through ``train_detector``
+    for 2 + 2 steps with stage times, frozen tensors bitwise and trainable
+    ones moved; no attention launch and no cv2 import on the path.
+18. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1112,7 +1125,7 @@ def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
     log(f"{tag} {engine_cls.__name__} R101-C5 training engine in "
         f"{time.time() - t0:.1f} s (seeded random weights, {n_bn} frozen "
         f"BNs calibrated on the first batch): {len(batch['imgs'])} frames, "
-        f"{head}, canvas {CANVAS}")
+        f"{head}, canvas {tuple(batch['imgs'].shape[1:3])}")
     return engine
 
 
@@ -3517,6 +3530,378 @@ def phase_image(torch, np, hvr_weights, selsa_weights):
     return runs, runs16
 
 
+# [zoo]: the multi-stage R-CNN zoo on HVRNet's R101-C5 trunk.  Cascade
+# R-CNN's stage heads and train settings are mmdetection v1.0rc1
+# configs/cascade_rcnn_r50_fpn_1x.py's, Mask R-CNN's mask branch its
+# configs/mask_rcnn_r50_fpn_1x.py's; training proposals are the C4 config's
+# (configs/faster_rcnn_r50_caffe_c4_1x.py: 12000 → 2000), since each stage
+# samples 512 RoIs.
+ZOO_STDS = ([0.1, 0.1, 0.2, 0.2], [0.05, 0.05, 0.1, 0.1],
+            [0.033, 0.033, 0.067, 0.067])
+ZOO_RCNN_TEST = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
+                     max_per_img=100)
+ZOO_RPN_PROPOSAL = dict(nms_across_levels=False, nms_pre=12000,
+                        nms_post=2000, max_num=2000, nms_thr=0.7,
+                        min_bbox_size=0)
+# content (h, w), canvas, the scale from an original image to the content
+ZOO_SIZES = {"cascade": ((600, 1000), (608, 1008), 0.78125),
+             "mask": ((800, 1333), (800, 1344), 0.625)}
+ZOO_CALLS = 3             # timed simple_test calls after one warm-up call
+ZOO_TRAIN_TIMED = 2       # timed training steps after TRAIN_WARMUP
+ZOO_HOLD_SEEDS = (0, 1, 2, 3)   # the images of the card-against-CPU hold
+# the card's f32 result against the port's CPU run on the card's trunk
+# maps: boxes and mask probabilities at the CPU tests' limits
+# (tests/test_torch_port_zoo.py); scores at 1e-5, not the CPU tests' 2e-6:
+# those heads are 32 wide with small logits, these 1024 wide with fc_cls
+# spread to std 0.5 (``zoo_spread_heads``), so their logits, and the
+# rounding by which the card's and the CPU's summation orders part them,
+# are larger.  On the H100 the four images read up to 7.75e-7 (Cascade)
+# and 1.67e-6 to 4.35e-6 (Mask R-CNN): the limit is over twice the largest
+ZOO_BOX_TOL, ZOO_SCORE_TOL, ZOO_MASK_TOL = 1e-3, 1e-5, 1e-5
+ZOO_TRAINED = ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
+               "shared_head.", "bbox_head.", "mask_head.")
+
+
+def zoo_configs(config=None):
+    """Cascade R-CNN (three ``SharedFCBBoxHead`` stages, 31 classes,
+    class-agnostic deltas) and Mask R-CNN (one ``SharedFCBBoxHead`` of 81
+    classes, ``FCNMaskHead`` on 14×14 RoIs) on HVRNet's config's trunk
+    (caffe R101 C4, the dilated stage-4 shared head, RPN at stride 16 with
+    scales 4-32, RoIAlign 7) as ``Config`` objects: the model, its
+    test_cfg (the config's rpn, ``ZOO_RCNN_TEST``), train_cfg and optimizer
+    keys."""
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(config or CONFIG)).as_dict()
+    m, test, train = cfg["model"], cfg["test_cfg"], cfg["train_cfg"]
+    trunk = {k: m[k] for k in ("backbone", "shared_head", "rpn_head",
+                                "bbox_roi_extractor")}
+
+    def head(num_classes, stds, agnostic):
+        return dict(type="SharedFCBBoxHead", num_fcs=2, in_channels=256,
+                    fc_out_channels=1024, roi_feat_size=7,
+                    num_classes=num_classes, target_means=[0.] * 4,
+                    target_stds=stds, reg_class_agnostic=agnostic)
+
+    def stage(iou, **extra):
+        return dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=iou,
+                                  neg_iou_thr=iou, min_pos_iou=iou,
+                                  ignore_iof_thr=-1),
+                    sampler=dict(type="RandomSampler", num=512,
+                                 pos_fraction=0.25, neg_pos_ub=-1,
+                                 add_gt_as_proposals=True),
+                    pos_weight=-1, debug=False, **extra)
+
+    base = {k: cfg[k] for k in ("optimizer", "optimizer_config",
+                                "lr_config", "img_norm_cfg") if k in cfg}
+    train_base = dict(rpn=train["rpn"], rpn_proposal=ZOO_RPN_PROPOSAL)
+    cascade = dict(
+        base, model=dict(type="CascadeRCNN", num_stages=3, **trunk,
+                         bbox_head=[head(31, s, True) for s in ZOO_STDS]),
+        test_cfg=dict(rpn=test["rpn"], rcnn=ZOO_RCNN_TEST),
+        train_cfg=dict(train_base, rcnn=[stage(t) for t in (0.5, 0.6, 0.7)],
+                       stage_loss_weights=[1, 0.5, 0.25]))
+    mask = dict(
+        base, model=dict(
+            type="MaskRCNN", **trunk,
+            bbox_head=head(81, ZOO_STDS[0], False),
+            mask_roi_extractor=dict(
+                type="SingleRoIExtractor",
+                roi_layer=dict(type="RoIAlign", out_size=14, sample_num=2),
+                out_channels=256, featmap_strides=[16]),
+            mask_head=dict(type="FCNMaskHead", num_convs=4, in_channels=256,
+                           conv_out_channels=256, num_classes=81)),
+        test_cfg=dict(rpn=test["rpn"],
+                      rcnn=dict(ZOO_RCNN_TEST, mask_thr_binary=0.5)),
+        train_cfg=dict(train_base, rcnn=stage(0.5, mask_size=28)))
+    return {"cascade": Config(cascade), "mask": Config(mask)}
+
+
+def zoo_image(np, name, seed=0):
+    """The model's operating size: a synthetic BGR scene of its content size
+    normalised with the config's mean onto its canvas; (img (1, H, W, 3),
+    img_shape, pad_shape, scale_factor (4,))."""
+    content, canvas, scale = ZOO_SIZES[name]
+    mean = np.array([103.06, 115.90, 123.15], np.float32)
+    img = np.zeros((1,) + canvas + (3,), np.float32)
+    img[0, :content[0], :content[1]] = synthetic_image(np, content,
+                                                       seed) - mean
+    return (img, np.array(content, np.float32), np.array(canvas, np.float32),
+            np.full(4, scale, np.float32))
+
+
+def zoo_spread_heads(torch, engine, seed=0):
+    """Every bbox head's ``fc_cls`` drawn at std 0.5 and ``fc_reg`` at 0.1
+    (seeded): at the init stds of 0.01 and 0.001 every softmax is near
+    uniform, no score clears ``score_thr`` 0.05 and no stage moves a box."""
+    gen = torch.Generator().manual_seed(seed)
+    heads = engine.model.bbox_head
+    with torch.no_grad():
+        for h in heads if isinstance(heads, torch.nn.ModuleList) else [heads]:
+            for fc, std in ((h.fc_cls, 0.5), (h.fc_reg, 0.1)):
+                fc.weight.copy_(torch.randn(fc.weight.shape, generator=gen)
+                                * std)
+
+
+def zoo_engines(torch, np, name, cfg):
+    """The f32 serving engine on seeded weights (heads spread, frozen BNs
+    calibrated on the image) and a bf16 one on the same weights, heads
+    pre-cast."""
+    from hvrnet_tpu_torch.apis import build_detector
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    t0 = time.time()
+    img, ish = zoo_image(np, name)[:2]
+    engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
+    zoo_spread_heads(torch, engine)
+    n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
+    engine16 = build_detector(cfg.model, test_cfg=cfg.test_cfg,
+                              device="cuda", dtype=torch.bfloat16)
+    engine16.load_state_dict(engine.model.state_dict())
+    engine16.cast_head_params_bf16()
+    log(f"[zoo] {type(engine).__name__} R101-C5 from {CONFIG.name}'s trunk: "
+        f"{engine.num_stages} stage(s), {engine.num_classes} classes, "
+        f"{engine.proposal_num} proposals, mask head {engine.with_mask}; "
+        f"seeded random weights, {n_bn} frozen BNs calibrated on the "
+        f"{ZOO_SIZES[name][0][1]}x{ZOO_SIZES[name][0][0]} image; f32 and bf16 "
+        f"engines in {time.time() - t0:.1f} s")
+    return engine, engine16
+
+
+def zoo_serving(torch, np, engine, name, tag):
+    """``simple_test`` on the operating-size image: one warm-up call, then
+    ZOO_CALLS timed by CUDA events with the peak memory; one more call with
+    the engine's stage timer; the host paste of the kept masks
+    (``paste_masks``).  The attention kernel's count is set to 0 before
+    the warm-up call and read after the last: no launch.  Checks finite
+    boxes, scores in [0, 1], labels and mask probabilities in range.
+    Returns (run, the output)."""
+    from hvrnet_tpu_torch.models.mask_heads import paste_masks
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    x = zoo_image(np, name)
+    masked_attention.launches = 0
+    engine.simple_test(*x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: engine.simple_test(*x), iters=ZOO_CALLS,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    engine.timer = PhaseTimer(torch)
+    out = engine.simple_test(*x)
+    stages = {k: engine.timer.mean_ms(k) for k in engine.timer.spans}
+    engine.timer = None
+    launches = masked_attention.launches
+    if launches:
+        raise RuntimeError(f"[zoo] {tag}: {launches} attention launches in "
+                           "simple_test, which has no relation head")
+    dets, labels, keep = (t.cpu().numpy() for t in out[:3])
+    kept = dets[keep]
+    ok = (np.isfinite(kept).all() and ((kept[:, 4] >= 0.05)
+                                        & (kept[:, 4] <= 1)).all()
+          and ((labels[keep] >= 0)
+               & (labels[keep] < engine.num_classes - 1)).all())
+    run = dict(ms=ms, peak_gib=peak, stages_ms=stages, kept=int(keep.sum()),
+               launches=launches)
+    if engine.with_mask:
+        probs = out[3].cpu().numpy()
+        ok = ok and probs.shape[1:] == (engine.num_classes - 1, 28, 28) \
+            and ((probs >= 0) & (probs <= 1)).all()
+        h, w = (np.array(ZOO_SIZES[name][0]) / ZOO_SIZES[name][2]).round()
+        t0 = time.perf_counter()
+        segms = paste_masks(probs[keep], kept, labels[keep], int(h), int(w),
+                            thr=0.5)
+        run["paste_ms"] = (time.perf_counter() - t0) * 1e3
+        ok = ok and sum(len(c) for c in segms) == len(kept)
+    log(f"[zoo] {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
+        f"{ZOO_SIZES[name][1]} canvas (CUDA events, mean of {ZOO_CALLS} "
+        f"after a warm-up); stages ms " + json.dumps(
+            {k: round(v, 3) for k, v in stages.items()})
+        + (f"; host paste of {len(kept)} masks into the "
+           f"{int(w)}x{int(h)} original {run['paste_ms']:.3f} ms"
+           if engine.with_mask else "")
+        + f"; peak device memory {peak:.2f} GiB; {len(kept)} detections "
+        f"kept; valid rows: {ok}; attention launches {launches}")
+    if not (ok and len(kept)):
+        raise RuntimeError(f"[zoo] {tag}: simple_test gave no or invalid "
+                           "detections")
+    return run, out
+
+
+def zoo_cpu_hold(torch, np, engine, cfg, name):
+    """The card's f32 ``simple_test`` against the port's CPU run of the same
+    engine, both fed the card's trunk maps, on each image of
+    ZOO_HOLD_SEEDS: the same NMS picks in the same rows with the same
+    labels, boxes, scores and mask probabilities within the CPU tests'
+    limits (scores at ZOO_SCORE_TOL).  Returns the worst (box, score,
+    mask) differences."""
+    from hvrnet_tpu_torch.apis import build_detector
+    cpu = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
+    cpu.load_state_dict(host_state_dict(engine))
+    real = engine.backbone_maps
+    worst = [0.0, 0.0, 0.0]
+    for seed in ZOO_HOLD_SEEDS:
+        x = zoo_image(np, name, seed)
+        maps = real(*x[:2])
+        cpu.backbone_maps = lambda img, ish: tuple(m.cpu() for m in maps)
+        engine.backbone_maps = lambda img, ish: maps
+        try:
+            got = [t.cpu() for t in engine.simple_test(*x)]
+        finally:
+            engine.backbone_maps = real
+        want = cpu.simple_test(*x)
+        keep = want[2]
+        same = torch.equal(got[2], keep) and torch.equal(got[1][keep],
+                                                         want[1][keep])
+        box = (got[0][keep, :4] - want[0][keep, :4]).abs().max().item()
+        score = (got[0][keep, 4] - want[0][keep, 4]).abs().max().item()
+        masks = ((got[3] - want[3]).abs().max().item() if engine.with_mask
+                 else 0.0)
+        worst = [max(a, b) for a, b in zip(worst, (box, score, masks))]
+        log(f"[zoo] {type(engine).__name__} f32 on the card against the "
+            f"port's CPU run on the card's trunk maps, image seed {seed}: "
+            f"{int(keep.sum())} picks and labels identical {same}; max "
+            f"|Δbox| {box:.3g} px (limit {ZOO_BOX_TOL}), max |Δscore| "
+            f"{score:.3g} ({ZOO_SCORE_TOL})"
+            + (f", max |Δmask prob| {masks:.3g} ({ZOO_MASK_TOL})"
+               if engine.with_mask else ""))
+        if not (same and keep.any() and box <= ZOO_BOX_TOL
+                and score <= ZOO_SCORE_TOL and masks <= ZOO_MASK_TOL):
+            raise RuntimeError(f"[zoo] {type(engine).__name__}, image seed "
+                               f"{seed}: the card's f32 result is not the "
+                               "CPU's")
+    log(f"[zoo] {type(engine).__name__} card against CPU over "
+        f"{len(ZOO_HOLD_SEEDS)} images: worst |Δbox| {worst[0]:.3g} px, "
+        f"|Δscore| {worst[1]:.3g}, |Δmask prob| {worst[2]:.3g}")
+    return worst
+
+
+def zoo_bf16_hold(torch, np, engine, engine16, name):
+    """Each bf16 head on the f32 engine's pooled RoIs against the f32 head,
+    stage by stage (the stages' boxes from the f32 engine), and the bf16
+    mask head on the f32 engine's pooled mask RoIs: within the bf16 budget
+    (``head_budget``; the mask logits as the cls)."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    from hvrnet_tpu_torch.engine.multi_stage import mean_scale
+    x = zoo_image(np, name)
+    worst = [0.0, 0.0]
+    with torch.no_grad(), f32_precision():
+        c5, cls_map, reg_map = engine.backbone_maps(*x[:2])
+        boxes = engine._proposals_lanes(c5, cls_map, reg_map, [x[1]],
+                                        [x[2]])[0][0]
+        for st in range(engine.num_stages):
+            rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+            pooled = engine.roi_extractor(c5, rois)
+            want = engine.model.bbox_stage(pooled, st)
+            got = engine16.model.bbox_stage(pooled, st)
+            worst = [max(a, b) for a, b in zip(worst, head_budget(got, want))]
+            if st < engine.num_stages - 1:
+                boxes = engine.refine(boxes, *want, st, x[1])
+        if engine.with_mask:
+            dets = engine.simple_test(*x)[0]
+            rois = torch.cat([torch.zeros_like(dets[:, :1]), dets[:, :4]
+                              * mean_scale(x[3])], 1)
+            pooled = engine.mask_roi_extractor(c5, rois)
+            want = engine.model.mask_head(pooled)
+            got = engine16.model.mask_head(pooled).float()
+            worst[0] = max(worst[0], (got - want).abs().max().item()
+                           / max(want.abs().max().item(), 1.0))
+    log(f"[zoo] {type(engine).__name__} bf16 heads on the f32 engine's pooled "
+        f"RoIs against the f32 heads ({engine.num_stages} stage(s)"
+        + (", the mask head" if engine.with_mask else "")
+        + f"): max |Δcls|/max(|cls|, 1) {worst[0]:.3g}, max |Δreg| "
+        f"{worst[1]:.3g} (limits {BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
+    if not (worst[0] <= BF16_CLS_BUDGET and worst[1] <= BF16_REG_BUDGET):
+        raise RuntimeError(f"[zoo] the bf16 {type(engine).__name__} heads are "
+                           "outside the bf16 budget")
+
+
+def zoo_train_batch(np, name, seed=4):
+    """One image of the model's operating size in the video layout (1
+    frame) with 4 ground truths and their masks, rectangles and ellipses."""
+    img, ish, psh, _ = zoo_image(np, name, seed)
+    h, w = ZOO_SIZES[name][1]
+    rng = np.random.default_rng(seed)
+    g = 4
+    boxes = np.zeros((1, g, 4), np.float32)
+    masks = np.zeros((1, g, h, w), np.float32)
+    yy, xx = np.mgrid[:h, :w]
+    ch, cw = ZOO_SIZES[name][0]
+    for i in range(g):
+        bw, bh = rng.uniform(0.15, 0.4) * cw, rng.uniform(0.15, 0.4) * ch
+        x0, y0 = rng.uniform(0, cw - bw), rng.uniform(0, ch - bh)
+        boxes[0, i] = [x0, y0, x0 + bw - 1, y0 + bh - 1]
+        if i % 2:
+            masks[0, i] = (((xx - x0 - bw / 2) / (bw / 2)) ** 2
+                           + ((yy - y0 - bh / 2) / (bh / 2)) ** 2) <= 1
+        else:
+            masks[0, i, int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = 1
+    n_cls = 31 if name == "cascade" else 81
+    return dict(imgs=img, gt_bboxes=boxes,
+                gt_labels=rng.integers(1, n_cls, (1, g)),
+                gt_mask=np.ones((1, g), bool), gt_masks=masks,
+                img_shape=ish[None], pad_shape=psh[None])
+
+
+def zoo_training(torch, np, name, cfg):
+    """``TwoStageTrainer`` through ``train_detector`` at full width (f32)
+    for TRAIN_WARMUP + ZOO_TRAIN_TIMED steps on one synthetic image, frozen
+    BNs calibrated on it: finite losses, no attention launch, stage times,
+    frozen tensors bitwise and trainable ones moved."""
+    import shutil
+    from hvrnet_tpu_torch.models.registry import DETECTORS
+    work_dir = ROOT / "build" / f"chip_smoke_zoo_{name}"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    batch = zoo_train_batch(np, name)
+    c = cfg.as_dict()
+    engine = calibrated_training_engine(
+        torch, DETECTORS.get(c["model"]["type"]), c, batch,
+        f"[zoo] {name} train")
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    stages = (("backbone", "rpn", "proposals")
+              + tuple(f"stage{s}" for s in range(engine.num_stages))
+              + (("mask",) if engine.with_mask else ())
+              + ("backward", "optimizer"))
+    _, summary = timed_training(torch, np, engine, batch, c, work_dir,
+                                stages, f"[zoo] {name} train", 0,
+                                timed=ZOO_TRAIN_TIMED)
+    log(f"[zoo] {type(engine).__name__} training ({CARD}): "
+        f"{summary['step_ms']:.3f} ms/step (CUDA events), peak device memory "
+        f"{summary['peak_gib']:.2f} GiB")
+    check_train_weights(torch, engine, before, f"[zoo] {name} train",
+                        tuple(p for p in ZOO_TRAINED
+                              if engine.with_mask or p != "mask_head."))
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_zoo(torch, np):
+    """The multi-stage zoo at full width (``zoo_configs``): per model, f32
+    and bf16 ``simple_test`` with times, stages, the host paste and peak
+    memory; the card's f32 result held to the port's CPU run on the card's
+    maps; the bf16 heads held to the f32 ones; ``TwoStageTrainer`` steps;
+    no cv2 on the path.  Returns the runs, each with its attention
+    launches (0: the zoo has no relation head), counted and checked by
+    ``zoo_serving`` and ``timed_training``."""
+    runs = {}
+    for name, cfg in zoo_configs().items():
+        engine, engine16 = zoo_engines(torch, np, name, cfg)
+        for eng in (engine, engine16):
+            tag = f"{type(eng).__name__} {str(eng.dtype)[6:]}"
+            runs[f"zoo {name} {str(eng.dtype)[6:]}"] = zoo_serving(
+                torch, np, eng, name, tag)[0]
+        runs[f"zoo {name} float32"]["cpu_hold"] = zoo_cpu_hold(
+            torch, np, engine, cfg, name)
+        zoo_bf16_hold(torch, np, engine, engine16, name)
+        del engine, engine16
+        torch.cuda.empty_cache()
+        runs[f"zoo {name} train"] = zoo_training(torch, np, name, cfg)
+    if "cv2" in sys.modules:
+        raise RuntimeError("[zoo] the zoo's path imported cv2")
+    log("[zoo] no attention launch in any serving or training run and no "
+        "cv2 import on the zoo's path")
+    return runs
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -3605,7 +3990,8 @@ def route_summary(cases, runs, dtype):
              "detection and 2 per SELSA one; multipass: hnl_test --window "
              "63 --multi-pass 3 over the 40-frame video, 3 per detection, "
              "beside the exact ring's 4; trace: test --trace --timing over "
-             "8 frames, 4 per detection)",
+             "8 frames, 4 per detection; zoo: Cascade and Mask R-CNN "
+             "serving and training, 0: no relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -3665,6 +4051,8 @@ def main() -> int:
     lap("[trace]")
     image, image16 = phase_image(torch, np, hvr_weights, selsa_weights)
     lap("[image]")
+    zoo = phase_zoo(torch, np)
+    lap("[zoo]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -3694,11 +4082,13 @@ def main() -> int:
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
-            **multipass, "trace": traced, **image}
+            **multipass, "trace": traced, **image,
+            **{k: v for k, v in zoo.items() if "bfloat16" not in k}}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
-              **multipass16, **image16}
+              **multipass16, **image16,
+              **{k: v for k, v in zoo.items() if "bfloat16" in k}}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

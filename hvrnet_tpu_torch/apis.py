@@ -17,11 +17,14 @@ either way); the config's ``fp16`` and ``optimizer.paramwise_options``
 keys reach the trainer.  The engine's type picks the trainer:
 ``HNMBRCNN`` and ``HNLRCNN`` → ``HNMBTrainer``, ``SelsaRCNN`` →
 ``SelsaTrainer``, ``FasterRCNN`` and ``FastRCNN`` →
-``FasterRCNNTrainer`` (whose samples may also be still images: ``img``
-(H, W, 3), ``gt_bboxes`` (G, 4), ``gt_labels`` and ``gt_mask`` (G,),
-``img_shape`` and ``pad_shape`` (2,)).  ``data`` is a training dataset
-(``data/vid_dataset.py``; ``engine/stream.py:train_batch_iterator``
-makes its samples) or a list of
+``FasterRCNNTrainer``, the multi-stage zoo (``CascadeRCNN``,
+``MaskRCNN``, ``HybridTaskCascade``, ``MaskScoringRCNN``, ``GridRCNN``,
+``DoubleHeadRCNN``) → ``TwoStageTrainer``.  The still-image trainers'
+samples may also be still images: ``img`` (H, W, 3), ``gt_bboxes`` (G,
+4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape`` and ``pad_shape``
+(2,), and for a mask head ``gt_masks`` (G, H, W).  ``data`` is a
+training dataset (``data/vid_dataset.py``;
+``engine/stream.py:train_batch_iterator`` makes its samples) or a list of
 ``collate_train`` samples: ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
 (F, G), ``gt_mask`` (F, G), ``img_shape`` and ``pad_shape`` (F, 2); for
@@ -45,9 +48,11 @@ import torch
 from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
 from .engine.detector import FasterRCNN, HNMBRCNN, SelsaRCNN
+from .engine.multi_stage import MultiStageEngine
 from .engine.stream import train_batch_iterator
 from .engine.train import (FasterRCNNTrainer, HNMBTrainer, SelsaTrainer,
                            still_image)
+from .engine.train_two_stage import TwoStageTrainer
 from .models.registry import DETECTORS
 from .utils.checkpoint import (load_checkpoint, resolve_checkpoint,
                                save_checkpoint)
@@ -60,7 +65,8 @@ def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    dtype: torch.dtype = torch.float32, device="cuda",
                    seed: int = 0):
     """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN``,
-    ``SelsaRCNN``, ``FasterRCNN`` or ``FastRCNN``) computing in ``dtype``,
+    ``SelsaRCNN``, ``FasterRCNN``, ``FastRCNN`` or a multi-stage zoo
+    engine, ``engine/multi_stage.py``) computing in ``dtype``,
     with seeded random weights: a serving engine with a ``test_cfg``, a
     training engine with a ``train_cfg``."""
     model_cfg = unwrap(model_cfg)
@@ -154,6 +160,8 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         trainer_cls = SelsaTrainer
     elif isinstance(engine, FasterRCNN):
         trainer_cls = FasterRCNNTrainer
+    elif isinstance(engine, MultiStageEngine):
+        trainer_cls = TwoStageTrainer
     else:
         raise NotImplementedError(f"no port trainer for "
                                   f"{type(engine).__name__}")
@@ -286,7 +294,13 @@ def detect_image(engine, x: Dict[str, Any]):
     ``window_detect``) detects the frame broadcast over its window of
     ``engine.window`` frames (on HVRNet the final branch); ``FasterRCNN``
     runs ``simple_test``.  Returns (dets (max, 5) in original-image
-    coordinates, labels (max,), mask (max,)) on the engine's device."""
+    coordinates, labels (max,), mask (max,)) on the engine's device.  A
+    multi-stage engine raises ``ValueError`` (the JAX API cannot run it
+    either): call its ``simple_test``."""
+    if isinstance(engine, MultiStageEngine):
+        raise ValueError(f"inference_detector does not run the multi-stage "
+                         f"engine {type(engine).__name__}: call its "
+                         f"simple_test on an image_input")
     if not hasattr(engine, "window_detect"):
         return engine.simple_test(x["img"], x["img_shape"], x["pad_shape"],
                                   x["scale_factor"])

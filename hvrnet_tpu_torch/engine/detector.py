@@ -90,13 +90,18 @@ def f32_precision():
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Random weights from a seed, with the JAX package's init scheme:
-    He-normal convolutions, normal(0, 0.01) dense layers (a layer's
+    He-normal convolutions (a transposed one's fan-in is its input
+    channels × its kernel area), normal(0, 0.01) dense layers (a layer's
     ``init_std`` where it has one) and RPN convs, zero biases, identity
     frozen BNs."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, torch.nn.Conv2d):
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / fan_in) ** 0.5)
+            elif isinstance(m, torch.nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 std = (0.01 if name.startswith("rpn_head")
                        or "linear_out" in name else (2.0 / fan_in) ** 0.5)
@@ -109,8 +114,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                 for buf, val in (("weight", 1.0), ("bias", 0.0),
                                  ("running_mean", 0.0), ("running_var", 1.0)):
                     getattr(m, buf).fill_(val)
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) and \
-                    m.bias is not None:
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                              torch.nn.Linear)) and m.bias is not None:
                 m.bias.zero_()
 
 
@@ -187,18 +192,16 @@ class BaseEngine:
         model_cfg = unwrap(model_cfg)
         self.test_cfg = unwrap(test_cfg) if test_cfg else None
         self.train_cfg = unwrap(train_cfg) if train_cfg else None
-        bh = dict(model_cfg["bbox_head"])
-        if self.test_cfg is not None and "bbox_head" in self.test_cfg:
-            bh["t_dim"] = int(self.test_cfg["bbox_head"]["t_dim"])
-            bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
-        self.model_cfg = model_cfg = dict(model_cfg, bbox_head=bh)
+        self.model_cfg = model_cfg = self._head_config(model_cfg)
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.model = build_model_module(model_cfg, dtype).eval()
+        self.model = self._build_model(model_cfg, dtype).eval()
         init_weights(self.model, seed)
         self.model.to(self.device)
         self.roi_extractor = build_roi_extractor(
             model_cfg["bbox_roi_extractor"])
+        heads = model_cfg["bbox_head"]
+        bh = heads[-1] if isinstance(heads, (list, tuple)) else heads
         self.num_classes = int(bh["num_classes"])
         self.target_means = tuple(bh.get("target_means", (0., 0., 0., 0.)))
         self.target_stds = tuple(bh.get("target_stds", (0.1, 0.1, 0.2, 0.2)))
@@ -216,6 +219,18 @@ class BaseEngine:
                              std=(1.0, 1.0, 1.0))
         self._canvases: Dict[tuple, Canvas] = {}
 
+    def _head_config(self, model_cfg: Dict[str, Any]) -> Dict[str, Any]:
+        """The model config with the test config's ``bbox_head`` t_dim and
+        sampler_num, where it has one."""
+        bh = dict(model_cfg["bbox_head"])
+        if self.test_cfg is not None and "bbox_head" in self.test_cfg:
+            bh["t_dim"] = int(self.test_cfg["bbox_head"]["t_dim"])
+            bh["sampler_num"] = int(self.test_cfg["bbox_head"]["sampler_num"])
+        return dict(model_cfg, bbox_head=bh)
+
+    def _build_model(self, model_cfg, dtype) -> torch.nn.Module:
+        return build_model_module(model_cfg, dtype)
+
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load mmdet-named weights (a reference checkpoint's ``state_dict``
         or ``utils.weights.state_dict_from_jax``), all keys required."""
@@ -223,16 +238,19 @@ class BaseEngine:
 
     @torch.no_grad()
     def cast_head_params_bf16(self) -> None:
-        """Store the bbox head's weights of rank ≥ 2 in bf16, for inference:
-        a bf16 head would otherwise cast them at every call (fc_new_1 alone
-        is 205 MB per frame).  The same cast done once, so bit for bit the
-        same outputs; biases and the backbone keep float32.  A no-op on a
-        float32 engine; a training engine must not call it."""
+        """Store the bbox head's (and a mask head's) weights of rank ≥ 2 in
+        bf16, for inference: a bf16 head would otherwise cast them at every
+        call (fc_new_1 alone is 205 MB per frame).  The same cast done
+        once, so bit for bit the same outputs; biases and the backbone keep
+        float32.  A no-op on a float32 engine; a training engine must not
+        call it."""
         if self.dtype != torch.bfloat16:
             return
-        for p in self.model.bbox_head.parameters():
-            if p.dtype == torch.float32 and p.ndim >= 2:
-                p.data = p.data.to(torch.bfloat16)
+        for head in (self.model.bbox_head,
+                     getattr(self.model, "mask_head", None)):
+            for p in () if head is None else head.parameters():
+                if p.dtype == torch.float32 and p.ndim >= 2:
+                    p.data = p.data.to(torch.bfloat16)
 
     def _canvas(self, h: int, w: int) -> Canvas:
         key = (h, w)

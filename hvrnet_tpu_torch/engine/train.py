@@ -109,6 +109,7 @@ class BaseTrainer:
         self.scale_state = (self.loss_scale.init(engine.device)
                             if self.loss_scale else None)
         bh = engine.model_cfg["bbox_head"]
+        bh = bh[-1] if isinstance(bh, (list, tuple)) else bh
         # the head's smooth-L1 β (the RPN's is 1/9, as in the reference)
         self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
         self.step = 0
@@ -298,15 +299,36 @@ class SelsaTrainer(BaseTrainer):
 def still_image(sample: Dict[str, Any]) -> Dict[str, Any]:
     """A sample in the still-image layout: ``imgs`` (1, H, W, 3),
     ``gt_bboxes`` (G, 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape``
-    and ``pad_shape`` (2,).  From the still-image layout (``img`` (H, W, 3)
-    or (1, H, W, 3)) or the video layout (``imgs`` (F, H, W, 3): frame
-    0)."""
-    keys = ("gt_bboxes", "gt_labels", "gt_mask", "img_shape", "pad_shape")
+    and ``pad_shape`` (2,), and ``gt_masks`` (G, H, W) where the sample has
+    them.  From the still-image layout (``img`` (H, W, 3) or (1, H, W, 3))
+    or the video layout (``imgs`` (F, H, W, 3): frame 0)."""
+    keys = [k for k in ("gt_bboxes", "gt_labels", "gt_mask", "img_shape",
+                        "pad_shape", "gt_masks") if k in sample]
     if "img" in sample:
         img = sample["img"]
         return dict(imgs=img[None] if img.ndim == 3 else img,
                     **{k: sample[k] for k in keys})
     return dict(imgs=sample["imgs"][:1], **{k: sample[k][0] for k in keys})
+
+
+def rcnn_losses(cls: torch.Tensor, reg: torch.Tensor, sr, agnostic: bool,
+                beta: float):
+    """One RCNN stage's losses on its sampled RoIs (float32 ``cls`` and
+    ``reg``): softmax cross entropy at the label weights and the labelled
+    class's smooth-L1 (the one set of deltas when ``agnostic``) at the box
+    weights, both divided by the count of weighted RoIs; and the accuracy
+    over them.  Returns (loss_cls, loss_bbox, acc)."""
+    lw = sr.label_weights
+    navg = (lw > 0).sum().float().clamp_min(1.0)
+    loss_cls = (softmax_cross_entropy(cls, sr.labels) * lw).sum() / navg
+    reg = reg.reshape(reg.shape[0], -1, 4)
+    if not agnostic:
+        reg = torch.gather(reg, 1, sr.labels.clamp_min(0)[
+            :, None, None].expand(-1, 1, 4))
+    loss_bbox = (smooth_l1(reg[:, 0], sr.bbox_targets, beta)
+                 * sr.bbox_weights).sum() / navg
+    return loss_cls, loss_bbox, accuracy(cls.detach(), sr.labels,
+                                         mask=lw > 0)
 
 
 class FasterRCNNTrainer(BaseTrainer):
@@ -333,24 +355,39 @@ class FasterRCNNTrainer(BaseTrainer):
         step's ``split(rng, 2)`` draws; from the trainer's generator when
         absent."""
         eng = self.engine
-        model = eng.model
-        tcfg = eng.train_cfg
-        rcnn = tcfg["rcnn"]
+        rcnn = eng.train_cfg["rcnn"]
         rcnn = rcnn[0] if isinstance(rcnn, (list, tuple)) else rcnn
-        assigner, samp = rcnn["assigner"], rcnn["sampler"]
-        samp = samp[0] if isinstance(samp, (list, tuple)) else samp
         agnostic = eng.model_cfg["bbox_head"].get("reg_class_agnostic", False)
         s = still_image(sample)
+        anchor_noise, roi_noise = noise or ((None, None), (None, None))
+        logs, boxes, pmask, gt = self.image_rpn(c4, s, anchor_noise)
+        with self._phase("head"):
+            c5 = eng.model.shared(c4)
+            losses = self.rcnn_stage(c5, boxes, pmask, gt, rcnn,
+                                     eng.target_means, eng.target_stds,
+                                     roi_noise, eng.model.bbox_forward,
+                                     agnostic, self.loss_beta)[3]
+            logs["loss_cls"], logs["loss_bbox"], logs["acc"] = losses
+        return (logs["loss_rpn_cls"] + logs["loss_rpn_bbox"]
+                + logs["loss_cls"] + logs["loss_bbox"]), logs
+
+    def image_rpn(self, c4, s, anchor_noise):
+        """The RPN's loss on one still image ``s`` (``still_image``) and its
+        ``train_cfg.rpn_proposal`` proposals from the detached maps:
+        (logs with ``loss_rpn_cls`` and ``loss_rpn_bbox``, boxes (P, 4),
+        mask (P,), the ground truth as device tensors with ``img_shape``)."""
+        eng = self.engine
+        tcfg = eng.train_cfg
         stride = eng.anchor_stride
         canvas = eng._canvas(c4.shape[2] * stride, c4.shape[3] * stride)
         img_shape = np.asarray(s["img_shape"])
         pad_shape = np.asarray(s["pad_shape"])
         gt = {k: torch.as_tensor(np.asarray(s[k]), device=eng.device)
               for k in ("gt_bboxes", "gt_labels", "gt_mask")}
-        (apos, aneg), (rpos, rneg) = noise or ((None, None), (None, None))
-
+        gt["img_shape"] = img_shape
+        apos, aneg = anchor_noise
         with self._phase("rpn"):
-            cls_map, reg_map = model.rpn(c4)
+            cls_map, reg_map = eng.model.rpn(c4)
             tgt = anchor_target_single(
                 canvas.anchors, canvas.anchor_valid(pad_shape),
                 gt["gt_bboxes"], gt["gt_mask"], img_shape, tcfg["rpn"],
@@ -358,43 +395,44 @@ class FasterRCNNTrainer(BaseTrainer):
                 generator=self.generator)
             loss_rpn_cls, loss_rpn_bbox = _rpn_loss(cls_map[0], reg_map[0],
                                                     tgt)
-
         with self._phase("proposals"), torch.no_grad():
             boxes, _, pmask = _rpn_proposals(
                 cls_map[0], reg_map[0], canvas, pad_shape, img_shape,
                 tcfg["rpn_proposal"], eng.rpn_means, eng.rpn_stds)
-            sr = random_sample_and_target(
-                boxes, pmask, gt["gt_bboxes"], gt["gt_mask"],
-                gt["gt_labels"], num=int(samp["num"]),
-                pos_fraction=float(samp["pos_fraction"]),
-                add_gt_as_proposals=bool(samp.get("add_gt_as_proposals",
-                                                  True)),
-                pos_iou_thr=float(assigner["pos_iou_thr"]),
-                neg_iou_thr=float(assigner["neg_iou_thr"]),
-                min_pos_iou=float(assigner["min_pos_iou"]),
-                target_means=eng.target_means, target_stds=eng.target_stds,
-                pos_weight=float(rcnn.get("pos_weight", -1)),
-                pos_noise=rpos, neg_noise=rneg, generator=self.generator)
+        return (dict(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox),
+                boxes, pmask, gt)
 
-        with self._phase("head"):
-            c5 = model.shared(c4)
-            rois = torch.cat([torch.zeros_like(sr.rois[:, :1]), sr.rois], 1)
-            cls, reg = model.bbox_forward(eng.roi_extractor(c5, rois))
-            cls, reg = widen(cls), widen(reg)
-            lw = sr.label_weights
-            navg = (lw > 0).sum().float().clamp_min(1.0)
-            loss_cls = (softmax_cross_entropy(cls, sr.labels) * lw).sum() \
-                / navg
-            reg = reg.reshape(reg.shape[0], -1, 4)
-            if not agnostic:
-                reg = torch.gather(reg, 1, sr.labels.clamp_min(0)[
-                    :, None, None].expand(-1, 1, 4))
-            loss_bbox = (smooth_l1(reg[:, 0], sr.bbox_targets, self.loss_beta)
-                         * sr.bbox_weights).sum() / navg
-            logs = dict(loss_rpn_cls=loss_rpn_cls, loss_rpn_bbox=loss_rpn_bbox,
-                        loss_cls=loss_cls, loss_bbox=loss_bbox,
-                        acc=accuracy(cls.detach(), sr.labels, mask=lw > 0))
-        return loss_rpn_cls + loss_rpn_bbox + loss_cls + loss_bbox, logs
+    def rcnn_stage(self, c5, boxes, pmask, gt, rcnn, means, stds, noise,
+                   head, agnostic, beta):
+        """One RCNN stage on the shared head's map ``c5``: the assignment
+        and sample of the (P, 4) ``boxes`` (``sample_rois``), RoIAlign,
+        ``head`` on the pooled RoIs and the stage's losses
+        (``rcnn_losses``).  Returns (sample, cls, reg, (loss_cls,
+        loss_bbox, acc)), ``cls`` and ``reg`` in float32."""
+        with torch.no_grad():
+            sr = self.sample_rois(boxes, pmask, gt, rcnn, means, stds, noise)
+        rois = torch.cat([torch.zeros_like(sr.rois[:, :1]), sr.rois], 1)
+        cls, reg = head(self.engine.roi_extractor(c5, rois))
+        cls, reg = widen(cls), widen(reg)
+        return sr, cls, reg, rcnn_losses(cls, reg, sr, agnostic, beta)
+
+    def sample_rois(self, boxes, pmask, gt, rcnn, means, stds, noise):
+        """One RCNN stage's assignment and sample (``rcnn``: its assigner,
+        its first sampler, ``pos_weight``) of (P, 4) boxes against the
+        image's ground truth, with the stage's target means and stds;
+        ``noise`` (pos, neg) over the G + P candidates or (None, None)."""
+        assigner, samp = rcnn["assigner"], rcnn["sampler"]
+        samp = samp[0] if isinstance(samp, (list, tuple)) else samp
+        return random_sample_and_target(
+            boxes, pmask, gt["gt_bboxes"], gt["gt_mask"], gt["gt_labels"],
+            num=int(samp["num"]), pos_fraction=float(samp["pos_fraction"]),
+            add_gt_as_proposals=bool(samp.get("add_gt_as_proposals", True)),
+            pos_iou_thr=float(assigner["pos_iou_thr"]),
+            neg_iou_thr=float(assigner["neg_iou_thr"]),
+            min_pos_iou=float(assigner["min_pos_iou"]),
+            target_means=means, target_stds=stds,
+            pos_weight=float(rcnn.get("pos_weight", -1)),
+            pos_noise=noise[0], neg_noise=noise[1], generator=self.generator)
 
 
 class HNMBTrainer(BaseTrainer):

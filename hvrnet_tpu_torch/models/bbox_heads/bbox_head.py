@@ -41,6 +41,9 @@ class BBoxHead(nn.Module):
         self.fc_cls = Linear(in_dim, num_classes, compute_dtype=dtype)
         self.fc_reg = Linear(in_dim, out_reg, compute_dtype=dtype)
         self.fc_reg.init_std = 0.001
+        # the dense layers over the flattened RoI map (utils/weights.py)
+        self.flat_map_fcs = frozenset() if with_avg_pool else frozenset(
+            {"fc_cls", "fc_reg"})
 
     def forward(self, x: torch.Tensor, *unused):
         """(N, C, 7, 7) → (cls (N, num_classes), reg (N, 4·k)).  Further

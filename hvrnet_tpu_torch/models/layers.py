@@ -50,6 +50,25 @@ class Linear(nn.Linear):
         return F.linear(to_compute(x, dt), to_compute(self.weight, dt), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that casts its input, weight and bias to
+    ``compute_dtype`` at the call."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else to_compute(self.bias, dt)
+        return F.conv_transpose2d(to_compute(x, dt),
+                                  to_compute(self.weight, dt), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class FrozenBN(nn.Module):
     """BatchNorm with frozen statistics and affine params (inference form):
     ``scale = γ·rsqrt(var + eps)``, ``bias = β − mean·scale``, computed in
@@ -81,16 +100,35 @@ class FrozenBN(nn.Module):
 
 class ConvModule(nn.Module):
     """mmdet ConvModule default: conv(+bias) → ReLU, no norm (the shared
-    head's ``external_conv``; its parameters live under ``.conv``)."""
+    head's ``external_conv``, the mask head's convs; its parameters live
+    under ``.conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 1, dtype: torch.dtype = torch.float32):
+                 kernel_size: int = 1, dtype: torch.dtype = torch.float32,
+                 padding: int = 0):
         super().__init__()
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
-                           compute_dtype=dtype)
+                           padding=padding, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.conv(x))
+
+
+class ConvBN(nn.Module):
+    """conv (no bias) → frozen BN → ReLU (counterpart of
+    ``hvrnet_tpu/models/layers.py:ConvBN``; mmdet's ConvModule with a norm,
+    whose parameters live under ``.conv`` and ``.bn``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, padding: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           padding=padding, bias=False, compute_dtype=dtype)
+        self.bn = FrozenBN(out_channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x)))
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

@@ -4,3 +4,4 @@ BACKBONES = Registry("backbone")
 SHARED_HEADS = Registry("shared_head")
 HEADS = Registry("head")
 DETECTORS = Registry("detector")
+LOSSES = Registry("loss")

@@ -4,8 +4,10 @@
 The C5 configuration both shipped configs use: ``feat_from_shared_head``
 moves the dilated stage 4 and its 1×1→256 conv before RoI pooling.  A
 config without a ``shared_head`` pools C4 itself (``shared`` is then the
-identity), as the JAX module allows.  The submodule names (``backbone``, ``shared_head``, ``rpn_head``, ``bbox_head``)
-are mmdet's, so the module's ``state_dict`` is a reference checkpoint's.
+identity), as the JAX module allows.  The submodule names (``backbone``,
+``shared_head``, ``rpn_head``, ``bbox_head``) are mmdet's, so the
+module's ``state_dict`` is a reference checkpoint's; a ``bbox_head`` list
+builds one head per stage, ``bbox_head.{i}`` as in mmdet's cascade.
 Every submodule computes in the module's ``dtype`` (float32 parameters).
 """
 from __future__ import annotations
@@ -46,7 +48,11 @@ class TwoStageModule(nn.Module):
         self.shared_head = (build_submodule(shared_head, SHARED_HEADS, dtype)
                             if shared_head else None)
         self.rpn_head = build_submodule(rpn_head, HEADS, dtype)
-        self.bbox_head = build_submodule(bbox_head, HEADS, dtype)
+        # a list of per-stage heads is mmdet's cascade: bbox_head.{i}.*
+        self.bbox_head = (
+            nn.ModuleList(build_submodule(h, HEADS, dtype) for h in bbox_head)
+            if isinstance(bbox_head, (list, tuple))
+            else build_submodule(bbox_head, HEADS, dtype))
 
     def extract_feat(self, img):
         """(B, 3, H, W) → C4 (B, 1024, H/16, W/16)."""
@@ -65,3 +71,10 @@ class TwoStageModule(nn.Module):
         """The bbox head on (N, C, 7, 7) pooled RoIs; a relation head also
         takes its row range and key mask in ``args``."""
         return self.bbox_head(pooled, *args)
+
+    def bbox_stage(self, pooled, stage: int):
+        """Stage ``stage``'s bbox head on (N, C, 7, 7) pooled RoIs (the one
+        head where there is no list)."""
+        heads = self.bbox_head
+        return (heads[stage] if isinstance(heads, nn.ModuleList)
+                else heads)(pooled)

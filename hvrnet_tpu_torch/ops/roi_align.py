@@ -33,12 +33,11 @@ import torch
 from ..core.precision import widen
 
 
-def _axis_weights(start: torch.Tensor, bin_size: torch.Tensor, dim: int,
-                  out_size: int, sample_num: int,
-                  offset=None, width=None) -> torch.Tensor:
-    """(R, out_size, width) per-axis sampling matrix, sample mean folded
-    in; the taps of RoI r sit at ``offset[r]`` + their index along an axis of
-    ``width`` (default: no offset, width ``dim``)."""
+def _axis_taps(start: torch.Tensor, bin_size: torch.Tensor, dim: int,
+               out_size: int, sample_num: int):
+    """The bilinear taps of each RoI's sample positions along one axis,
+    with the kernel's edge rules: (low, high, frac, inside), each (R,
+    out_size·sample_num)."""
     dev = start.device
     ph = torch.arange(out_size, dtype=torch.float32, device=dev)
     iy = (torch.arange(sample_num, dtype=torch.float32, device=dev) + 0.5) \
@@ -52,13 +51,72 @@ def _axis_weights(start: torch.Tensor, bin_size: torch.Tensor, dim: int,
     low = torch.where(at_edge, torch.full_like(low, dim - 1), low)
     high = torch.where(at_edge, low, low + 1)
     frac = torch.where(at_edge, torch.zeros_like(v), v - low.float())
+    return low, high, frac, inside
+
+
+def _axis_weights(start: torch.Tensor, bin_size: torch.Tensor, dim: int,
+                  out_size: int, sample_num: int,
+                  offset=None, width=None) -> torch.Tensor:
+    """(R, out_size, width) per-axis sampling matrix, sample mean folded
+    in; the taps of RoI r sit at ``offset[r]`` + their index along an axis of
+    ``width`` (default: no offset, width ``dim``)."""
+    low, high, frac, inside = _axis_taps(start, bin_size, dim, out_size,
+                                         sample_num)
     if offset is not None:
         low, high = low + offset[:, None], high + offset[:, None]
-    ar = torch.arange(dim if width is None else width, device=dev)
+    ar = torch.arange(dim if width is None else width, device=start.device)
     w = ((1.0 - frac)[..., None] * (ar == low[..., None])
          + frac[..., None] * (ar == high[..., None]))
     w = w * inside[..., None]                                # (R, s·sn, width)
     return w.reshape(w.shape[0], out_size, sample_num, -1).mean(dim=2)
+
+
+def _roi_extent(rois: torch.Tensor, spatial_scale: float, out_size: int):
+    """(start_w, start_h, bin_w, bin_h) of (R, 5) RoIs: the +1 pixel end, no
+    half-pixel start."""
+    rois = rois.detach().float()
+    start_w = rois[:, 1] * spatial_scale
+    start_h = rois[:, 2] * spatial_scale
+    bin_w = ((rois[:, 3] + 1.0) * spatial_scale - start_w).clamp_min(0.0) \
+        / out_size
+    bin_h = ((rois[:, 4] + 1.0) * spatial_scale - start_h).clamp_min(0.0) \
+        / out_size
+    return start_w, start_h, bin_w, bin_h
+
+
+def roi_align_gather(raster: torch.Tensor, rois: torch.Tensor,
+                     out_size: int, spatial_scale: float = 1.0,
+                     sample_num: int = 2) -> torch.Tensor:
+    """RoIAlign of one-channel (B, H, W) rasters in the JAX package's gather
+    form (its several-image branch), the same arithmetic in the same order:
+    per sample the four taps' weighted sum, then the mean of a bin's
+    samples, summed in row-major order.  A RoI reads the raster of its
+    index; the work is the RoIs' taps, not the rasters' size, so it pools
+    (G, H, W) image-size masks cheaply.  Returns (R, out_size, out_size)
+    float32."""
+    B, H, W = raster.shape
+    R, s, sn = rois.shape[0], out_size, sample_num
+    start_w, start_h, bin_w, bin_h = _roi_extent(rois, spatial_scale, s)
+    y_lo, y_hi, ly, y_in = _axis_taps(start_h, bin_h, H, s, sn)
+    x_lo, x_hi, lx, x_in = _axis_taps(start_w, bin_w, W, s, sn)
+    hy, hx = 1.0 - ly, 1.0 - lx
+    flat = raster.float().reshape(-1)
+    base = (rois[:, 0].long() * (H * W))[:, None, None]
+
+    def tap(yi, xi):
+        return flat[base + yi[:, :, None] * W + xi[:, None, :]]
+
+    val = (hy[:, :, None] * hx[:, None, :] * tap(y_lo, x_lo)
+           + hy[:, :, None] * lx[:, None, :] * tap(y_lo, x_hi)
+           + ly[:, :, None] * hx[:, None, :] * tap(y_hi, x_lo)
+           + ly[:, :, None] * lx[:, None, :] * tap(y_hi, x_hi))
+    val = (val * (y_in[:, :, None] & x_in[:, None, :])).reshape(
+        R, s, sn, s, sn)
+    total = torch.zeros(R, s, s, device=raster.device)
+    for iy in range(sn):
+        for ix in range(sn):
+            total = total + val[:, :, iy, :, ix]
+    return total / (sn * sn)
 
 
 def roi_align(feats: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
@@ -79,11 +137,7 @@ def roi_align(feats: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
         feats = widen(feats)
     R = rois.shape[0]
     s = out_size
-    rois = rois.detach().float()
-    start_w = rois[:, 1] * spatial_scale
-    start_h = rois[:, 2] * spatial_scale
-    bin_w = ((rois[:, 3] + 1.0) * spatial_scale - start_w).clamp_min(0.0) / s
-    bin_h = ((rois[:, 4] + 1.0) * spatial_scale - start_h).clamp_min(0.0) / s
+    start_w, start_h, bin_w, bin_h = _roi_extent(rois, spatial_scale, s)
     wy = _axis_weights(start_h, bin_h, H, s, sample_num,
                        rois[:, 0].long() * H, B * H).to(feats.dtype)
     wx = _axis_weights(start_w, bin_w, W, s, sample_num).to(feats.dtype)

@@ -636,8 +636,10 @@ def _jax_step(setup, key, batch):
     sample = jax.tree_util.tree_map(lambda x: jnp.asarray(x[0]), batch)
     (loss, logs), grads = jax.value_and_grad(loss_fn, has_aux=True)(
         params, sample, key)
-    upd, _ = trainer.tx.update(grads, state.opt_state, params)
-    after = optax.apply_updates(params, upd)
+    # the update is elementwise but for the global norm, so jitting it
+    # changes nothing the test holds (eagerly it is seconds of dispatch)
+    upd, _ = jax.jit(trainer.tx.update)(grads, state.opt_state, params)
+    after = jax.jit(optax.apply_updates)(params, upd)
     c4 = jeng.module.apply(params, sample["imgs"],
                            method=jeng.module.extract_feat)
     return (dict(jax.device_get(logs), loss=float(loss)),
