@@ -160,7 +160,19 @@ stops the script with a non-zero exit:
     within the CPU tests' limits); the bf16 heads on the f32 pooled RoIs
     within the bf16 budget; ``TwoStageTrainer`` through ``train_detector``
     for 2 + 2 steps with stage times, frozen tensors bitwise and trainable
-    ones moved; no attention launch and no cv2 import on the path.
+    ones moved; no attention launch and no cv2 import on the path.  Hybrid
+    Task Cascade R50-FPN (``htc_config``: mmdetection v1.0rc1's
+    htc_r50_fpn_1x, the pytorch-style ResNet-50 over 4 stages, FPN, the
+    semantic branch, 3 stages with per-stage ``HTCMaskHead``s; 800×1333 on
+    800×1344, 1000 proposals, score_thr 0.001) the same way, its stage
+    heads drawn for the image (``zoo_scale_heads``): the stages' times
+    (backbone + FPN, semantic, proposals, 3 stages, decode, the mask
+    RoIs, 3 mask heads), the card's FPN outputs against the CPU's and its
+    detections against the CPU run fed the card's FPN maps and semantic
+    embedding (HTC's masks at ``ZOO_MASK_TOLS``), bf16 against f32 by
+    depth (semantic head, each stage, each mask head), training on an
+    image with a stride-8 ``gt_semantic_seg``: the neck, the semantic
+    head and ``mask_head.2`` move.
 18. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
@@ -1108,7 +1120,8 @@ def timed_training(torch, np, engine, batch, cfg, work_dir, stages, tag,
                          stages_ms=mean, peak_gib=peak)
 
 
-def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
+def calibrated_training_engine(torch, engine_cls, cfg, batch, tag,
+                               trunk="R101-C5"):
     """A training engine on seeded random weights with its frozen BNs
     calibrated on the batch's first (up to) four frames."""
     from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
@@ -1122,7 +1135,7 @@ def calibrated_training_engine(torch, engine_cls, cfg, batch, tag):
     bh = engine.model.bbox_head
     head = (f"head sampler_num {bh.sampler_num}, t_dim {bh.t_dim}"
             if hasattr(bh, "t_dim") else f"head {type(bh).__name__}")
-    log(f"{tag} {engine_cls.__name__} R101-C5 training engine in "
+    log(f"{tag} {engine_cls.__name__} {trunk} training engine in "
         f"{time.time() - t0:.1f} s (seeded random weights, {n_bn} frozen "
         f"BNs calibrated on the first batch): {len(batch['imgs'])} frames, "
         f"{head}, canvas {tuple(batch['imgs'].shape[1:3])}")
@@ -3530,12 +3543,13 @@ def phase_image(torch, np, hvr_weights, selsa_weights):
     return runs, runs16
 
 
-# [zoo]: the multi-stage R-CNN zoo on HVRNet's R101-C5 trunk.  Cascade
-# R-CNN's stage heads and train settings are mmdetection v1.0rc1
-# configs/cascade_rcnn_r50_fpn_1x.py's, Mask R-CNN's mask branch its
-# configs/mask_rcnn_r50_fpn_1x.py's; training proposals are the C4 config's
-# (configs/faster_rcnn_r50_caffe_c4_1x.py: 12000 → 2000), since each stage
-# samples 512 RoIs.
+# [zoo]: the multi-stage R-CNN zoo.  Cascade and Mask R-CNN on HVRNet's
+# R101-C5 trunk: Cascade R-CNN's stage heads and train settings are
+# mmdetection v1.0rc1 configs/cascade_rcnn_r50_fpn_1x.py's, Mask R-CNN's
+# mask branch its configs/mask_rcnn_r50_fpn_1x.py's; their training
+# proposals are the C4 config's (configs/faster_rcnn_r50_caffe_c4_1x.py:
+# 12000 → 2000), since each stage samples 512 RoIs.  Hybrid Task Cascade
+# R50-FPN is configs/htc/htc_r50_fpn_1x.py's whole.
 ZOO_STDS = ([0.1, 0.1, 0.2, 0.2], [0.05, 0.05, 0.1, 0.1],
             [0.033, 0.033, 0.067, 0.067])
 ZOO_RCNN_TEST = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
@@ -3545,7 +3559,9 @@ ZOO_RPN_PROPOSAL = dict(nms_across_levels=False, nms_pre=12000,
                         min_bbox_size=0)
 # content (h, w), canvas, the scale from an original image to the content
 ZOO_SIZES = {"cascade": ((600, 1000), (608, 1008), 0.78125),
-             "mask": ((800, 1333), (800, 1344), 0.625)}
+             "mask": ((800, 1333), (800, 1344), 0.625),
+             "htc": ((800, 1333), (800, 1344), 0.625)}
+ZOO_TRUNKS = {"cascade": "R101-C5", "mask": "R101-C5", "htc": "R50-FPN"}
 ZOO_CALLS = 3             # timed simple_test calls after one warm-up call
 ZOO_TRAIN_TIMED = 2       # timed training steps after TRAIN_WARMUP
 ZOO_HOLD_SEEDS = (0, 1, 2, 3)   # the images of the card-against-CPU hold
@@ -3558,8 +3574,107 @@ ZOO_HOLD_SEEDS = (0, 1, 2, 3)   # the images of the card-against-CPU hold
 # are larger.  On the H100 the four images read up to 7.75e-7 (Cascade)
 # and 1.67e-6 to 4.35e-6 (Mask R-CNN): the limit is over twice the largest
 ZOO_BOX_TOL, ZOO_SCORE_TOL, ZOO_MASK_TOL = 1e-3, 1e-5, 1e-5
+# HTC's mask probabilities go through three chained 256-channel heads (12
+# convs, the information flow, the semantic RoI features) from detections
+# the card and the CPU round 1-5 ulps apart: on the H100 eight images read
+# 4.14e-5 to 1.30e-4 (boxes ≤ 6.1e-4 px, scores ≤ 3.25e-6); the limit is
+# over twice the largest, and a wrong flow or fusion is off by O(0.1)
+ZOO_MASK_TOLS = {"htc": 3e-4}
+# the card's f32 FPN outputs against the port's CPU run of the same
+# backbone and neck on the same image, max |Δ| / max |CPU| per level: the
+# f32 limit [lanes] holds a batched backbone's maps to at every depth
+# (LANES_MAP_LIMIT), the same seeded weights' amplified rounding
+ZOO_FPN_TOL = 1e-3
 ZOO_TRAINED = ("backbone.layer2.", "backbone.layer3.", "rpn_head.",
                "shared_head.", "bbox_head.", "mask_head.")
+ZOO_TRAINED_FPN = ("backbone.layer2.", "backbone.layer3.",
+                   "backbone.layer4.", "neck.", "rpn_head.", "bbox_head.",
+                   "mask_head.", "semantic_head.")
+
+
+def htc_config():
+    """Hybrid Task Cascade R50-FPN as mmdetection v1.0rc1's
+    configs/htc/htc_r50_fpn_1x.py has it (a ``Config``): the pytorch-style
+    ResNet-50 over 4 stages, FPN 256 × 5 levels, the RPN with 32-px
+    anchors, 3 ``SharedFCBBoxHead`` stages of 81 classes with
+    class-agnostic deltas, a per-stage list of 3 ``HTCMaskHead``s (4 convs,
+    256 channels), the ``FusedSemanticHead`` of 183 classes fused into the
+    box and mask RoIs; its test_cfg (1000 proposals, score_thr 0.001, 100
+    detections), train_cfg (2000 → 2000 proposals, 512 RoIs per stage at
+    IoU 0.5 / 0.6 / 0.7, weights 1 / 0.5 / 0.25) and optimizer keys."""
+    from hvrnet_tpu_torch.utils.config import Config
+
+    def extractor(size, strides):
+        return dict(type="SingleRoIExtractor", roi_layer=dict(
+            type="RoIAlign", out_size=size, sample_num=2), out_channels=256,
+            featmap_strides=strides)
+
+    def stage(iou):
+        return dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=iou,
+                                  neg_iou_thr=iou, min_pos_iou=iou,
+                                  ignore_iof_thr=-1),
+                    sampler=dict(type="RandomSampler", num=512,
+                                 pos_fraction=0.25, neg_pos_ub=-1,
+                                 add_gt_as_proposals=True),
+                    mask_size=28, pos_weight=-1, debug=False)
+
+    model = dict(
+        type="HybridTaskCascade", num_stages=3, interleaved=True,
+        mask_info_flow=True,
+        backbone=dict(type="ResNet", depth=50, num_stages=4,
+                      strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+                      out_indices=(0, 1, 2, 3), frozen_stages=1,
+                      style="pytorch"),
+        neck=dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                  out_channels=256, num_outs=5),
+        rpn_head=dict(type="RPNHead", in_channels=256, feat_channels=256,
+                      anchor_scales=[8], anchor_ratios=[0.5, 1.0, 2.0],
+                      anchor_strides=[4, 8, 16, 32, 64],
+                      target_means=[.0] * 4, target_stds=[1.0] * 4),
+        bbox_roi_extractor=extractor(7, [4, 8, 16, 32]),
+        bbox_head=[dict(type="SharedFCBBoxHead", num_fcs=2, in_channels=256,
+                        fc_out_channels=1024, roi_feat_size=7,
+                        num_classes=81, target_means=[0.] * 4,
+                        target_stds=stds, reg_class_agnostic=True)
+                   for stds in ZOO_STDS],
+        mask_roi_extractor=extractor(14, [4, 8, 16, 32]),
+        mask_head=[dict(type="HTCMaskHead", num_convs=4, in_channels=256,
+                        conv_out_channels=256, num_classes=81)
+                   for _ in ZOO_STDS],
+        semantic_roi_extractor=extractor(14, [8]),
+        semantic_head=dict(type="FusedSemanticHead", num_ins=5,
+                           fusion_level=1, num_convs=4, in_channels=256,
+                           conv_out_channels=256, num_classes=183,
+                           ignore_label=255, loss_weight=0.2),
+        semantic_fusion=("bbox", "mask"))
+    return Config(dict(
+        model=model,
+        train_cfg=dict(
+            rpn=dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.7,
+                                   neg_iou_thr=0.3, min_pos_iou=0.3,
+                                   ignore_iof_thr=-1),
+                     sampler=dict(type="RandomSampler", num=256,
+                                  pos_fraction=0.5, neg_pos_ub=-1,
+                                  add_gt_as_proposals=False),
+                     allowed_border=0, pos_weight=-1, debug=False),
+            rpn_proposal=dict(nms_across_levels=False, nms_pre=2000,
+                              nms_post=2000, max_num=2000, nms_thr=0.7,
+                              min_bbox_size=0),
+            rcnn=[stage(iou) for iou in (0.5, 0.6, 0.7)],
+            stage_loss_weights=[1, 0.5, 0.25]),
+        test_cfg=dict(
+            rpn=dict(nms_across_levels=False, nms_pre=1000, nms_post=1000,
+                     max_num=1000, nms_thr=0.7, min_bbox_size=0),
+            rcnn=dict(score_thr=0.001, nms=dict(type="nms", iou_thr=0.5),
+                      max_per_img=100, mask_thr_binary=0.5),
+            keep_all_stages=False),
+        img_norm_cfg=dict(mean=[123.675, 116.28, 103.53],
+                          std=[58.395, 57.12, 57.375], to_rgb=True),
+        optimizer=dict(type="SGD", lr=0.02, momentum=0.9,
+                       weight_decay=0.0001),
+        optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)),
+        lr_config=dict(policy="step", warmup="linear", warmup_iters=500,
+                       warmup_ratio=1.0 / 3, step=[16, 19])))
 
 
 def zoo_configs(config=None):
@@ -3569,7 +3684,7 @@ def zoo_configs(config=None):
     (caffe R101 C4, the dilated stage-4 shared head, RPN at stride 16 with
     scales 4-32, RoIAlign 7) as ``Config`` objects: the model, its
     test_cfg (the config's rpn, ``ZOO_RCNN_TEST``), train_cfg and optimizer
-    keys."""
+    keys; and HTC R50-FPN (``htc_config``)."""
     from hvrnet_tpu_torch.utils.config import Config
     cfg = Config.fromfile(str(config or CONFIG)).as_dict()
     m, test, train = cfg["model"], cfg["test_cfg"], cfg["train_cfg"]
@@ -3613,18 +3728,25 @@ def zoo_configs(config=None):
         test_cfg=dict(rpn=test["rpn"],
                       rcnn=dict(ZOO_RCNN_TEST, mask_thr_binary=0.5)),
         train_cfg=dict(train_base, rcnn=stage(0.5, mask_size=28)))
-    return {"cascade": Config(cascade), "mask": Config(mask)}
+    return {"cascade": Config(cascade), "mask": Config(mask),
+            "htc": htc_config()}
 
 
 def zoo_image(np, name, seed=0):
     """The model's operating size: a synthetic BGR scene of its content size
-    normalised with the config's mean onto its canvas; (img (1, H, W, 3),
-    img_shape, pad_shape, scale_factor (4,))."""
+    normalised onto its canvas (HVRNet's mean for the C5 models; HTC's
+    ``img_norm_cfg``, RGB, mean and std); (img (1, H, W, 3), img_shape,
+    pad_shape, scale_factor (4,))."""
     content, canvas, scale = ZOO_SIZES[name]
-    mean = np.array([103.06, 115.90, 123.15], np.float32)
+    scene = synthetic_image(np, content, seed).astype(np.float32)
+    if name == "htc":
+        cfg = htc_config().img_norm_cfg
+        scene = ((scene[..., ::-1] - np.float32(cfg.mean))
+                 / np.float32(cfg.std))
+    else:
+        scene = scene - np.array([103.06, 115.90, 123.15], np.float32)
     img = np.zeros((1,) + canvas + (3,), np.float32)
-    img[0, :content[0], :content[1]] = synthetic_image(np, content,
-                                                       seed) - mean
+    img[0, :content[0], :content[1]] = scene
     return (img, np.array(content, np.float32), np.array(canvas, np.float32),
             np.full(4, scale, np.float32))
 
@@ -3642,6 +3764,42 @@ def zoo_spread_heads(torch, engine, seed=0):
                                 * std)
 
 
+def zoo_scale_heads(torch, np, engine, name, logit_std=3.0,
+                    delta_std=0.5, seed=0):
+    """HTC's stage heads drawn for the image: each stage's ``fc_cls`` and
+    ``fc_reg`` seeded normals scaled so that on the stage's RoIs of the
+    model's image its logits have std ``logit_std`` and its deltas
+    ``delta_std`` (the stages' boxes refined in turn).  A fixed std
+    (``zoo_spread_heads``) gives these calibrated FPN features logits in
+    the hundreds: saturated softmaxes, scores exactly 1/3 or 2/3 tied
+    across detections, whose order then rests on rounding."""
+    x = zoo_image(np, name)
+    gen = torch.Generator().manual_seed(seed)
+    feats = {}
+    with torch.no_grad():
+        maps, cls_map, reg_map = engine.backbone_maps(*x[:2])
+        c5 = engine.pool_map(maps)
+        emb = engine.semantic_embedding(maps)
+        boxes = engine._proposals_lanes(c5, cls_map, reg_map, [x[1]],
+                                        [x[2]])[0][0]
+        for st, head in enumerate(engine.model.bbox_head):
+            hook = head.fc_cls.register_forward_pre_hook(
+                lambda mod, args: feats.__setitem__("x", args[0]))
+            try:
+                engine.stage_forward(c5, boxes, st, emb)
+            finally:
+                hook.remove()
+            for fc, std in ((head.fc_cls, logit_std),
+                            (head.fc_reg, delta_std)):
+                w = torch.randn(fc.weight.shape, generator=gen).to(
+                    fc.weight.device)
+                out = feats["x"].float() @ w.T
+                fc.weight.copy_(w * (std / out.std()))
+            cls, reg = engine.stage_forward(c5, boxes, st, emb)
+            if st < engine.num_stages - 1:
+                boxes = engine.refine(boxes, cls, reg, st, x[1])
+
+
 def zoo_engines(torch, np, name, cfg):
     """The f32 serving engine on seeded weights (heads spread, frozen BNs
     calibrated on the image) and a bf16 one on the same weights, heads
@@ -3651,15 +3809,21 @@ def zoo_engines(torch, np, name, cfg):
     t0 = time.time()
     img, ish = zoo_image(np, name)[:2]
     engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
-    zoo_spread_heads(torch, engine)
     n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
+    if name == "htc":
+        zoo_scale_heads(torch, np, engine, name)
+    else:
+        zoo_spread_heads(torch, engine)
     engine16 = build_detector(cfg.model, test_cfg=cfg.test_cfg,
                               device="cuda", dtype=torch.bfloat16)
     engine16.load_state_dict(engine.model.state_dict())
     engine16.cast_head_params_bf16()
-    log(f"[zoo] {type(engine).__name__} R101-C5 from {CONFIG.name}'s trunk: "
+    origin = (f"{CONFIG.name}'s trunk" if name != "htc" else
+              "htc_r50_fpn_1x's settings")
+    log(f"[zoo] {type(engine).__name__} {ZOO_TRUNKS[name]} from {origin}: "
         f"{engine.num_stages} stage(s), {engine.num_classes} classes, "
-        f"{engine.proposal_num} proposals, mask head {engine.with_mask}; "
+        f"{engine.proposal_num} proposals, mask heads "
+        f"{engine.num_mask_stages}, semantic branch {engine.with_semantic}; "
         f"seeded random weights, {n_bn} frozen BNs calibrated on the "
         f"{ZOO_SIZES[name][0][1]}x{ZOO_SIZES[name][0][0]} image; f32 and bf16 "
         f"engines in {time.time() - t0:.1f} s")
@@ -3672,11 +3836,12 @@ def zoo_serving(torch, np, engine, name, tag):
     the engine's stage timer; the host paste of the kept masks
     (``paste_masks``).  The attention kernel's count is set to 0 before
     the warm-up call and read after the last: no launch.  Checks finite
-    boxes, scores in [0, 1], labels and mask probabilities in range.
-    Returns (run, the output)."""
+    boxes, scores in [score_thr, 1], labels and mask probabilities in
+    range.  Returns (run, the output)."""
     from hvrnet_tpu_torch.models.mask_heads import paste_masks
     from hvrnet_tpu_torch.ops.attention import masked_attention
     x = zoo_image(np, name)
+    thr = float(engine.test_cfg["rcnn"]["score_thr"])
     masked_attention.launches = 0
     engine.simple_test(*x)
     torch.cuda.synchronize()
@@ -3694,7 +3859,7 @@ def zoo_serving(torch, np, engine, name, tag):
                            "simple_test, which has no relation head")
     dets, labels, keep = (t.cpu().numpy() for t in out[:3])
     kept = dets[keep]
-    ok = (np.isfinite(kept).all() and ((kept[:, 4] >= 0.05)
+    ok = (np.isfinite(kept).all() and ((kept[:, 4] >= thr)
                                         & (kept[:, 4] <= 1)).all()
           and ((labels[keep] >= 0)
                & (labels[keep] < engine.num_classes - 1)).all())
@@ -3725,27 +3890,64 @@ def zoo_serving(torch, np, engine, name, tag):
     return run, out
 
 
+def to_device(obj, device):
+    """A tensor, or a tuple of them, on ``device``."""
+    if isinstance(obj, tuple):
+        return tuple(to_device(o, device) for o in obj)
+    return obj.to(device)
+
+
+def zoo_fpn_hold(torch, np, engine, cpu, name):
+    """The card's f32 FPN outputs (backbone and neck) of the model's image
+    against the port's CPU run of the same weights on the same image: max
+    |Δ| / max |CPU| per level within ZOO_FPN_TOL.  Returns the worst."""
+    x = zoo_image(np, name)
+    with torch.no_grad():
+        card = engine.backbone_maps(*x[:2])[0]
+        want = cpu.backbone_maps(*x[:2])[0]
+    errs = [((c.cpu() - w).abs().max() / w.abs().max()).item()
+            for c, w in zip(card, want)]
+    log(f"[zoo] {type(engine).__name__} f32 FPN outputs P2-P6 on the card "
+        f"against the port's CPU run of the same backbone and neck: max "
+        f"|Δ|/max|CPU| " + ", ".join(f"{e:.3g}" for e in errs)
+        + f" (limit {ZOO_FPN_TOL})")
+    if max(errs) > ZOO_FPN_TOL:
+        raise RuntimeError(f"[zoo] the card's {type(engine).__name__} FPN "
+                           "outputs are not the CPU's")
+    return max(errs)
+
+
 def zoo_cpu_hold(torch, np, engine, cfg, name):
     """The card's f32 ``simple_test`` against the port's CPU run of the same
-    engine, both fed the card's trunk maps, on each image of
-    ZOO_HOLD_SEEDS: the same NMS picks in the same rows with the same
-    labels, boxes, scores and mask probabilities within the CPU tests'
-    limits (scores at ZOO_SCORE_TOL).  Returns the worst (box, score,
-    mask) differences."""
+    engine, both fed the card's trunk maps (with a neck: its maps and the
+    semantic embedding), on each image of ZOO_HOLD_SEEDS: the same NMS
+    picks in the same rows with the same labels, boxes, scores and mask
+    probabilities within the CPU tests' limits (scores at ZOO_SCORE_TOL,
+    HTC's masks at ZOO_MASK_TOLS).
+    With a neck the card's FPN outputs are held to the CPU's first
+    (``zoo_fpn_hold``).  Returns the worst (box, score, mask) differences
+    and the FPN's."""
     from hvrnet_tpu_torch.apis import build_detector
     cpu = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
     cpu.load_state_dict(host_state_dict(engine))
-    real = engine.backbone_maps
+    fpn = (zoo_fpn_hold(torch, np, engine, cpu, name)
+           if engine.model.neck is not None else None)
+    real = engine.backbone_maps, engine.semantic_embedding
+    mask_tol = ZOO_MASK_TOLS.get(name, ZOO_MASK_TOL)
     worst = [0.0, 0.0, 0.0]
     for seed in ZOO_HOLD_SEEDS:
         x = zoo_image(np, name, seed)
-        maps = real(*x[:2])
-        cpu.backbone_maps = lambda img, ish: tuple(m.cpu() for m in maps)
+        maps = real[0](*x[:2])
+        emb = real[1](maps[0])
+        cpu.backbone_maps = lambda img, ish: to_device(maps, "cpu")
+        cpu.semantic_embedding = lambda m: (None if emb is None
+                                            else emb.cpu())
         engine.backbone_maps = lambda img, ish: maps
+        engine.semantic_embedding = lambda m: emb
         try:
             got = [t.cpu() for t in engine.simple_test(*x)]
         finally:
-            engine.backbone_maps = real
+            engine.backbone_maps, engine.semantic_embedding = real
         want = cpu.simple_test(*x)
         keep = want[2]
         same = torch.equal(got[2], keep) and torch.equal(got[1][keep],
@@ -3756,39 +3958,54 @@ def zoo_cpu_hold(torch, np, engine, cfg, name):
                  else 0.0)
         worst = [max(a, b) for a, b in zip(worst, (box, score, masks))]
         log(f"[zoo] {type(engine).__name__} f32 on the card against the "
-            f"port's CPU run on the card's trunk maps, image seed {seed}: "
-            f"{int(keep.sum())} picks and labels identical {same}; max "
-            f"|Δbox| {box:.3g} px (limit {ZOO_BOX_TOL}), max |Δscore| "
-            f"{score:.3g} ({ZOO_SCORE_TOL})"
-            + (f", max |Δmask prob| {masks:.3g} ({ZOO_MASK_TOL})"
+            f"port's CPU run on the card's trunk maps"
+            + (" and semantic embedding" if emb is not None else "")
+            + f", image seed {seed}: {int(keep.sum())} picks and labels "
+            f"identical {same}; max |Δbox| {box:.3g} px (limit "
+            f"{ZOO_BOX_TOL}), max |Δscore| {score:.3g} ({ZOO_SCORE_TOL})"
+            + (f", max |Δmask prob| {masks:.3g} ({mask_tol})"
                if engine.with_mask else ""))
         if not (same and keep.any() and box <= ZOO_BOX_TOL
-                and score <= ZOO_SCORE_TOL and masks <= ZOO_MASK_TOL):
+                and score <= ZOO_SCORE_TOL and masks <= mask_tol):
             raise RuntimeError(f"[zoo] {type(engine).__name__}, image seed "
                                f"{seed}: the card's f32 result is not the "
                                "CPU's")
     log(f"[zoo] {type(engine).__name__} card against CPU over "
         f"{len(ZOO_HOLD_SEEDS)} images: worst |Δbox| {worst[0]:.3g} px, "
         f"|Δscore| {worst[1]:.3g}, |Δmask prob| {worst[2]:.3g}")
-    return worst
+    return dict(worst=worst, fpn=fpn)
 
 
 def zoo_bf16_hold(torch, np, engine, engine16, name):
-    """Each bf16 head on the f32 engine's pooled RoIs against the f32 head,
-    stage by stage (the stages' boxes from the f32 engine), and the bf16
-    mask head on the f32 engine's pooled mask RoIs: within the bf16 budget
+    """Each bf16 head on the f32 engine's inputs against the f32 head, by
+    depth: the semantic head on the f32 FPN maps (its embedding and
+    logits as the cls), each box stage on the f32 pooled RoIs (the stages'
+    boxes from the f32 engine), each mask head on the f32 pooled mask RoIs
+    and the f32 trunk features of the stage before; within the bf16 budget
     (``head_budget``; the mask logits as the cls)."""
     from hvrnet_tpu_torch.engine.detector import f32_precision
     from hvrnet_tpu_torch.engine.multi_stage import mean_scale
     x = zoo_image(np, name)
     worst = [0.0, 0.0]
+
+    def rel(got, want):
+        return ((got.float() - want).abs().max().item()
+                / max(want.abs().max().item(), 1.0))
+
     with torch.no_grad(), f32_precision():
-        c5, cls_map, reg_map = engine.backbone_maps(*x[:2])
+        maps, cls_map, reg_map = engine.backbone_maps(*x[:2])
+        c5 = engine.pool_map(maps)
+        emb = engine.semantic_embedding(maps)
+        if emb is not None:
+            want = engine.model.semantic_head(maps)
+            got = engine16.model.semantic_head(maps)
+            worst[0] = max(worst[0], *(rel(g, w) for g, w in zip(got, want)))
         boxes = engine._proposals_lanes(c5, cls_map, reg_map, [x[1]],
                                         [x[2]])[0][0]
         for st in range(engine.num_stages):
             rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
-            pooled = engine.roi_extractor(c5, rois)
+            pooled = engine.fuse_semantic(engine.roi_extractor(c5, rois),
+                                          emb, rois, "bbox")
             want = engine.model.bbox_stage(pooled, st)
             got = engine16.model.bbox_stage(pooled, st)
             worst = [max(a, b) for a, b in zip(worst, head_budget(got, want))]
@@ -3798,24 +4015,38 @@ def zoo_bf16_hold(torch, np, engine, engine16, name):
             dets = engine.simple_test(*x)[0]
             rois = torch.cat([torch.zeros_like(dets[:, :1]), dets[:, :4]
                               * mean_scale(x[3])], 1)
-            pooled = engine.mask_roi_extractor(c5, rois)
-            want = engine.model.mask_head(pooled)
-            got = engine16.model.mask_head(pooled).float()
-            worst[0] = max(worst[0], (got - want).abs().max().item()
-                           / max(want.abs().max().item(), 1.0))
-    log(f"[zoo] {type(engine).__name__} bf16 heads on the f32 engine's pooled "
-        f"RoIs against the f32 heads ({engine.num_stages} stage(s)"
-        + (", the mask head" if engine.with_mask else "")
+            pooled = engine.fuse_semantic(engine.mask_roi_extractor(c5, rois),
+                                          emb, rois, "mask")
+            if engine.num_mask_stages == 1:
+                worst[0] = max(worst[0], rel(engine16.model.mask_head(pooled),
+                                             engine.model.mask_head(pooled)))
+            else:
+                last = None
+                for head, head16 in zip(engine.model.mask_head,
+                                        engine16.model.mask_head):
+                    want, feat = head(pooled, last, return_feat=True)
+                    worst[0] = max(worst[0], rel(head16(pooled, last), want))
+                    last = feat
+    log(f"[zoo] {type(engine).__name__} bf16 heads on the f32 engine's inputs "
+        f"against the f32 heads ("
+        + ("the semantic head, " if emb is not None else "")
+        + f"{engine.num_stages} box stage(s)"
+        + (f", {engine.num_mask_stages} mask head(s)" if engine.with_mask
+           else "")
         + f"): max |Δcls|/max(|cls|, 1) {worst[0]:.3g}, max |Δreg| "
         f"{worst[1]:.3g} (limits {BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
     if not (worst[0] <= BF16_CLS_BUDGET and worst[1] <= BF16_REG_BUDGET):
         raise RuntimeError(f"[zoo] the bf16 {type(engine).__name__} heads are "
                            "outside the bf16 budget")
+    return worst
 
 
 def zoo_train_batch(np, name, seed=4):
     """One image of the model's operating size in the video layout (1
-    frame) with 4 ground truths and their masks, rectangles and ellipses."""
+    frame) with 4 ground truths and their masks, rectangles and ellipses
+    (for HTC two of them 28-44 px); for HTC also a ``gt_semantic_seg`` at
+    the fusion level's stride of 8 (100×168): each box's class inside it,
+    255 (ignored) on a border around it, 0 elsewhere."""
     img, ish, psh, _ = zoo_image(np, name, seed)
     h, w = ZOO_SIZES[name][1]
     rng = np.random.default_rng(seed)
@@ -3825,7 +4056,12 @@ def zoo_train_batch(np, name, seed=4):
     yy, xx = np.mgrid[:h, :w]
     ch, cw = ZOO_SIZES[name][0]
     for i in range(g):
-        bw, bh = rng.uniform(0.15, 0.4) * cw, rng.uniform(0.15, 0.4) * ch
+        if name == "htc" and i >= 2:
+            # near the 32-px anchors of the one-level RPN on P2: the only
+            # boxes its anchors reach IoU 0.3 with
+            bw, bh = rng.uniform(28, 44), rng.uniform(28, 44)
+        else:
+            bw, bh = rng.uniform(0.15, 0.4) * cw, rng.uniform(0.15, 0.4) * ch
         x0, y0 = rng.uniform(0, cw - bw), rng.uniform(0, ch - bh)
         boxes[0, i] = [x0, y0, x0 + bw - 1, y0 + bh - 1]
         if i % 2:
@@ -3834,17 +4070,26 @@ def zoo_train_batch(np, name, seed=4):
         else:
             masks[0, i, int(y0):int(y0 + bh), int(x0):int(x0 + bw)] = 1
     n_cls = 31 if name == "cascade" else 81
-    return dict(imgs=img, gt_bboxes=boxes,
-                gt_labels=rng.integers(1, n_cls, (1, g)),
-                gt_mask=np.ones((1, g), bool), gt_masks=masks,
-                img_shape=ish[None], pad_shape=psh[None])
+    labels = rng.integers(1, n_cls, (1, g))
+    batch = dict(imgs=img, gt_bboxes=boxes, gt_labels=labels,
+                 gt_mask=np.ones((1, g), bool), gt_masks=masks,
+                 img_shape=ish[None], pad_shape=psh[None])
+    if name == "htc":
+        seg = np.zeros((1, h // 8, w // 8), np.int64)
+        for i in range(g):
+            x1, y1, x2, y2 = (boxes[0, i] / 8).round().astype(int)
+            seg[0, max(y1 - 1, 0):y2 + 2, max(x1 - 1, 0):x2 + 2] = 255
+            seg[0, y1 + 1:y2, x1 + 1:x2] = labels[0, i]
+        batch["gt_semantic_seg"] = seg
+    return batch
 
 
 def zoo_training(torch, np, name, cfg):
     """``TwoStageTrainer`` through ``train_detector`` at full width (f32)
     for TRAIN_WARMUP + ZOO_TRAIN_TIMED steps on one synthetic image, frozen
     BNs calibrated on it: finite losses, no attention launch, stage times,
-    frozen tensors bitwise and trainable ones moved."""
+    frozen tensors bitwise and every trainable one moved (HTC: the neck,
+    the semantic head and every stage's mask head among them)."""
     import shutil
     from hvrnet_tpu_torch.models.registry import DETECTORS
     work_dir = ROOT / "build" / f"chip_smoke_zoo_{name}"
@@ -3853,11 +4098,15 @@ def zoo_training(torch, np, name, cfg):
     c = cfg.as_dict()
     engine = calibrated_training_engine(
         torch, DETECTORS.get(c["model"]["type"]), c, batch,
-        f"[zoo] {name} train")
+        f"[zoo] {name} train", ZOO_TRUNKS[name])
     before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    htc = engine.num_mask_stages > 1
     stages = (("backbone", "rpn", "proposals")
-              + tuple(f"stage{s}" for s in range(engine.num_stages))
-              + (("mask",) if engine.with_mask else ())
+              + (("semantic",) if engine.with_semantic else ())
+              + tuple(s for st in range(engine.num_stages)
+                      for s in (f"stage{st}",) + ((f"mask{st}",) if htc
+                                                  else ()))
+              + (("mask",) if engine.with_mask and not htc else ())
               + ("backward", "optimizer"))
     _, summary = timed_training(torch, np, engine, batch, c, work_dir,
                                 stages, f"[zoo] {name} train", 0,
@@ -3865,9 +4114,11 @@ def zoo_training(torch, np, name, cfg):
     log(f"[zoo] {type(engine).__name__} training ({CARD}): "
         f"{summary['step_ms']:.3f} ms/step (CUDA events), peak device memory "
         f"{summary['peak_gib']:.2f} GiB")
+    trained = ZOO_TRAINED_FPN if engine.model.neck is not None else \
+        tuple(p for p in ZOO_TRAINED
+              if engine.with_mask or p != "mask_head.")
     check_train_weights(torch, engine, before, f"[zoo] {name} train",
-                        tuple(p for p in ZOO_TRAINED
-                              if engine.with_mask or p != "mask_head."))
+                        trained)
     shutil.rmtree(work_dir, ignore_errors=True)
     del engine
     torch.cuda.empty_cache()
@@ -3878,12 +4129,13 @@ def phase_zoo(torch, np):
     """The multi-stage zoo at full width (``zoo_configs``): per model, f32
     and bf16 ``simple_test`` with times, stages, the host paste and peak
     memory; the card's f32 result held to the port's CPU run on the card's
-    maps; the bf16 heads held to the f32 ones; ``TwoStageTrainer`` steps;
-    no cv2 on the path.  Returns the runs, each with its attention
-    launches (0: the zoo has no relation head), counted and checked by
-    ``zoo_serving`` and ``timed_training``."""
+    maps (HTC: its FPN outputs too); the bf16 heads held to the f32 ones;
+    ``TwoStageTrainer`` steps; no cv2 on the path.  Returns the runs, each
+    with its attention launches (0: the zoo has no relation head), counted
+    and checked by ``zoo_serving`` and ``timed_training``."""
     runs = {}
     for name, cfg in zoo_configs().items():
+        t0 = time.time()
         engine, engine16 = zoo_engines(torch, np, name, cfg)
         for eng in (engine, engine16):
             tag = f"{type(eng).__name__} {str(eng.dtype)[6:]}"
@@ -3891,10 +4143,12 @@ def phase_zoo(torch, np):
                 torch, np, eng, name, tag)[0]
         runs[f"zoo {name} float32"]["cpu_hold"] = zoo_cpu_hold(
             torch, np, engine, cfg, name)
-        zoo_bf16_hold(torch, np, engine, engine16, name)
+        runs[f"zoo {name} bfloat16"]["bf16_hold"] = zoo_bf16_hold(
+            torch, np, engine, engine16, name)
         del engine, engine16
         torch.cuda.empty_cache()
         runs[f"zoo {name} train"] = zoo_training(torch, np, name, cfg)
+        log(f"[zoo] {name}: {time.time() - t0:.1f} s")
     if "cv2" in sys.modules:
         raise RuntimeError("[zoo] the zoo's path imported cv2")
     log("[zoo] no attention launch in any serving or training run and no "
@@ -3990,8 +4244,8 @@ def route_summary(cases, runs, dtype):
              "detection and 2 per SELSA one; multipass: hnl_test --window "
              "63 --multi-pass 3 over the 40-frame video, 3 per detection, "
              "beside the exact ring's 4; trace: test --trace --timing over "
-             "8 frames, 4 per detection; zoo: Cascade and Mask R-CNN "
-             "serving and training, 0: no relation head)",
+             "8 frames, 4 per detection; zoo: Cascade R-CNN, Mask R-CNN "
+             "and HTC serving and training, 0: no relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(

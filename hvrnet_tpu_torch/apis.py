@@ -22,8 +22,9 @@ keys reach the trainer.  The engine's type picks the trainer:
 ``DoubleHeadRCNN``) → ``TwoStageTrainer``.  The still-image trainers'
 samples may also be still images: ``img`` (H, W, 3), ``gt_bboxes`` (G,
 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape`` and ``pad_shape``
-(2,), and for a mask head ``gt_masks`` (G, H, W).  ``data`` is a
-training dataset (``data/vid_dataset.py``;
+(2,), for a mask head ``gt_masks`` (G, H, W), and for HTC's semantic
+branch ``gt_semantic_seg`` (h, w) at its fusion level's stride, 255 where
+ignored.  ``data`` is a training dataset (``data/vid_dataset.py``;
 ``engine/stream.py:train_batch_iterator`` makes its samples) or a list of
 ``collate_train`` samples: ``imgs`` (F, H, W, 3)
 normalised float32 NHWC canvases, ``gt_bboxes`` (F, G, 4), ``gt_labels``
@@ -66,9 +67,9 @@ def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    seed: int = 0):
     """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN``,
     ``SelsaRCNN``, ``FasterRCNN``, ``FastRCNN`` or a multi-stage zoo
-    engine, ``engine/multi_stage.py``) computing in ``dtype``,
-    with seeded random weights: a serving engine with a ``test_cfg``, a
-    training engine with a ``train_cfg``."""
+    engine on the C4 trunk or an FPN, ``engine/multi_stage.py``) computing
+    in ``dtype``, with seeded random weights: a serving engine with a
+    ``test_cfg``, a training engine with a ``train_cfg``."""
     model_cfg = unwrap(model_cfg)
     cls = DETECTORS.get(model_cfg["type"])
     if cls is None:

@@ -299,11 +299,13 @@ class SelsaTrainer(BaseTrainer):
 def still_image(sample: Dict[str, Any]) -> Dict[str, Any]:
     """A sample in the still-image layout: ``imgs`` (1, H, W, 3),
     ``gt_bboxes`` (G, 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape``
-    and ``pad_shape`` (2,), and ``gt_masks`` (G, H, W) where the sample has
-    them.  From the still-image layout (``img`` (H, W, 3) or (1, H, W, 3))
-    or the video layout (``imgs`` (F, H, W, 3): frame 0)."""
+    and ``pad_shape`` (2,), and ``gt_masks`` (G, H, W) and
+    ``gt_semantic_seg`` (h, w) where the sample has them.  From the
+    still-image layout (``img`` (H, W, 3) or (1, H, W, 3)) or the video
+    layout (``imgs`` (F, H, W, 3): frame 0)."""
     keys = [k for k in ("gt_bboxes", "gt_labels", "gt_mask", "img_shape",
-                        "pad_shape", "gt_masks") if k in sample]
+                        "pad_shape", "gt_masks", "gt_semantic_seg")
+            if k in sample]
     if "img" in sample:
         img = sample["img"]
         return dict(imgs=img[None] if img.ndim == 3 else img,
@@ -403,16 +405,18 @@ class FasterRCNNTrainer(BaseTrainer):
                 boxes, pmask, gt)
 
     def rcnn_stage(self, c5, boxes, pmask, gt, rcnn, means, stds, noise,
-                   head, agnostic, beta):
+                   head, agnostic, beta, fuse=None):
         """One RCNN stage on the shared head's map ``c5``: the assignment
-        and sample of the (P, 4) ``boxes`` (``sample_rois``), RoIAlign,
-        ``head`` on the pooled RoIs and the stage's losses
-        (``rcnn_losses``).  Returns (sample, cls, reg, (loss_cls,
-        loss_bbox, acc)), ``cls`` and ``reg`` in float32."""
+        and sample of the (P, 4) ``boxes`` (``sample_rois``), RoIAlign
+        (then ``fuse(pooled, rois)`` where given), ``head`` on the pooled
+        RoIs and the stage's losses (``rcnn_losses``).  Returns (sample,
+        cls, reg, (loss_cls, loss_bbox, acc)), ``cls`` and ``reg`` in
+        float32."""
         with torch.no_grad():
             sr = self.sample_rois(boxes, pmask, gt, rcnn, means, stds, noise)
         rois = torch.cat([torch.zeros_like(sr.rois[:, :1]), sr.rois], 1)
-        cls, reg = head(self.engine.roi_extractor(c5, rois))
+        pooled = self.engine.roi_extractor(c5, rois)
+        cls, reg = head(pooled if fuse is None else fuse(pooled, rois))
         cls, reg = widen(cls), widen(reg)
         return sr, cls, reg, rcnn_losses(cls, reg, sr, agnostic, beta)
 

@@ -5,4 +5,5 @@ from .backbones import resnet  # noqa: F401
 from .bbox_heads import (bbox_head, convfc_bbox_head,  # noqa: F401
                          hrnmp_bbox_head, selsa_bbox_head)
 from .builder import build_model_module, build_roi_extractor  # noqa: F401
+from .necks import fpn  # noqa: F401
 from .shared_heads import res_layer  # noqa: F401

@@ -12,6 +12,8 @@ layers with flax's ``dtype=`` / ``param_dtype=float32`` split.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -99,19 +101,27 @@ class FrozenBN(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """mmdet ConvModule default: conv(+bias) → ReLU, no norm (the shared
-    head's ``external_conv``, the mask head's convs; its parameters live
-    under ``.conv``)."""
+    """mmdet ConvModule without a norm: conv(+bias) → ReLU, or the conv
+    alone with ``activation=None`` (the shared head's ``external_conv``,
+    the mask heads' convs, the FPN's laterals; its parameters live under
+    ``.conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, dtype: torch.dtype = torch.float32,
-                 padding: int = 0):
+                 padding: int = 0, stride: int = 1,
+                 activation: Optional[str] = "relu"):
         super().__init__()
+        if activation not in ("relu", None):
+            raise ValueError(f"activation {activation!r}: the port has "
+                             "'relu' and None")
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
-                           padding=padding, compute_dtype=dtype)
+                           stride=stride, padding=padding,
+                           compute_dtype=dtype)
+        self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.conv(x))
+        x = self.conv(x)
+        return F.relu(x) if self.activation else x
 
 
 class ConvBN(nn.Module):

@@ -26,7 +26,7 @@ class ResLayer(nn.Module):
         inplanes = planes * Bottleneck.expansion // 2
         self.stage = stage
         self.add_module(f"layer{stage + 1}", make_res_layer(
-            inplanes, planes, ARCH_SETTINGS[depth][stage], stride, dilation,
+            inplanes, planes, ARCH_SETTINGS[depth][1][stage], stride, dilation,
             style, dtype))
         self.new_layer_1 = (ConvModule(planes * Bottleneck.expansion, 256, 1,
                                        dtype) if external_conv else None)

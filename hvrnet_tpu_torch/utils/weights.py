@@ -13,8 +13,15 @@ per-stage heads ``bbox_head{i}`` → ``bbox_head.{i}`` (one head:
 ``conv{k}`` → ``convs.{k}.conv`` and its ``upsample``, whose kernel flax
 applies unflipped (``nn.ConvTranspose`` without ``transpose_kernel``) and
 torch's ``ConvTranspose2d`` flipped: it is transposed to (in, out, kh, kw)
-and flipped in both spatial axes.  Because the names are mmdet's, a
-reference ``.pth`` state_dict loads straight into the port as well.
+and flipped in both spatial axes.  The FPN zoo adds the 4-stage backbone
+(``layer4``, ``BasicBlock``'s ``conv1`` / ``conv2``), the neck
+(``neck_state_dict``), HTC's per-stage mask heads ``mask_head{i}`` →
+``mask_head.{i}`` with ``conv_res``, the semantic head
+(``semantic_head_state_dict``), and the MaskIoU and grid heads
+(``mask_iou_head_state_dict``: ``fc0`` reads the flattened map;
+``grid_head_state_dict``: two more flipped transposed convs).  Because the
+names are mmdet's, a reference ``.pth`` state_dict loads straight into the
+port as well.
 """
 from __future__ import annotations
 
@@ -85,12 +92,24 @@ def _res_layers(prefix: str, tree: Dict[str, Any], out: Dict[str, np.ndarray]):
         if not layer.startswith("layer"):
             continue
         for block, sub in blocks.items():
-            base = f"{prefix}.{layer}.{int(block[len('block'):])}"
+            base = f"{prefix}{layer}.{int(block[len('block'):])}"
             for name, node in sub.items():
                 if name == "downsample":
                     _conv_bn(base, node, out, "downsample.0", "downsample.1")
                 else:                                   # conv1 / conv2 / conv3
                     _conv_bn(base, node, out, name, "bn" + name[len("conv"):])
+
+
+def backbone_state_dict(backbone: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``ResNet`` subtree → mmdet's names (without the
+    ``backbone.`` prefix): the stem's conv and BN → ``conv1`` / ``bn1``,
+    each block's ConvBNs → ``convK`` / ``bnK``, ``downsample.{0,1}``."""
+    bb = _to_numpy(backbone)
+    out = {"conv1.weight": _conv_w(bb["stem"]["conv"]["kernel"])}
+    for k, v in bb["stem"]["bn"].items():
+        out[f"bn1.{_BN_NAMES[k]}"] = v
+    _res_layers("", bb, out)
+    return out
 
 
 def state_dict_from_jax(params: Dict[str, Any],
@@ -101,15 +120,12 @@ def state_dict_from_jax(params: Dict[str, Any],
     head but a relation head (``roi_fcs``)."""
     tree = params.get("params", params)
     tree = _to_numpy(tree)
-    out: Dict[str, np.ndarray] = {}
-    bb = tree["backbone"]
-    out["backbone.conv1.weight"] = _conv_w(bb["stem"]["conv"]["kernel"])
-    for k, v in bb["stem"]["bn"].items():
-        out[f"backbone.bn1.{_BN_NAMES[k]}"] = v
-    _res_layers("backbone", bb, out)
+    out: Dict[str, np.ndarray] = {
+        f"backbone.{k}": v
+        for k, v in backbone_state_dict(tree["backbone"]).items()}
 
     sh = tree.get("shared_head", {})
-    _res_layers("shared_head", sh, out)
+    _res_layers("shared_head.", sh, out)
     if "new_layer_1" in sh:
         conv = sh["new_layer_1"]["conv"]
         out["shared_head.new_layer_1.conv.weight"] = _conv_w(conv["kernel"])
@@ -130,11 +146,125 @@ def state_dict_from_jax(params: Dict[str, Any],
     for prefix, (node, head_cfg) in heads.items():
         out.update({f"{prefix}.{k}": v for k, v in
                     bbox_head_state_dict(node, head_cfg).items()})
-    if "mask_head" in tree:
-        out.update({f"mask_head.{k}": v for k, v in
-                    mask_head_state_dict(tree["mask_head"]).items()})
+    if "neck" in tree:
+        out.update({f"neck.{k}": v for k, v in
+                    neck_state_dict(tree["neck"]).items()})
+    for name, node in tree.items():     # mask_head, or HTC's mask_head{i}
+        m = re.fullmatch(r"mask_head(\d*)", name)
+        if m:
+            prefix = f"mask_head.{m[1]}" if m[1] else "mask_head"
+            out.update({f"{prefix}.{k}": v for k, v in
+                        mask_head_state_dict(node).items()})
+    if "semantic_head" in tree:
+        fusion = int(((model_cfg or {}).get("semantic_head") or {}).get(
+            "fusion_level", 1))
+        out.update({f"semantic_head.{k}": v for k, v in
+                    semantic_head_state_dict(tree["semantic_head"],
+                                             fusion).items()})
+    if "mask_iou_head" in tree:
+        out.update({f"mask_iou_head.{k}": v for k, v in
+                    mask_iou_head_state_dict(
+                        tree["mask_iou_head"],
+                        (model_cfg or {}).get("mask_iou_head")).items()})
+    if "grid_head" in tree:
+        out.update({f"grid_head.{k}": v for k, v in
+                    grid_head_state_dict(tree["grid_head"]).items()})
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in out.items()}
+
+
+def _convs(node: Dict[str, Any], names: Dict[str, str]
+           ) -> Dict[str, np.ndarray]:
+    """Conv subtrees {kernel, bias} → ``{port}.weight`` / ``.bias`` under
+    ``names[jax name]``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, port in names.items():
+        out[f"{port}.weight"] = _conv_w(node[name]["kernel"])
+        out[f"{port}.bias"] = node[name]["bias"]
+    return out
+
+
+def neck_state_dict(neck: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``FPN`` subtree → mmdet's names: ``lateral_conv{i}`` →
+    ``lateral_convs.{i}.conv``, ``fpn_conv{i}`` → ``fpn_convs.{i}.conv``,
+    ``extra_conv{i}`` → ``fpn_convs.{levels + i}.conv``."""
+    neck = _to_numpy(neck)
+    levels = sum(k.startswith("lateral_conv") for k in neck)
+    names = {}
+    for name in neck:
+        kind, i = re.fullmatch(r"(lateral|fpn|extra)_conv(\d+)",
+                               name).groups()
+        i = int(i) + (levels if kind == "extra" else 0)
+        names[name] = (f"lateral_convs.{i}.conv" if kind == "lateral"
+                       else f"fpn_convs.{i}.conv")
+    return _convs(neck, names)
+
+
+def semantic_head_state_dict(head: Dict[str, Any], fusion_level: int = 1
+                             ) -> Dict[str, np.ndarray]:
+    """The JAX ``FusedSemanticHead`` subtree → mmdet's names:
+    ``lateral_fuse`` → ``lateral_convs.{fusion_level}.conv``,
+    ``lateral{i}`` → ``lateral_convs.{i}.conv``, ``conv{i}`` →
+    ``convs.{i}.conv``, ``conv_seg`` → ``conv_logits``, ``conv_embedding``
+    → ``conv_embedding.conv``."""
+    head = _to_numpy(head)
+    names = {}
+    for name in head:
+        m = re.fullmatch(r"(lateral|conv)(\d+)", name)
+        if name == "lateral_fuse":
+            names[name] = f"lateral_convs.{fusion_level}.conv"
+        elif m:
+            names[name] = (f"lateral_convs.{m[2]}.conv" if m[1] == "lateral"
+                           else f"convs.{m[2]}.conv")
+        else:
+            names[name] = {"conv_seg": "conv_logits",
+                           "conv_embedding": "conv_embedding.conv"}[name]
+    return _convs(head, names)
+
+
+def mask_iou_head_state_dict(head: Dict[str, Any], head_cfg=None
+                             ) -> Dict[str, np.ndarray]:
+    """The JAX ``MaskIoUHead`` subtree → mmdet's names: ``conv{i}`` →
+    ``convs.{i}.conv``, ``fc{i}`` → ``fcs.{i}``, ``fc_mask_iou``; the dense
+    layer on the flattened map (the port head's ``flat_map_fcs``, built
+    from ``head_cfg`` on the meta device) has its input axis permuted from
+    the JAX HWC flattening to CHW."""
+    from ..models.registry import HEADS
+    from ..models.two_stage import build_submodule
+    head = _to_numpy(head)
+    cfg = dict(head_cfg or {}, type="MaskIoUHead")
+    with torch.device("meta"):
+        port_head = build_submodule(cfg, HEADS)
+    out: Dict[str, np.ndarray] = {}
+    for name, node in head.items():
+        m = re.fullmatch(r"(conv|fc)(\d+)", name)
+        if m and m[1] == "conv":
+            out.update(_convs(head, {name: f"convs.{m[2]}.conv"}))
+            continue
+        port = f"fcs.{m[2]}" if m else name
+        out[f"{port}.weight"] = _fc_w(node["kernel"],
+                                      port in port_head.flat_map_fcs,
+                                      port_head.flat_map_hw)
+        out[f"{port}.bias"] = node["bias"]
+    return out
+
+
+def grid_head_state_dict(head: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``GridHead`` subtree → the port head's names: ``conv{i}``
+    → ``convs.{i}.conv``, ``gn{i}`` (scale, bias) → ``convs.{i}.gn``,
+    ``deconv1`` / ``deconv2`` transposed and flipped (``_deconv_w``)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in _to_numpy(head).items():
+        m = re.fullmatch(r"(conv|gn)(\d+)", name)
+        if m is None:
+            out[f"{name}.weight"] = _deconv_w(node["kernel"])
+            out[f"{name}.bias"] = node["bias"]
+        elif m[1] == "conv":
+            out.update(_convs(head, {name: f"convs.{m[2]}.conv"}))
+        else:
+            out[f"convs.{m[2]}.gn.weight"] = node["scale"]
+            out[f"convs.{m[2]}.gn.bias"] = node["bias"]
+    return out
 
 
 def bbox_head_state_dict(head: Dict[str, Any], bbox_head_cfg=None
@@ -167,16 +297,18 @@ def bbox_head_state_dict(head: Dict[str, Any], bbox_head_cfg=None
 
 
 def mask_head_state_dict(head: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX ``FCNMaskHead`` subtree → the port head's ``state_dict``
-    arrays: ``conv{k}`` → ``convs.{k}.conv``, ``upsample`` transposed and
-    flipped (``_deconv_w``), ``conv_logits``."""
+    """The JAX ``FCNMaskHead`` or ``HTCMaskHead`` subtree → the port
+    head's ``state_dict`` arrays: ``conv{k}`` → ``convs.{k}.conv``,
+    ``conv_res`` → ``conv_res.conv``, ``upsample`` transposed and flipped
+    (``_deconv_w``), ``conv_logits``."""
     out: Dict[str, np.ndarray] = {}
     for name, node in _to_numpy(head).items():
         if name == "upsample":
             out["upsample.weight"] = _deconv_w(node["kernel"])
             out["upsample.bias"] = node["bias"]
             continue
-        port = re.sub(r"^conv(\d+)$", r"convs.\1.conv", name)
+        port = ("conv_res.conv" if name == "conv_res" else
+                re.sub(r"^conv(\d+)$", r"convs.\1.conv", name))
         out[f"{port}.weight"] = _conv_w(node["kernel"])
         out[f"{port}.bias"] = node["bias"]
     return out

@@ -469,31 +469,30 @@ def test_cascade_stages_refine(zoo_test):
 # ------------------------------------------------------------ refusals
 def _refused(what):
     cfg = base_cfg(1, True)
-    if what == "semantic":
-        return dict(cfg, type="HybridTaskCascade", semantic_head=dict(
-            type="FusedSemanticHead"))
-    if what == "per-stage masks":
-        return dict(cfg, type="HybridTaskCascade",
-                    mask_head=[cfg["mask_head"]] * 2)
-    if what in ("MaskIoUHead", "GridHead", "HTCMaskHead"):
-        return dict(cfg, mask_head=dict(type=what))
-    if what == "mask_iou_head":
-        return dict(cfg, type="MaskScoringRCNN",
-                    mask_iou_head=dict(type="MaskIoUHead"))
-    if what == "neck":
-        return dict(cfg, neck=dict(type="FPN"))
+    if what in ("dcn", "gcb", "gen_attention"):
+        plugin = {"dcn": dict(dcn=dict(modulated=False),
+                              stage_with_dcn=(False, True, True, False)),
+                  "gcb": dict(gcb=dict(ratio=1. / 4.),
+                              stage_with_gcb=(False, True, True, False)),
+                  "gen_attention": dict(
+                      gen_attention=dict(spatial_range=-1),
+                      stage_with_gen_attention=((), (), (0,), ()))}[what]
+        return dict(cfg, backbone=dict(cfg["backbone"], **plugin))
+    if what == "HRFPN":
+        return dict(cfg, neck=dict(type="HRFPN", in_channels=[18, 36],
+                                   out_channels=256))
     return dict(cfg, bbox_roi_extractor=dict(
         cfg["bbox_roi_extractor"], roi_layer=dict(type="RoIPool",
                                                   out_size=7)))
 
 
-@pytest.mark.parametrize("what", ["semantic", "per-stage masks",
-                                  "MaskIoUHead", "GridHead", "HTCMaskHead",
-                                  "mask_iou_head", "neck", "RoIPool"])
+@pytest.mark.parametrize("what", ["RoIPool", "dcn", "gcb", "gen_attention",
+                                  "HRFPN"])
 def test_not_ported_yet_is_refused(what):
     """What waits for a later slice raises "not ported yet" when the
-    engine is built: HTC's semantic branch and per-stage mask heads, the
-    MaskIoU, grid and HTC mask heads, the FPN neck and ``RoIPool``."""
+    engine is built: ``RoIPool``, the ResNet plugins (deformable
+    convolutions, the global context block, generalized attention) and the
+    HRNet neck ``HRFPN``."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         apis.build_detector(_refused(what), test_cfg=TEST_CFG, device="cpu")
 
