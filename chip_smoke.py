@@ -173,7 +173,21 @@ stops the script with a non-zero exit:
     depth (semantic head, each stage, each mask head), training on an
     image with a stride-8 ``gt_semantic_seg``: the neck, the semantic
     head and ``mask_head.2`` move.
-18. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+18. ``[dense]``: the single-stage dense detectors at full width
+    (``dense_configs``: mmdetection v1.0rc1's RetinaNet, FreeAnchor,
+    FCOS and FoveaBox R50-FPN at 800×1333 on 800×1344, SSD300 VGG16 at
+    300×300; 81 classes), seeded weights, frozen BNs calibrated on the
+    image and the heads' output convs drawn for it
+    (``dense_scale_heads``).  ``simple_test`` in f32 (and bf16 for
+    RetinaNet and FCOS): ms per image (CUDA events), stages (backbone +
+    FPN, head towers, decode + ``nms_pre``, NMS), peak memory; the card's
+    f32 result held to the port's CPU run on the card's maps on two
+    images (the head's outputs, then the picks with their labels, boxes
+    and scores, ``match_picks``); bf16 against f32 by depth; each
+    model's trainer through ``train_detector`` for 2 + 2 steps with
+    stage times, frozen tensors bitwise and trainable ones moved; no
+    attention launch and no cv2 import on the path.
+19. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -4156,6 +4170,562 @@ def phase_zoo(torch, np):
     return runs
 
 
+DENSE_SIZES = {"retina": ((800, 1333), (800, 1344)),
+               "free_anchor": ((800, 1333), (800, 1344)),
+               "fcos": ((800, 1333), (800, 1344)),
+               "fovea": ((800, 1333), (800, 1344)),
+               "ssd": ((300, 300), (300, 300))}
+DENSE_SOURCES = {
+    "retina": "configs/retinanet_r50_fpn_1x.py",
+    "free_anchor": "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x.py",
+    "fcos": "configs/fcos/fcos_r50_caffe_fpn_gn_1x_4gpu.py",
+    "fovea": "configs/foveabox/fovea_r50_fpn_4gpu_1x.py",
+    "ssd": "configs/ssd300_coco.py"}
+DENSE_BF16 = ("retina", "fcos")     # served in bf16 as well
+DENSE_CALLS = 3           # timed simple_test calls after one warm-up call
+DENSE_TRAIN_TIMED = 2     # timed training steps after TRAIN_WARMUP
+DENSE_HOLD_SEEDS = (0, 1)  # the images of the card-against-CPU hold
+# the card's f32 detections against the port's CPU run on the card's maps:
+# boxes at the CPU tests' limit (tests/test_torch_port_dense.py), scores at
+# [zoo]'s card limit of 1e-5, not the CPU tests' 2e-6: those heads are 16-
+# to 64-wide, these four towers of 256 (2304-long dot products each) whose
+# summation order the card and the CPU part: on the H100 two images per
+# model read 1.03e-6 (SSD300) to 2.41e-6 (FCOS, whose scores are products
+# of two sigmoids); boxes up to 2.44e-4 px
+DENSE_BOX_TOL, DENSE_SCORE_TOL = 1e-3, 1e-5
+# the head's outputs (logits, deltas) at every position, card against CPU
+# on the card's maps, max |Δ| / max(|CPU|, 1): 1.5e-6 (SSD300) to 4.3e-6
+# (FCOS) on the H100
+DENSE_HEAD_TOL = 1e-5
+DENSE_STAGES = ("backbone", "head", "loss", "backward", "optimizer")
+DENSE_TRAINED = {"ssd": ("backbone.", "bbox_head."),
+                 "fpn": ("backbone.layer2.", "backbone.layer3.",
+                         "backbone.layer4.", "neck.", "bbox_head.")}
+
+
+def dense_configs():
+    """The single-stage detectors at full width as mmdetection v1.0rc1's
+    configs have them (``Config`` objects, 81 classes): RetinaNet and
+    FreeAnchor R50-FPN (pytorch style, FPN from C3 with extra convs on C5),
+    FCOS R50-caffe-FPN-GN (extra convs on P5 through a ReLU, GroupNorm
+    towers), FoveaBox R50-FPN and SSD300 VGG16; each with its test_cfg,
+    train_cfg, img_norm_cfg and optimizer keys (FCOS's and FoveaBox's
+    ``grad_clip=None`` left out: the port clips at 35 without one)."""
+    from hvrnet_tpu_torch.utils.config import Config
+
+    def resnet(style):
+        return dict(type="ResNet", depth=50, num_stages=4,
+                    strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+                    out_indices=(0, 1, 2, 3), frozen_stages=1, style=style)
+
+    def fpn(**extra):
+        return dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                    out_channels=256, start_level=1, add_extra_convs=True,
+                    num_outs=5, **extra)
+
+    strides = [8, 16, 32, 64, 128]
+    focal = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+                 loss_weight=1.0)
+    assigner = dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                                  neg_iou_thr=0.4, min_pos_iou=0,
+                                  ignore_iof_thr=-1),
+                    allowed_border=-1, pos_weight=-1, debug=False)
+    test = dict(nms_pre=1000, min_bbox_size=0, score_thr=0.05,
+                nms=dict(type="nms", iou_thr=0.5), max_per_img=100)
+    pytorch_norm = dict(mean=[123.675, 116.28, 103.53],
+                        std=[58.395, 57.12, 57.375], to_rgb=True)
+    sgd = dict(optimizer=dict(type="SGD", lr=0.01, momentum=0.9,
+                              weight_decay=0.0001),
+               lr_config=dict(policy="step", warmup="linear",
+                              warmup_iters=500, warmup_ratio=1.0 / 3,
+                              step=[8, 11]))
+
+    def retina_head(kind, stds, loss_weight):
+        return dict(type=kind, num_classes=81, in_channels=256,
+                    stacked_convs=4, feat_channels=256, octave_base_scale=4,
+                    scales_per_octave=3, anchor_ratios=[0.5, 1.0, 2.0],
+                    anchor_strides=strides, target_means=[.0] * 4,
+                    target_stds=stds, loss_cls=focal,
+                    loss_bbox=dict(type="SmoothL1Loss", beta=0.11,
+                                   loss_weight=loss_weight))
+
+    clip = dict(optimizer_config=dict(grad_clip=dict(max_norm=35,
+                                                     norm_type=2)))
+    cfgs = {
+        "retina": dict(model=dict(
+            type="RetinaNet", backbone=resnet("pytorch"), neck=fpn(),
+            bbox_head=retina_head("RetinaHead", [1.0] * 4, 1.0)),
+            train_cfg=assigner, test_cfg=test, img_norm_cfg=pytorch_norm,
+            **sgd, **clip),
+        "free_anchor": dict(model=dict(
+            type="RetinaNet", backbone=resnet("pytorch"), neck=fpn(),
+            bbox_head=retina_head("FreeAnchorRetinaHead",
+                                  [0.1, 0.1, 0.2, 0.2], 0.75)),
+            train_cfg=assigner, test_cfg=test, img_norm_cfg=pytorch_norm,
+            **sgd, **clip),
+        "fcos": dict(model=dict(
+            type="FCOS", backbone=resnet("caffe"),
+            neck=fpn(extra_convs_on_inputs=False,
+                     relu_before_extra_convs=True),
+            bbox_head=dict(
+                type="FCOSHead", num_classes=81, in_channels=256,
+                stacked_convs=4, feat_channels=256, strides=strides,
+                loss_cls=focal, loss_bbox=dict(type="IoULoss",
+                                               loss_weight=1.0),
+                loss_centerness=dict(type="CrossEntropyLoss",
+                                     use_sigmoid=True, loss_weight=1.0))),
+            train_cfg=assigner, test_cfg=test,
+            img_norm_cfg=dict(mean=[102.9801, 115.9465, 122.7717],
+                              std=[1.0, 1.0, 1.0], to_rgb=False),
+            optimizer=dict(sgd["optimizer"], paramwise_options=dict(
+                bias_lr_mult=2., bias_decay_mult=0.)),
+            lr_config=dict(sgd["lr_config"], warmup="constant")),
+        "fovea": dict(model=dict(
+            type="FOVEA", backbone=resnet("pytorch"), neck=fpn(),
+            bbox_head=dict(
+                type="FoveaHead", num_classes=81, in_channels=256,
+                stacked_convs=4, feat_channels=256, strides=strides,
+                base_edge_list=[16, 32, 64, 128, 256],
+                scale_ranges=((1, 64), (32, 128), (64, 256), (128, 512),
+                              (256, 2048)),
+                sigma=0.4, with_deform=False,
+                loss_cls=dict(focal, gamma=1.50, alpha=0.4),
+                loss_bbox=dict(type="SmoothL1Loss", beta=0.11,
+                               loss_weight=1.0))),
+            train_cfg=dict(), test_cfg=dict(
+                nms_pre=1000, score_thr=0.05,
+                nms=dict(type="nms", iou_thr=0.5), max_per_img=100),
+            img_norm_cfg=pytorch_norm, **sgd),
+        "ssd": dict(model=dict(
+            type="SingleStageDetector",
+            backbone=dict(type="SSDVGG", input_size=300, depth=16,
+                          with_last_pool=False, ceil_mode=True,
+                          out_indices=(3, 4), out_feature_indices=(22, 34),
+                          l2_norm_scale=20),
+            neck=None,
+            bbox_head=dict(type="SSDHead", input_size=300,
+                           in_channels=(512, 1024, 512, 256, 256, 256),
+                           num_classes=81,
+                           anchor_strides=(8, 16, 32, 64, 100, 300),
+                           basesize_ratio_range=(0.15, 0.9),
+                           anchor_ratios=([2], [2, 3], [2, 3], [2, 3], [2],
+                                          [2]),
+                           target_means=(.0, .0, .0, .0),
+                           target_stds=(0.1, 0.1, 0.2, 0.2))),
+            train_cfg=dict(assigner=dict(type="MaxIoUAssigner",
+                                         pos_iou_thr=0.5, neg_iou_thr=0.5,
+                                         min_pos_iou=0., ignore_iof_thr=-1,
+                                         gt_max_assign_all=False),
+                           smoothl1_beta=1., allowed_border=-1, pos_weight=-1,
+                           neg_pos_ratio=3, debug=False),
+            test_cfg=dict(nms=dict(type="nms", iou_thr=0.45), min_bbox_size=0,
+                          score_thr=0.02, max_per_img=200),
+            img_norm_cfg=dict(mean=[123.675, 116.28, 103.53], std=[1, 1, 1],
+                              to_rgb=True),
+            optimizer=dict(type="SGD", lr=2e-3, momentum=0.9,
+                           weight_decay=5e-4),
+            optimizer_config=dict(),
+            lr_config=dict(policy="step", warmup="linear", warmup_iters=500,
+                           warmup_ratio=1.0 / 3, step=[16, 22]))}
+    return {name: Config(c) for name, c in cfgs.items()}
+
+
+def dense_image(np, name, cfg, seed=0):
+    """The model's operating size: a synthetic BGR scene of its content size
+    normalised by its ``img_norm_cfg`` onto its canvas, as from a 1280×768
+    original (RetinaNet's family: the keep-ratio resize to 1333×800, scale
+    1.0414; SSD: 300×300, scales 0.234 and 0.391); (img (1, H, W, 3),
+    img_shape, pad_shape, scale_factor (4,))."""
+    content, canvas = DENSE_SIZES[name]
+    norm = cfg.img_norm_cfg
+    scene = synthetic_image(np, content, seed).astype(np.float32)
+    if norm.to_rgb:
+        scene = scene[..., ::-1]
+    scene = (scene - np.float32(norm.mean)) / np.float32(norm.std)
+    img = np.zeros((1,) + canvas + (3,), np.float32)
+    img[0, :content[0], :content[1]] = scene
+    sx = content[1] / 1280
+    sy = sx if name != "ssd" else content[0] / 768
+    return (img, np.array(content, np.float32), np.array(canvas, np.float32),
+            np.array([sx, sy, sx, sy], np.float32))
+
+
+# each output conv's logits (or deltas) drawn to this std on the model's
+# image; the sigmoid classifiers keep their prior bias −log(99), so a few
+# per cent of their scores clear 0.05, and SSD's background logits get a
+# bias of DENSE_SSD_BG_BIAS, so that a few per cent of its foreground
+# scores clear 0.02 (as a trained detector's mostly-background anchors: a
+# few hundred candidates per class reach the NMS)
+DENSE_DRAW = {"retina_cls": 1.0, "retina_reg": 0.5, "fcos_cls": 1.5,
+              "fcos_reg": 0.5, "fcos_centerness": 1.0, "fovea_cls": 1.0,
+              "fovea_reg": 0.5, "cls_convs": 1.0, "reg_convs": 0.5}
+DENSE_SSD_BG_BIAS = 5.0
+
+
+def dense_output_convs(head):
+    """(name, conv) of a dense head's output convs: the classifier, the
+    regressor (FCOS: and the centerness), or SSD's per-level pairs."""
+    from hvrnet_tpu_torch.models.anchor_heads.dense_heads import SSDHead
+    if isinstance(head, SSDHead):
+        return [(f"{b}.{i}", c) for b in ("cls_convs", "reg_convs")
+                for i, c in enumerate(getattr(head, b))]
+    return [(n, getattr(head, n)) for n in DENSE_DRAW if hasattr(head, n)
+            and n not in ("cls_convs", "reg_convs")]
+
+
+def dense_scale_heads(torch, np, engine, name, cfg, seed=0):
+    """The head's output convs drawn for the image: each one's seeded
+    normal kernel scaled so that on its inputs (every level's, from one
+    forward pass on the model's image) its outputs have the std of
+    ``DENSE_DRAW``; biases kept (the classifiers' prior, zeros elsewhere)
+    but SSD's background logits', set to DENSE_SSD_BG_BIAS.  At the init
+    (std 0.01; He-normal for SSD) the scores sit at the prior's 0.01, below
+    every score_thr, or saturate."""
+    import torch.nn.functional as F
+    x = dense_image(np, name, cfg)
+    head = engine.model.bbox_head
+    gen = torch.Generator().manual_seed(seed)
+    convs = dense_output_convs(head)
+    inputs = {n: [] for n, _ in convs}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, n=n: inputs[n].append(args[0])) for n, m in convs]
+    try:
+        with torch.no_grad():
+            head(engine.backbone_maps(*x[:2]))
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for n, conv in convs:
+            w = torch.randn(conv.weight.shape, generator=gen).to(
+                conv.weight.device)
+            out = torch.cat([F.conv2d(i.float(), w, None, conv.stride,
+                                      conv.padding).flatten()
+                             for i in inputs[n]])
+            conv.weight.copy_(w * (DENSE_DRAW[n.split(".")[0]] / out.std()))
+            if n.startswith("cls_convs"):
+                conv.bias[::engine.num_classes] = DENSE_SSD_BG_BIAS
+
+
+def dense_engines(torch, np, name, cfg):
+    """The f32 serving engine on seeded weights (frozen BNs calibrated on
+    the image, the output convs drawn for it) and, for DENSE_BF16, a bf16
+    one on the same weights, the head's weights pre-cast."""
+    from hvrnet_tpu_torch.apis import build_detector
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    t0 = time.time()
+    img, ish = dense_image(np, name, cfg)[:2]
+    engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
+    n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
+    dense_scale_heads(torch, np, engine, name, cfg)
+    engine16 = None
+    if name in DENSE_BF16:
+        engine16 = build_detector(cfg.model, test_cfg=cfg.test_cfg,
+                                  device="cuda", dtype=torch.bfloat16)
+        engine16.load_state_dict(engine.model.state_dict())
+        engine16.cast_head_params_bf16()
+    log(f"[dense] {type(engine).__name__} ({engine.head_type}) from "
+        f"mmdetection v1.0rc1's {DENSE_SOURCES[name]}: "
+        f"{engine.num_classes} classes, {n_bn} frozen BNs calibrated on the "
+        f"{DENSE_SIZES[name][0][1]}x{DENSE_SIZES[name][0][0]} image, output "
+        f"convs drawn for it; f32" + (" and bf16" if engine16 else "")
+        + f" engines in {time.time() - t0:.1f} s")
+    return engine, engine16
+
+
+def dense_serving(torch, np, engine, name, cfg, tag):
+    """``simple_test`` on the operating-size image: one warm-up call, then
+    DENSE_CALLS timed by CUDA events with the peak memory; one more call
+    with the engine's stage timer (backbone + FPN, head towers, decode +
+    ``nms_pre``, class-wise NMS).  The attention kernel's count is set to
+    0 before the warm-up and read after the last call: no launch.  Checks
+    finite boxes, scores in [score_thr, 1] and labels in range.  Returns
+    (run, the output)."""
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    x = dense_image(np, name, cfg)
+    thr = float(engine.decode_cfg["score_thr"])
+    masked_attention.launches = 0
+    engine.simple_test(*x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: engine.simple_test(*x), iters=DENSE_CALLS,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    engine.timer = PhaseTimer(torch)
+    out = engine.simple_test(*x)
+    stages = {k: engine.timer.mean_ms(k) for k in engine.timer.spans}
+    engine.timer = None
+    launches = masked_attention.launches
+    if launches:
+        raise RuntimeError(f"[dense] {tag}: {launches} attention launches")
+    dets, labels, keep = (t.cpu().numpy() for t in out)
+    kept = dets[keep]
+    ok = (np.isfinite(kept).all()
+          and ((kept[:, 4] >= thr) & (kept[:, 4] <= 1)).all()
+          and ((labels[keep] >= 0)
+               & (labels[keep] < engine.num_classes - 1)).all())
+    run = dict(ms=ms, peak_gib=peak, stages_ms=stages, kept=int(keep.sum()),
+               launches=launches)
+    log(f"[dense] {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
+        f"{DENSE_SIZES[name][1]} canvas (CUDA events, mean of {DENSE_CALLS} "
+        f"after a warm-up); stages ms " + json.dumps(
+            {k: round(v, 3) for k, v in stages.items()})
+        + f"; peak device memory {peak:.2f} GiB; {len(kept)} detections "
+        f"kept; valid rows: {ok}; attention launches {launches}")
+    if not (ok and len(kept)):
+        raise RuntimeError(f"[dense] {tag}: simple_test gave no or invalid "
+                           "detections")
+    return run, out
+
+
+def match_picks(got, want, box_tol, score_tol):
+    """Pairs two runs' kept detections (dets, labels, mask): the same
+    label, boxes within ``box_tol``, scores within ``score_tol``, each
+    pick of ``got`` in row order taking the nearest free row of ``want``.
+    Returns (pairs (i, j), got's unmatched rows, want's unmatched rows)."""
+    g_rows = got[2].nonzero()[:, 0].tolist()
+    free = want[2].nonzero()[:, 0].tolist()
+    pairs, lone = [], []
+    for i in g_rows:
+        hits = [j for j in free if int(want[1][j]) == int(got[1][i])
+                and (want[0][j, :4] - got[0][i, :4]).abs().max() <= box_tol
+                and abs(float(want[0][j, 4] - got[0][i, 4])) <= score_tol]
+        if hits:
+            j = min(hits, key=lambda j: abs(j - i))
+            free.remove(j)
+            pairs.append((i, j))
+        else:
+            lone.append(i)
+    return pairs, lone, free
+
+
+def dense_cpu_hold(torch, np, engine, name, cfg):
+    """The card's f32 ``simple_test`` against the port's CPU run of the same
+    weights, both fed the card's neck (or backbone) maps, on each image of
+    DENSE_HOLD_SEEDS: the head's outputs at every position within
+    DENSE_HEAD_TOL of max(|CPU|, 1); the same picks with the same labels,
+    boxes within DENSE_BOX_TOL px and scores within DENSE_SCORE_TOL
+    (``match_picks``), in the same rows except where two picks' scores lie
+    within DENSE_SCORE_TOL of each other (an order the rounding may swap);
+    a pick without a partner only where both runs fill ``max_per_img`` and
+    its score is within DENSE_SCORE_TOL of the last kept (the quota's edge,
+    where a candidate just below may take its place).  First, the card's
+    maps against the CPU's own on the first image (max |Δ| / max |CPU| per
+    level within ZOO_FPN_TOL).  Returns the worst differences and the
+    counts of reordered and edge picks."""
+    from hvrnet_tpu_torch.apis import build_detector
+    cpu = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
+    cpu.load_state_dict(host_state_dict(engine))
+    x = dense_image(np, name, cfg)
+    with torch.no_grad():
+        card = engine.backbone_maps(*x[:2])
+        want = cpu.backbone_maps(*x[:2])
+    map_err = max(((c.cpu() - w).abs().max() / w.abs().max()).item()
+                  for c, w in zip(card, want))
+    log(f"[dense] {type(engine).__name__} f32 maps on the card against the "
+        f"port's CPU run of the same backbone"
+        + (" and neck" if engine.model.neck is not None else "")
+        + f": worst level max |Δ|/max|CPU| {map_err:.3g} (limit "
+        f"{ZOO_FPN_TOL})")
+    if map_err > ZOO_FPN_TOL:
+        raise RuntimeError(f"[dense] the card's {name} maps are not the "
+                           "CPU's")
+    real = engine.backbone_maps
+    worst = dict(maps=map_err, head=0.0, box=0.0, score=0.0, reordered=0,
+                 edge=0)
+    for seed in DENSE_HOLD_SEEDS:
+        x = dense_image(np, name, cfg, seed)
+        with torch.no_grad():
+            maps = real(*x[:2])
+            host = to_device(maps, "cpu")
+            head = max(((a.cpu() - b).abs().max()
+                        / b.abs().max().clamp_min(1.0)).item()
+                       for a, b in zip(sum(engine.model.bbox_head(maps), ()),
+                                       sum(cpu.model.bbox_head(host), ())))
+        cpu.backbone_maps = lambda img, ish: host
+        engine.backbone_maps = lambda img, ish: maps
+        try:
+            got = [t.cpu() for t in engine.simple_test(*x)]
+        finally:
+            engine.backbone_maps = real
+        want = cpu.simple_test(*x)
+        pairs, lone_g, lone_w = match_picks(got, want, DENSE_BOX_TOL,
+                                            DENSE_SCORE_TOL)
+        full = bool(got[2].all() and want[2].all())
+        last = min(got[0][got[2], 4].min(), want[0][want[2], 4].min())
+        at_edge = all(full and float(d[r, 4] - last) <= DENSE_SCORE_TOL
+                      for d, rows in ((got[0], lone_g), (want[0], lone_w))
+                      for r in rows)
+        swapped = [(i, j) for i, j in pairs if i != j]
+        tie = all(abs(float(want[0][i, 4] - want[0][j, 4]))
+                  <= DENSE_SCORE_TOL for i, j in swapped)
+        box = max((got[0][i, :4] - want[0][j, :4]).abs().max().item()
+                  for i, j in pairs) if pairs else 0.0
+        score = max(abs(float(got[0][i, 4] - want[0][j, 4]))
+                    for i, j in pairs) if pairs else 0.0
+        same = (int(got[2].sum()) == int(want[2].sum()) and at_edge and tie)
+        worst = dict(maps=map_err, head=max(worst["head"], head),
+                     box=max(worst["box"], box),
+                     score=max(worst["score"], score),
+                     reordered=max(worst["reordered"], len(swapped)),
+                     edge=max(worst["edge"], len(lone_g)))
+        log(f"[dense] {type(engine).__name__} {engine.head_type} f32 on the "
+            f"card against the port's CPU run on the card's maps, image "
+            f"seed {seed}: head outputs max |Δ|/max(|CPU|, 1) {head:.3g} "
+            f"(limit {DENSE_HEAD_TOL}); {len(pairs)} of {int(want[2].sum())} "
+            f"picks matched (label, box, score), {len(swapped)} of them in "
+            f"other rows across a score tie within {DENSE_SCORE_TOL}, "
+            f"{len(lone_g)} / {len(lone_w)} unmatched at the quota's edge; "
+            f"max |Δbox| {box:.3g} px (limit {DENSE_BOX_TOL}), max |Δscore| "
+            f"{score:.3g} ({DENSE_SCORE_TOL}); held {same}")
+        if not (same and pairs and head <= DENSE_HEAD_TOL):
+            raise RuntimeError(f"[dense] {name}, image seed {seed}: the "
+                               "card's f32 result is not the CPU's")
+    return worst
+
+
+def dense_bf16_hold(torch, np, engine, engine16, name, cfg):
+    """bf16 against f32 by depth on the model's image: the bf16 engine's
+    neck maps against the f32 ones (max |Δ|/max|f32| per level, reported),
+    then the bf16 head on the f32 maps against the f32 head within the
+    bf16 budget (``head_budget``: the classifier logits, and FCOS's
+    centerness, as the cls; the deltas, FCOS's log-distances, as the
+    reg)."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    x = dense_image(np, name, cfg)
+    with torch.no_grad(), f32_precision():
+        maps = engine.backbone_maps(*x[:2])
+        maps16 = engine16.backbone_maps(*x[:2])
+        depth = [((m16.float() - m).abs().max() / m.abs().max()).item()
+                 for m16, m in zip(maps16, maps)]
+        want = engine.model.bbox_head(maps)
+        got = engine16.model.bbox_head(maps)
+
+    def cls_reg(out):
+        if len(out) == 3:       # FCOS: logits and centerness; log-distances
+            return list(out[0]) + list(out[2]), [torch.log(r) for r in out[1]]
+        return list(out[0]), list(out[1])
+
+    cls, reg = head_budget(cls_reg(got), cls_reg(want))
+    log(f"[dense] {type(engine).__name__} {engine.head_type} bf16 by depth: "
+        f"neck maps max |Δ|/max|f32| per level "
+        + ", ".join(f"{d:.3g}" for d in depth)
+        + f"; the bf16 head on the f32 maps: max |Δcls|/max(|cls|, 1) "
+        f"{cls:.3g}, max |Δreg| {reg:.3g} (limits {BF16_CLS_BUDGET}, "
+        f"{BF16_REG_BUDGET})")
+    if not (cls <= BF16_CLS_BUDGET and reg <= BF16_REG_BUDGET
+            and all(np.isfinite(depth))):
+        raise RuntimeError(f"[dense] the bf16 {name} head is outside the "
+                           "bf16 budget")
+    return dict(maps=depth, cls=cls, reg=reg)
+
+
+def dense_train_batch(np, name, cfg, seed=4):
+    """One image of the model's operating size in the video layout (1
+    frame) with ground truths: for the FPN models 4 boxes of 0.1-0.5 of
+    the content; for SSD300 one per level, each of its level's anchor size
+    and centred on one of its anchors, so that every level's output convs
+    (SSD's are per level) get a positive and move."""
+    img, ish, psh, _ = dense_image(np, name, cfg, seed)
+    rng = np.random.default_rng(seed)
+    ch, cw = DENSE_SIZES[name][0]
+    if name == "ssd":
+        # per level a square of about its anchors' geometric mean size
+        # (21-315 px) on the level's anchor centre nearest the middle
+        boxes = []
+        for s, st in zip((30, 70, 125, 180, 235, 280),
+                         (8, 16, 32, 64, 100, 300)):
+            c = (st - 1) / 2 + st * (-(-300 // st) // 2)
+            boxes.append([c - s / 2, c - s / 2, c + s / 2 - 1,
+                          c + s / 2 - 1])
+        boxes = np.array(boxes, np.float32)[None]
+    else:
+        g = 4
+        boxes = np.zeros((1, g, 4), np.float32)
+        for i in range(g):
+            bw, bh = rng.uniform(0.1, 0.5) * cw, rng.uniform(0.1, 0.5) * ch
+            x0, y0 = rng.uniform(0, cw - bw), rng.uniform(0, ch - bh)
+            boxes[0, i] = [x0, y0, x0 + bw - 1, y0 + bh - 1]
+    g = boxes.shape[1]
+    return dict(imgs=img, gt_bboxes=boxes,
+                gt_labels=rng.integers(1, 81, (1, g)),
+                gt_mask=np.ones((1, g), bool), img_shape=ish[None],
+                pad_shape=psh[None])
+
+
+def dense_training(torch, np, name, cfg):
+    """The model's trainer through ``train_detector`` at full width (f32)
+    for TRAIN_WARMUP + DENSE_TRAIN_TIMED steps on one synthetic image,
+    frozen BNs calibrated on it: finite losses, ``num_pos`` ≥ 1 where the
+    trainer logs it, no attention launch, stage times (backbone and neck,
+    head, loss, backward, optimizer), frozen tensors bitwise (the stem and
+    ``layer1``, every frozen-BN statistic) and every trainable one moved
+    (the neck and the head's output convs among them)."""
+    import shutil
+    from hvrnet_tpu_torch.models.registry import DETECTORS
+    work_dir = ROOT / "build" / f"chip_smoke_dense_{name}"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    batch = dense_train_batch(np, name, cfg)
+    c = cfg.as_dict()
+    engine = calibrated_training_engine(
+        torch, DETECTORS.get(c["model"]["type"]), c, batch,
+        f"[dense] {name} train", "VGG16" if name == "ssd" else "R50-FPN")
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    trainer, summary = timed_training(
+        torch, np, engine, batch, c, work_dir, DENSE_STAGES,
+        f"[dense] {name} train", 0, timed=DENSE_TRAIN_TIMED)
+    logs = [json.loads(line) for line in
+            (work_dir / "train_log.jsonl").read_text().splitlines()]
+    n_pos = [lg["num_pos"] for lg in logs if "num_pos" in lg]
+    log(f"[dense] {type(engine).__name__} {engine.head_type} training via "
+        f"{type(trainer).__name__} ({CARD}): {summary['step_ms']:.3f} "
+        f"ms/step (CUDA events), peak device memory "
+        f"{summary['peak_gib']:.2f} GiB; num_pos per step {n_pos}")
+    if n_pos and min(n_pos) < 1:
+        raise RuntimeError(f"[dense] {name} trained without positives")
+    check_train_weights(torch, engine, before, f"[dense] {name} train",
+                        DENSE_TRAINED["ssd" if name == "ssd" else "fpn"])
+    summary["trainer"] = type(trainer).__name__
+    shutil.rmtree(work_dir, ignore_errors=True)
+    del engine, trainer
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_dense(torch, np):
+    """The single-stage detectors at full width (``dense_configs``): per
+    model, f32 ``simple_test`` (and bf16 for DENSE_BF16) with times,
+    stages and peak memory; the card's f32 result held to the port's CPU
+    run on the card's maps on DENSE_HOLD_SEEDS; bf16 against f32 by depth;
+    the model's trainer for 2 + 2 steps; no attention launch and no cv2
+    on the path.  Returns the runs, each with its attention launches (0)."""
+    runs = {}
+    for name, cfg in dense_configs().items():
+        t0 = time.time()
+        engine, engine16 = dense_engines(torch, np, name, cfg)
+        for eng in (engine, engine16):
+            if eng is None:
+                continue
+            tag = f"{name} {str(eng.dtype)[6:]}"
+            runs[f"dense {tag}"] = dense_serving(torch, np, eng, name, cfg,
+                                                 f"{type(eng).__name__} "
+                                                 f"{tag}")[0]
+        runs[f"dense {name} float32"]["cpu_hold"] = dense_cpu_hold(
+            torch, np, engine, name, cfg)
+        if engine16 is not None:
+            runs[f"dense {name} bfloat16"]["bf16_hold"] = dense_bf16_hold(
+                torch, np, engine, engine16, name, cfg)
+        del engine, engine16
+        torch.cuda.empty_cache()
+        runs[f"dense {name} train"] = dense_training(torch, np, name, cfg)
+        log(f"[dense] {name}: {time.time() - t0:.1f} s")
+    if "cv2" in sys.modules:
+        raise RuntimeError("[dense] the dense detectors' path imported cv2")
+    log("[dense] no attention launch in any serving or training run and no "
+        "cv2 import on the path")
+    return runs
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -4245,7 +4815,9 @@ def route_summary(cases, runs, dtype):
              "63 --multi-pass 3 over the 40-frame video, 3 per detection, "
              "beside the exact ring's 4; trace: test --trace --timing over "
              "8 frames, 4 per detection; zoo: Cascade R-CNN, Mask R-CNN "
-             "and HTC serving and training, 0: no relation head)",
+             "and HTC serving and training, 0: no relation head; dense: "
+             "RetinaNet, FreeAnchor, FCOS, FoveaBox and SSD300 serving and "
+             "training, 0: no relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -4307,6 +4879,8 @@ def main() -> int:
     lap("[image]")
     zoo = phase_zoo(torch, np)
     lap("[zoo]")
+    dense = phase_dense(torch, np)
+    lap("[dense]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -4337,12 +4911,14 @@ def main() -> int:
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
             **multipass, "trace": traced, **image,
-            **{k: v for k, v in zoo.items() if "bfloat16" not in k}}
+            **{k: v for k, v in {**zoo, **dense}.items()
+               if "bfloat16" not in k}}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
               **multipass16, **image16,
-              **{k: v for k, v in zoo.items() if "bfloat16" in k}}
+              **{k: v for k, v in {**zoo, **dense}.items()
+                 if "bfloat16" in k}}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,8 +19,12 @@ keys reach the trainer.  The engine's type picks the trainer:
 ``SelsaTrainer``, ``FasterRCNN`` and ``FastRCNN`` →
 ``FasterRCNNTrainer``, the multi-stage zoo (``CascadeRCNN``,
 ``MaskRCNN``, ``HybridTaskCascade``, ``MaskScoringRCNN``, ``GridRCNN``,
-``DoubleHeadRCNN``) → ``TwoStageTrainer``.  The still-image trainers'
-samples may also be still images: ``img`` (H, W, 3), ``gt_bboxes`` (G,
+``DoubleHeadRCNN``) → ``TwoStageTrainer``, and the single-stage
+engines (``RetinaNet``, ``SingleStageDetector``, ``FCOS``, ``FOVEA``) by
+their head: ``FCOSHead`` → ``FCOSTrainer``, ``FoveaHead`` →
+``FoveaTrainer``, ``FreeAnchorRetinaHead`` → ``FreeAnchorTrainer``,
+``SSDHead`` → ``SSDTrainer``, any other → ``RetinaTrainer``.  The
+still-image trainers' samples may also be still images: ``img`` (H, W, 3), ``gt_bboxes`` (G,
 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape`` and ``pad_shape``
 (2,), for a mask head ``gt_masks`` (G, H, W), and for HTC's semantic
 branch ``gt_semantic_seg`` (h, w) at its fusion level's stride, 255 where
@@ -50,9 +54,14 @@ from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
 from .engine.detector import FasterRCNN, HNMBRCNN, SelsaRCNN
 from .engine.multi_stage import MultiStageEngine
+from .engine.single_stage import (FCOS, FOVEA, RetinaNet,
+                                  SingleStageDetector, SingleStageEngine)
 from .engine.stream import train_batch_iterator
 from .engine.train import (FasterRCNNTrainer, HNMBTrainer, SelsaTrainer,
                            still_image)
+from .engine.train_fcos import FCOSTrainer, FoveaTrainer
+from .engine.train_single_stage import (FreeAnchorTrainer, RetinaTrainer,
+                                        SSDTrainer)
 from .engine.train_two_stage import TwoStageTrainer
 from .models.registry import DETECTORS
 from .utils.checkpoint import (load_checkpoint, resolve_checkpoint,
@@ -66,8 +75,9 @@ def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    dtype: torch.dtype = torch.float32, device="cuda",
                    seed: int = 0):
     """The engine of ``model_cfg['type']`` (``HNMBRCNN``, ``HNLRCNN``,
-    ``SelsaRCNN``, ``FasterRCNN``, ``FastRCNN`` or a multi-stage zoo
-    engine on the C4 trunk or an FPN, ``engine/multi_stage.py``) computing
+    ``SelsaRCNN``, ``FasterRCNN``, ``FastRCNN``, a multi-stage zoo
+    engine on the C4 trunk or an FPN, ``engine/multi_stage.py``, or a
+    single-stage one, ``engine/single_stage.py``) computing
     in ``dtype``, with seeded random weights: a serving engine with a
     ``test_cfg``, a training engine with a ``train_cfg``."""
     model_cfg = unwrap(model_cfg)
@@ -163,9 +173,14 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         trainer_cls = FasterRCNNTrainer
     elif isinstance(engine, MultiStageEngine):
         trainer_cls = TwoStageTrainer
+    elif isinstance(engine, (RetinaNet, SingleStageDetector, FCOS, FOVEA)):
+        trainer_cls = {"FCOSHead": FCOSTrainer, "FoveaHead": FoveaTrainer,
+                       "FreeAnchorRetinaHead": FreeAnchorTrainer,
+                       "SSDHead": SSDTrainer}.get(engine.head_type,
+                                                  RetinaTrainer)
     else:
-        raise NotImplementedError(f"no port trainer for "
-                                  f"{type(engine).__name__}")
+        raise ValueError(f"no training objective registered for detector "
+                         f"type {type(engine).__name__!r}")
     os.makedirs(work_dir, exist_ok=True)
     steps_per_epoch = steps_per_epoch or max(len(data), 1)
     trainer = trainer_cls(engine, cfg, steps_per_epoch, seed)
@@ -296,10 +311,12 @@ def detect_image(engine, x: Dict[str, Any]):
     ``engine.window`` frames (on HVRNet the final branch); ``FasterRCNN``
     runs ``simple_test``.  Returns (dets (max, 5) in original-image
     coordinates, labels (max,), mask (max,)) on the engine's device.  A
-    multi-stage engine raises ``ValueError`` (the JAX API cannot run it
-    either): call its ``simple_test``."""
-    if isinstance(engine, MultiStageEngine):
-        raise ValueError(f"inference_detector does not run the multi-stage "
+    multi-stage or single-stage engine raises ``ValueError`` (the JAX API
+    cannot run it either): call its ``simple_test``."""
+    if isinstance(engine, (MultiStageEngine, SingleStageEngine)):
+        kind = ("multi-stage" if isinstance(engine, MultiStageEngine)
+                else "single-stage")
+        raise ValueError(f"inference_detector does not run the {kind} "
                          f"engine {type(engine).__name__}: call its "
                          f"simple_test on an image_input")
     if not hasattr(engine, "window_detect"):

@@ -91,9 +91,9 @@ def f32_precision():
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """Random weights from a seed, with the JAX package's init scheme:
     He-normal convolutions (a transposed one's fan-in is its input
-    channels × its kernel area), normal(0, 0.01) dense layers (a layer's
-    ``init_std`` where it has one) and RPN convs, zero biases, identity
-    frozen BNs."""
+    channels × its kernel area), normal(0, 0.01) dense layers and RPN
+    convs (a layer's ``init_std`` where it has one), zero biases (a
+    conv's ``init_bias`` where it has one), identity frozen BNs."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -105,6 +105,7 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                 fan_in = m.weight[0].numel()
                 std = (0.01 if name.startswith("rpn_head")
                        or "linear_out" in name else (2.0 / fan_in) ** 0.5)
+                std = getattr(m, "init_std", std)
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
             elif isinstance(m, torch.nn.Linear):
                 std = getattr(m, "init_std", 0.01)
@@ -116,7 +117,7 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                     getattr(m, buf).fill_(val)
             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
                               torch.nn.Linear)) and m.bias is not None:
-                m.bias.zero_()
+                m.bias.fill_(getattr(m, "init_bias", 0.0))
 
 
 def _rpn_candidates(cls_map, reg_map, canvas: Canvas, pad_shape, img_shape,
@@ -198,6 +199,16 @@ class BaseEngine:
         self.model = self._build_model(model_cfg, dtype).eval()
         init_weights(self.model, seed)
         self.model.to(self.device)
+        self._setup_heads(model_cfg)
+        # uint8 frames are normalised on the device with the shipped
+        # configs' img_norm_cfg
+        self.img_norm = dict(mean=(103.06, 115.90, 123.15),
+                             std=(1.0, 1.0, 1.0))
+        self._canvases: Dict[tuple, Canvas] = {}
+
+    def _setup_heads(self, model_cfg: Dict[str, Any]) -> None:
+        """The two-stage engines' RoI extractor, bbox head constants, RPN
+        anchors and proposal count."""
         self.roi_extractor = build_roi_extractor(
             model_cfg["bbox_roi_extractor"])
         heads = model_cfg["bbox_head"]
@@ -213,11 +224,6 @@ class BaseEngine:
         self.anchor_stride = int(rh.get("anchor_strides", [16])[0])
         self.proposal_num = (int(self.test_cfg["rpn"]["nms_post"])
                              if self.test_cfg else 300)
-        # uint8 frames are normalised on the device with the shipped
-        # configs' img_norm_cfg
-        self.img_norm = dict(mean=(103.06, 115.90, 123.15),
-                             std=(1.0, 1.0, 1.0))
-        self._canvases: Dict[tuple, Canvas] = {}
 
     def _head_config(self, model_cfg: Dict[str, Any]) -> Dict[str, Any]:
         """The model config with the test config's ``bbox_head`` t_dim and

@@ -72,14 +72,16 @@ class BaseTrainer:
 
     freeze_backbone = False
     freeze_rpn = False
+    # the optimizer and schedule of a config without those keys
+    default_optimizer = dict(lr=2.5e-4, momentum=0.9, weight_decay=1e-4)
+    default_lr_config = dict(step=[12], warmup_iters=500,
+                             warmup_ratio=1.0 / 3)
 
     def __init__(self, engine, cfg, steps_per_epoch: int = 1000,
                  seed: int = 0):
         self.engine = engine
-        opt = cfg.get("optimizer") or dict(lr=2.5e-4, momentum=0.9,
-                                           weight_decay=1e-4)
-        lrc = cfg.get("lr_config") or dict(step=[12], warmup_iters=500,
-                                           warmup_ratio=1.0 / 3)
+        opt = cfg.get("optimizer") or self.default_optimizer
+        lrc = cfg.get("lr_config") or self.default_lr_config
         clip = ((cfg.get("optimizer_config") or {}).get("grad_clip")
                 or {}).get("max_norm", 35.0)
         self.schedule = step_lr_schedule(

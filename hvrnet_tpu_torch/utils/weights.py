@@ -19,9 +19,11 @@ and flipped in both spatial axes.  The FPN zoo adds the 4-stage backbone
 ``mask_head.{i}`` with ``conv_res``, the semantic head
 (``semantic_head_state_dict``), and the MaskIoU and grid heads
 (``mask_iou_head_state_dict``: ``fc0`` reads the flattened map;
-``grid_head_state_dict``: two more flipped transposed convs).  Because the
-names are mmdet's, a reference ``.pth`` state_dict loads straight into the
-port as well.
+``grid_head_state_dict``: two more flipped transposed convs).  A
+single-stage tree (no ``rpn_head``) has a dense ``bbox_head``
+(``dense_head_state_dict``) and a ResNet or ``SSDVGG`` backbone
+(``ssd_vgg_state_dict``).  Because the names are mmdet's, a reference
+``.pth`` state_dict loads straight into the port as well.
 """
 from __future__ import annotations
 
@@ -120,9 +122,18 @@ def state_dict_from_jax(params: Dict[str, Any],
     head but a relation head (``roi_fcs``)."""
     tree = params.get("params", params)
     tree = _to_numpy(tree)
+    bb = tree["backbone"]
     out: Dict[str, np.ndarray] = {
-        f"backbone.{k}": v
-        for k, v in backbone_state_dict(tree["backbone"]).items()}
+        f"backbone.{k}": v for k, v in (
+            backbone_state_dict(bb) if "stem" in bb
+            else ssd_vgg_state_dict(bb)).items()}
+    if "rpn_head" not in tree:          # a single-stage detector
+        out.update({f"bbox_head.{k}": v for k, v in
+                    dense_head_state_dict(tree["bbox_head"]).items()})
+        if "neck" in tree:
+            out.update({f"neck.{k}": v for k, v in
+                        neck_state_dict(tree["neck"]).items()})
+        return _tensors(out)
 
     sh = tree.get("shared_head", {})
     _res_layers("shared_head.", sh, out)
@@ -169,8 +180,56 @@ def state_dict_from_jax(params: Dict[str, Any],
     if "grid_head" in tree:
         out.update({f"grid_head.{k}": v for k, v in
                     grid_head_state_dict(tree["grid_head"]).items()})
+    return _tensors(out)
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in out.items()}
+
+
+def ssd_vgg_state_dict(backbone: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``SSDVGG`` subtree → the port module's mmdet names
+    (``models/backbones/resnext.py:port_name``: ``conv{i}`` →
+    ``features.{k}``, ``fc6`` / ``fc7`` → ``features.31`` / ``.33``,
+    ``extra{i}`` → ``extra.{i}``, ``l2_norm_scale`` →
+    ``l2_norm.weight``)."""
+    from ..models.backbones.resnext import port_name
+    out: Dict[str, np.ndarray] = {}
+    for name, node in _to_numpy(backbone).items():
+        if name == "l2_norm_scale":
+            out[port_name(name)] = node
+        else:
+            out.update(_convs(backbone, {name: port_name(name)}))
+    return out
+
+
+def dense_head_state_dict(head: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX dense head subtree → mmdet's names: the towers'
+    ``cls_conv{i}`` / ``reg_conv{i}`` → ``cls_convs.{i}.conv`` / …, FCOS's
+    ``cls_gn{i}`` / ``reg_gn{i}`` → ``cls_convs.{i}.gn`` / …,
+    ``scale{i}`` → ``scales.{i}.scale``; the output convs (``retina_cls``,
+    ``retina_reg``, ``fcos_cls``, ``fcos_reg``, ``fcos_centerness``,
+    ``fovea_cls``, ``fovea_reg``) keep their names.  An ``SSDHead``'s
+    per-level ``cls_conv{i}`` / ``reg_conv{i}`` (its only convs) →
+    ``cls_convs.{i}`` / ``reg_convs.{i}``."""
+    head = _to_numpy(head)
+    towers = re.compile(r"(cls|reg)_(conv|gn)(\d+)")
+    ssd = all(towers.fullmatch(n) for n in head)
+    out: Dict[str, np.ndarray] = {}
+    for name, node in head.items():
+        m = towers.fullmatch(name)
+        scale = re.fullmatch(r"scale(\d+)", name)
+        if scale:
+            out[f"scales.{scale[1]}.scale"] = node["scale"]
+        elif m and m[2] == "gn":
+            out[f"{m[1]}_convs.{m[3]}.gn.weight"] = node["scale"]
+            out[f"{m[1]}_convs.{m[3]}.gn.bias"] = node["bias"]
+        else:
+            port = (name if m is None else f"{m[1]}_convs.{m[3]}"
+                    + ("" if ssd else ".conv"))
+            out.update(_convs(head, {name: port}))
+    return out
 
 
 def _convs(node: Dict[str, Any], names: Dict[str, str]
