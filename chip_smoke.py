@@ -187,7 +187,24 @@ stops the script with a non-zero exit:
     model's trainer through ``train_detector`` for 2 + 2 steps with
     stage times, frozen tensors bitwise and trainable ones moved; no
     attention launch and no cv2 import on the path.
-19. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+19. ``[deform]``: the deformable half of the dense family at full width
+    (``deform_configs``: mmdetection v1.0rc1's GA-RetinaNet and GA-RPN
+    R50-caffe-FPN, RepPoints moment R50-FPN and Cascade R-CNN R50-FPN
+    with dcn on c3-c5, 800×1333 on 800×1344, 81 classes), seeded weights,
+    frozen BNs calibrated on the image, the heads' offset, location, shape
+    and output convs (or the dcn offsets and the stage heads) drawn for
+    it, so that samples move about 1.5 px and some fall in the border
+    rule's (−1, 0) and (H − 1, H).  ``simple_test`` in f32 (and bf16 for
+    GA-RetinaNet and RepPoints): ms per image, stages, the deformable
+    convs or dcn blocks timed apart, peak memory; the card's f32 result
+    held to the port's CPU run on the card's maps on one image (Cascade
+    R-CNN: each dcn block on the card's input to it); bf16 against f32 by
+    depth; GA-RetinaNet, RepPoints and Cascade R-CNN through
+    ``train_detector`` for 2 + 2 steps (``conv2_offset`` and the adaption
+    kernels move); ``deform_conv2d`` alone at the models' shapes (f32,
+    bf16; FLOPs, bytes, bound) and v2 at R50's stage 4 card against CPU;
+    no attention launch and no cv2 import on the path.
+20. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -1229,11 +1246,13 @@ def phase_selsa_train(torch, np):
     return summary, before
 
 
-def check_train_weights(torch, engine, before, tag, trained):
+def check_train_weights(torch, engine, before, tag, trained, idle=()):
     """Every tensor outside the ``trained`` prefixes (the frozen stages and
     every frozen-BN buffer) bit for bit as before; every trainable tensor
     moved, except the key projections' biases, whose gradient is 0 (a
-    constant per softmax row) and whose decay of 0 is 0."""
+    constant per softmax row) and whose decay of 0 is 0, and the ``idle``
+    ones, which the objective does not reach (they keep no gradient, so
+    the step leaves them)."""
     params = dict(engine.model.named_parameters())
     frozen_moved, still = [], []
     for name, t in engine.model.state_dict().items():
@@ -1241,7 +1260,8 @@ def check_train_weights(torch, engine, before, tag, trained):
         if not trains and not torch.equal(t, before[name]):
             frozen_moved.append(name)
         if trains and torch.equal(t, before[name]) and not (
-                ".k_data_fc_" in name and name.endswith(".bias")):
+                ".k_data_fc_" in name and name.endswith(".bias")) \
+                and not name.startswith(idle):
             still.append(name)
     n_train = sum(p.requires_grad for p in params.values())
     log(f"{tag} {len(before) - n_train} frozen tensors bitwise unchanged: "
@@ -3574,8 +3594,10 @@ ZOO_RPN_PROPOSAL = dict(nms_across_levels=False, nms_pre=12000,
 # content (h, w), canvas, the scale from an original image to the content
 ZOO_SIZES = {"cascade": ((600, 1000), (608, 1008), 0.78125),
              "mask": ((800, 1333), (800, 1344), 0.625),
-             "htc": ((800, 1333), (800, 1344), 0.625)}
-ZOO_TRUNKS = {"cascade": "R101-C5", "mask": "R101-C5", "htc": "R50-FPN"}
+             "htc": ((800, 1333), (800, 1344), 0.625),
+             "cascade_dcn": ((800, 1333), (800, 1344), 0.625)}   # [deform]
+ZOO_TRUNKS = {"cascade": "R101-C5", "mask": "R101-C5", "htc": "R50-FPN",
+              "cascade_dcn": "R50-FPN, dcn c3-c5"}
 ZOO_CALLS = 3             # timed simple_test calls after one warm-up call
 ZOO_TRAIN_TIMED = 2       # timed training steps after TRAIN_WARMUP
 ZOO_HOLD_SEEDS = (0, 1, 2, 3)   # the images of the card-against-CPU hold
@@ -3753,7 +3775,7 @@ def zoo_image(np, name, seed=0):
     pad_shape, scale_factor (4,))."""
     content, canvas, scale = ZOO_SIZES[name]
     scene = synthetic_image(np, content, seed).astype(np.float32)
-    if name == "htc":
+    if name in ("htc", "cascade_dcn"):
         cfg = htc_config().img_norm_cfg
         scene = ((scene[..., ::-1] - np.float32(cfg.mean))
                  / np.float32(cfg.std))
@@ -3814,7 +3836,7 @@ def zoo_scale_heads(torch, np, engine, name, logit_std=3.0,
                 boxes = engine.refine(boxes, cls, reg, st, x[1])
 
 
-def zoo_engines(torch, np, name, cfg):
+def zoo_engines(torch, np, name, cfg, prefix="[zoo]"):
     """The f32 serving engine on seeded weights (heads spread, frozen BNs
     calibrated on the image) and a bf16 one on the same weights, heads
     pre-cast."""
@@ -3824,7 +3846,7 @@ def zoo_engines(torch, np, name, cfg):
     img, ish = zoo_image(np, name)[:2]
     engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
     n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
-    if name == "htc":
+    if engine.model.neck is not None:
         zoo_scale_heads(torch, np, engine, name)
     else:
         zoo_spread_heads(torch, engine)
@@ -3832,9 +3854,10 @@ def zoo_engines(torch, np, name, cfg):
                               device="cuda", dtype=torch.bfloat16)
     engine16.load_state_dict(engine.model.state_dict())
     engine16.cast_head_params_bf16()
-    origin = (f"{CONFIG.name}'s trunk" if name != "htc" else
-              "htc_r50_fpn_1x's settings")
-    log(f"[zoo] {type(engine).__name__} {ZOO_TRUNKS[name]} from {origin}: "
+    origin = {"htc": "htc_r50_fpn_1x's settings",
+              "cascade_dcn": DEFORM_SOURCES.get(name)}.get(
+                  name, f"{CONFIG.name}'s trunk")
+    log(f"{prefix} {type(engine).__name__} {ZOO_TRUNKS[name]} from {origin}: "
         f"{engine.num_stages} stage(s), {engine.num_classes} classes, "
         f"{engine.proposal_num} proposals, mask heads "
         f"{engine.num_mask_stages}, semantic branch {engine.with_semantic}; "
@@ -3844,7 +3867,7 @@ def zoo_engines(torch, np, name, cfg):
     return engine, engine16
 
 
-def zoo_serving(torch, np, engine, name, tag):
+def zoo_serving(torch, np, engine, name, tag, prefix="[zoo]"):
     """``simple_test`` on the operating-size image: one warm-up call, then
     ZOO_CALLS timed by CUDA events with the peak memory; one more call with
     the engine's stage timer; the host paste of the kept masks
@@ -3869,7 +3892,7 @@ def zoo_serving(torch, np, engine, name, tag):
     engine.timer = None
     launches = masked_attention.launches
     if launches:
-        raise RuntimeError(f"[zoo] {tag}: {launches} attention launches in "
+        raise RuntimeError(f"{prefix} {tag}: {launches} attention launches in "
                            "simple_test, which has no relation head")
     dets, labels, keep = (t.cpu().numpy() for t in out[:3])
     kept = dets[keep]
@@ -3889,7 +3912,7 @@ def zoo_serving(torch, np, engine, name, tag):
                             thr=0.5)
         run["paste_ms"] = (time.perf_counter() - t0) * 1e3
         ok = ok and sum(len(c) for c in segms) == len(kept)
-    log(f"[zoo] {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
+    log(f"{prefix} {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
         f"{ZOO_SIZES[name][1]} canvas (CUDA events, mean of {ZOO_CALLS} "
         f"after a warm-up); stages ms " + json.dumps(
             {k: round(v, 3) for k, v in stages.items()})
@@ -3899,7 +3922,7 @@ def zoo_serving(torch, np, engine, name, tag):
         + f"; peak device memory {peak:.2f} GiB; {len(kept)} detections "
         f"kept; valid rows: {ok}; attention launches {launches}")
     if not (ok and len(kept)):
-        raise RuntimeError(f"[zoo] {tag}: simple_test gave no or invalid "
+        raise RuntimeError(f"{prefix} {tag}: simple_test gave no or invalid "
                            "detections")
     return run, out
 
@@ -3931,25 +3954,26 @@ def zoo_fpn_hold(torch, np, engine, cpu, name):
     return max(errs)
 
 
-def zoo_cpu_hold(torch, np, engine, cfg, name):
+def zoo_cpu_hold(torch, np, engine, cfg, name, prefix="[zoo]",
+                 seeds=ZOO_HOLD_SEEDS, fpn_hold=True):
     """The card's f32 ``simple_test`` against the port's CPU run of the same
     engine, both fed the card's trunk maps (with a neck: its maps and the
-    semantic embedding), on each image of ZOO_HOLD_SEEDS: the same NMS
+    semantic embedding), on each image of ``seeds``: the same NMS
     picks in the same rows with the same labels, boxes, scores and mask
     probabilities within the CPU tests' limits (scores at ZOO_SCORE_TOL,
     HTC's masks at ZOO_MASK_TOLS).
-    With a neck the card's FPN outputs are held to the CPU's first
-    (``zoo_fpn_hold``).  Returns the worst (box, score, mask) differences
-    and the FPN's."""
+    With a neck and ``fpn_hold`` the card's FPN outputs are held to the
+    CPU's first (``zoo_fpn_hold``).  Returns the worst (box, score, mask)
+    differences and the FPN's."""
     from hvrnet_tpu_torch.apis import build_detector
     cpu = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
     cpu.load_state_dict(host_state_dict(engine))
     fpn = (zoo_fpn_hold(torch, np, engine, cpu, name)
-           if engine.model.neck is not None else None)
+           if engine.model.neck is not None and fpn_hold else None)
     real = engine.backbone_maps, engine.semantic_embedding
     mask_tol = ZOO_MASK_TOLS.get(name, ZOO_MASK_TOL)
     worst = [0.0, 0.0, 0.0]
-    for seed in ZOO_HOLD_SEEDS:
+    for seed in seeds:
         x = zoo_image(np, name, seed)
         maps = real[0](*x[:2])
         emb = real[1](maps[0])
@@ -3971,7 +3995,7 @@ def zoo_cpu_hold(torch, np, engine, cfg, name):
         masks = ((got[3] - want[3]).abs().max().item() if engine.with_mask
                  else 0.0)
         worst = [max(a, b) for a, b in zip(worst, (box, score, masks))]
-        log(f"[zoo] {type(engine).__name__} f32 on the card against the "
+        log(f"{prefix} {type(engine).__name__} f32 on the card against the "
             f"port's CPU run on the card's trunk maps"
             + (" and semantic embedding" if emb is not None else "")
             + f", image seed {seed}: {int(keep.sum())} picks and labels "
@@ -3981,11 +4005,11 @@ def zoo_cpu_hold(torch, np, engine, cfg, name):
                if engine.with_mask else ""))
         if not (same and keep.any() and box <= ZOO_BOX_TOL
                 and score <= ZOO_SCORE_TOL and masks <= mask_tol):
-            raise RuntimeError(f"[zoo] {type(engine).__name__}, image seed "
+            raise RuntimeError(f"{prefix} {type(engine).__name__}, image seed "
                                f"{seed}: the card's f32 result is not the "
                                "CPU's")
-    log(f"[zoo] {type(engine).__name__} card against CPU over "
-        f"{len(ZOO_HOLD_SEEDS)} images: worst |Δbox| {worst[0]:.3g} px, "
+    log(f"{prefix} {type(engine).__name__} card against CPU over "
+        f"{len(seeds)} images: worst |Δbox| {worst[0]:.3g} px, "
         f"|Δscore| {worst[1]:.3g}, |Δmask prob| {worst[2]:.3g}")
     return dict(worst=worst, fpn=fpn)
 
@@ -4058,9 +4082,10 @@ def zoo_bf16_hold(torch, np, engine, engine16, name):
 def zoo_train_batch(np, name, seed=4):
     """One image of the model's operating size in the video layout (1
     frame) with 4 ground truths and their masks, rectangles and ellipses
-    (for HTC two of them 28-44 px); for HTC also a ``gt_semantic_seg`` at
-    the fusion level's stride of 8 (100×168): each box's class inside it,
-    255 (ignored) on a border around it, 0 elsewhere."""
+    (for the FPN models two of them 28-44 px); for HTC also a
+    ``gt_semantic_seg`` at the fusion level's stride of 8 (100×168): each
+    box's class inside it, 255 (ignored) on a border around it, 0
+    elsewhere."""
     img, ish, psh, _ = zoo_image(np, name, seed)
     h, w = ZOO_SIZES[name][1]
     rng = np.random.default_rng(seed)
@@ -4070,7 +4095,7 @@ def zoo_train_batch(np, name, seed=4):
     yy, xx = np.mgrid[:h, :w]
     ch, cw = ZOO_SIZES[name][0]
     for i in range(g):
-        if name == "htc" and i >= 2:
+        if name in ("htc", "cascade_dcn") and i >= 2:
             # near the 32-px anchors of the one-level RPN on P2: the only
             # boxes its anchors reach IoU 0.3 with
             bw, bh = rng.uniform(28, 44), rng.uniform(28, 44)
@@ -4098,7 +4123,7 @@ def zoo_train_batch(np, name, seed=4):
     return batch
 
 
-def zoo_training(torch, np, name, cfg):
+def zoo_training(torch, np, name, cfg, prefix="[zoo]"):
     """``TwoStageTrainer`` through ``train_detector`` at full width (f32)
     for TRAIN_WARMUP + ZOO_TRAIN_TIMED steps on one synthetic image, frozen
     BNs calibrated on it: finite losses, no attention launch, stage times,
@@ -4112,7 +4137,7 @@ def zoo_training(torch, np, name, cfg):
     c = cfg.as_dict()
     engine = calibrated_training_engine(
         torch, DETECTORS.get(c["model"]["type"]), c, batch,
-        f"[zoo] {name} train", ZOO_TRUNKS[name])
+        f"{prefix} {name} train", ZOO_TRUNKS[name])
     before = {k: t.clone() for k, t in engine.model.state_dict().items()}
     htc = engine.num_mask_stages > 1
     stages = (("backbone", "rpn", "proposals")
@@ -4123,16 +4148,22 @@ def zoo_training(torch, np, name, cfg):
               + (("mask",) if engine.with_mask and not htc else ())
               + ("backward", "optimizer"))
     _, summary = timed_training(torch, np, engine, batch, c, work_dir,
-                                stages, f"[zoo] {name} train", 0,
+                                stages, f"{prefix} {name} train", 0,
                                 timed=ZOO_TRAIN_TIMED)
-    log(f"[zoo] {type(engine).__name__} training ({CARD}): "
+    log(f"{prefix} {type(engine).__name__} training ({CARD}): "
         f"{summary['step_ms']:.3f} ms/step (CUDA events), peak device memory "
         f"{summary['peak_gib']:.2f} GiB")
     trained = ZOO_TRAINED_FPN if engine.model.neck is not None else \
         tuple(p for p in ZOO_TRAINED
               if engine.with_mask or p != "mask_head.")
-    check_train_weights(torch, engine, before, f"[zoo] {name} train",
-                        trained)
+    # without a semantic head only P2 is read (the RPN runs on it and every
+    # RoI is pooled from it, as in the JAX engine): the smoothing convs of
+    # the other levels take no gradient
+    idle = () if engine.with_semantic or engine.model.neck is None else \
+        tuple(f"neck.fpn_convs.{i}." for i in range(
+            1, len(engine.model.neck.fpn_convs)))
+    check_train_weights(torch, engine, before, f"{prefix} {name} train",
+                        trained, idle)
     shutil.rmtree(work_dir, ignore_errors=True)
     del engine
     torch.cuda.empty_cache()
@@ -4174,7 +4205,12 @@ DENSE_SIZES = {"retina": ((800, 1333), (800, 1344)),
                "free_anchor": ((800, 1333), (800, 1344)),
                "fcos": ((800, 1333), (800, 1344)),
                "fovea": ((800, 1333), (800, 1344)),
-               "ssd": ((300, 300), (300, 300))}
+               "ssd": ((300, 300), (300, 300)),
+               # [deform]'s single-stage models
+               "ga_retina": ((800, 1333), (800, 1344)),
+               "ga_rpn": ((800, 1333), (800, 1344)),
+               "reppoints": ((800, 1333), (800, 1344)),
+               "cascade_dcn": ((800, 1333), (800, 1344))}
 DENSE_SOURCES = {
     "retina": "configs/retinanet_r50_fpn_1x.py",
     "free_anchor": "configs/free_anchor/retinanet_free_anchor_r50_fpn_1x.py",
@@ -4433,7 +4469,7 @@ def dense_engines(torch, np, name, cfg):
     return engine, engine16
 
 
-def dense_serving(torch, np, engine, name, cfg, tag):
+def dense_serving(torch, np, engine, name, cfg, tag, prefix="[dense]"):
     """``simple_test`` on the operating-size image: one warm-up call, then
     DENSE_CALLS timed by CUDA events with the peak memory; one more call
     with the engine's stage timer (backbone + FPN, head towers, decode +
@@ -4457,7 +4493,7 @@ def dense_serving(torch, np, engine, name, cfg, tag):
     engine.timer = None
     launches = masked_attention.launches
     if launches:
-        raise RuntimeError(f"[dense] {tag}: {launches} attention launches")
+        raise RuntimeError(f"{prefix} {tag}: {launches} attention launches")
     dets, labels, keep = (t.cpu().numpy() for t in out)
     kept = dets[keep]
     ok = (np.isfinite(kept).all()
@@ -4466,14 +4502,14 @@ def dense_serving(torch, np, engine, name, cfg, tag):
                & (labels[keep] < engine.num_classes - 1)).all())
     run = dict(ms=ms, peak_gib=peak, stages_ms=stages, kept=int(keep.sum()),
                launches=launches)
-    log(f"[dense] {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
+    log(f"{prefix} {tag} ({CARD}): simple_test {ms:.3f} ms/image on the "
         f"{DENSE_SIZES[name][1]} canvas (CUDA events, mean of {DENSE_CALLS} "
         f"after a warm-up); stages ms " + json.dumps(
             {k: round(v, 3) for k, v in stages.items()})
         + f"; peak device memory {peak:.2f} GiB; {len(kept)} detections "
         f"kept; valid rows: {ok}; attention launches {launches}")
     if not (ok and len(kept)):
-        raise RuntimeError(f"[dense] {tag}: simple_test gave no or invalid "
+        raise RuntimeError(f"{prefix} {tag}: simple_test gave no or invalid "
                            "detections")
     return run, out
 
@@ -4499,7 +4535,8 @@ def match_picks(got, want, box_tol, score_tol):
     return pairs, lone, free
 
 
-def dense_cpu_hold(torch, np, engine, name, cfg):
+def dense_cpu_hold(torch, np, engine, name, cfg, prefix="[dense]",
+                   seeds=DENSE_HOLD_SEEDS):
     """The card's f32 ``simple_test`` against the port's CPU run of the same
     weights, both fed the card's neck (or backbone) maps, on each image of
     DENSE_HOLD_SEEDS: the head's outputs at every position within
@@ -4522,18 +4559,18 @@ def dense_cpu_hold(torch, np, engine, name, cfg):
         want = cpu.backbone_maps(*x[:2])
     map_err = max(((c.cpu() - w).abs().max() / w.abs().max()).item()
                   for c, w in zip(card, want))
-    log(f"[dense] {type(engine).__name__} f32 maps on the card against the "
+    log(f"{prefix} {type(engine).__name__} f32 maps on the card against the "
         f"port's CPU run of the same backbone"
         + (" and neck" if engine.model.neck is not None else "")
         + f": worst level max |Δ|/max|CPU| {map_err:.3g} (limit "
         f"{ZOO_FPN_TOL})")
     if map_err > ZOO_FPN_TOL:
-        raise RuntimeError(f"[dense] the card's {name} maps are not the "
+        raise RuntimeError(f"{prefix} the card's {name} maps are not the "
                            "CPU's")
     real = engine.backbone_maps
     worst = dict(maps=map_err, head=0.0, box=0.0, score=0.0, reordered=0,
                  edge=0)
-    for seed in DENSE_HOLD_SEEDS:
+    for seed in seeds:
         x = dense_image(np, name, cfg, seed)
         with torch.no_grad():
             maps = real(*x[:2])
@@ -4569,7 +4606,7 @@ def dense_cpu_hold(torch, np, engine, name, cfg):
                      score=max(worst["score"], score),
                      reordered=max(worst["reordered"], len(swapped)),
                      edge=max(worst["edge"], len(lone_g)))
-        log(f"[dense] {type(engine).__name__} {engine.head_type} f32 on the "
+        log(f"{prefix} {type(engine).__name__} {engine.head_type} f32 on the "
             f"card against the port's CPU run on the card's maps, image "
             f"seed {seed}: head outputs max |Δ|/max(|CPU|, 1) {head:.3g} "
             f"(limit {DENSE_HEAD_TOL}); {len(pairs)} of {int(want[2].sum())} "
@@ -4579,12 +4616,12 @@ def dense_cpu_hold(torch, np, engine, name, cfg):
             f"max |Δbox| {box:.3g} px (limit {DENSE_BOX_TOL}), max |Δscore| "
             f"{score:.3g} ({DENSE_SCORE_TOL}); held {same}")
         if not (same and pairs and head <= DENSE_HEAD_TOL):
-            raise RuntimeError(f"[dense] {name}, image seed {seed}: the "
+            raise RuntimeError(f"{prefix} {name}, image seed {seed}: the "
                                "card's f32 result is not the CPU's")
     return worst
 
 
-def dense_bf16_hold(torch, np, engine, engine16, name, cfg):
+def dense_bf16_hold(torch, np, engine, engine16, name, cfg, prefix="[dense]"):
     """bf16 against f32 by depth on the model's image: the bf16 engine's
     neck maps against the f32 ones (max |Δ|/max|f32| per level, reported),
     then the bf16 head on the f32 maps against the f32 head within the
@@ -4607,7 +4644,7 @@ def dense_bf16_hold(torch, np, engine, engine16, name, cfg):
         return list(out[0]), list(out[1])
 
     cls, reg = head_budget(cls_reg(got), cls_reg(want))
-    log(f"[dense] {type(engine).__name__} {engine.head_type} bf16 by depth: "
+    log(f"{prefix} {type(engine).__name__} {engine.head_type} bf16 by depth: "
         f"neck maps max |Δ|/max|f32| per level "
         + ", ".join(f"{d:.3g}" for d in depth)
         + f"; the bf16 head on the f32 maps: max |Δcls|/max(|cls|, 1) "
@@ -4615,7 +4652,7 @@ def dense_bf16_hold(torch, np, engine, engine16, name, cfg):
         f"{BF16_REG_BUDGET})")
     if not (cls <= BF16_CLS_BUDGET and reg <= BF16_REG_BUDGET
             and all(np.isfinite(depth))):
-        raise RuntimeError(f"[dense] the bf16 {name} head is outside the "
+        raise RuntimeError(f"{prefix} the bf16 {name} head is outside the "
                            "bf16 budget")
     return dict(maps=depth, cls=cls, reg=reg)
 
@@ -4653,7 +4690,7 @@ def dense_train_batch(np, name, cfg, seed=4):
                 pad_shape=psh[None])
 
 
-def dense_training(torch, np, name, cfg):
+def dense_training(torch, np, name, cfg, prefix="[dense]"):
     """The model's trainer through ``train_detector`` at full width (f32)
     for TRAIN_WARMUP + DENSE_TRAIN_TIMED steps on one synthetic image,
     frozen BNs calibrated on it: finite losses, ``num_pos`` ≥ 1 where the
@@ -4669,21 +4706,21 @@ def dense_training(torch, np, name, cfg):
     c = cfg.as_dict()
     engine = calibrated_training_engine(
         torch, DETECTORS.get(c["model"]["type"]), c, batch,
-        f"[dense] {name} train", "VGG16" if name == "ssd" else "R50-FPN")
+        f"{prefix} {name} train", "VGG16" if name == "ssd" else "R50-FPN")
     before = {k: t.clone() for k, t in engine.model.state_dict().items()}
     trainer, summary = timed_training(
         torch, np, engine, batch, c, work_dir, DENSE_STAGES,
-        f"[dense] {name} train", 0, timed=DENSE_TRAIN_TIMED)
+        f"{prefix} {name} train", 0, timed=DENSE_TRAIN_TIMED)
     logs = [json.loads(line) for line in
             (work_dir / "train_log.jsonl").read_text().splitlines()]
     n_pos = [lg["num_pos"] for lg in logs if "num_pos" in lg]
-    log(f"[dense] {type(engine).__name__} {engine.head_type} training via "
+    log(f"{prefix} {type(engine).__name__} {engine.head_type} training via "
         f"{type(trainer).__name__} ({CARD}): {summary['step_ms']:.3f} "
         f"ms/step (CUDA events), peak device memory "
         f"{summary['peak_gib']:.2f} GiB; num_pos per step {n_pos}")
     if n_pos and min(n_pos) < 1:
-        raise RuntimeError(f"[dense] {name} trained without positives")
-    check_train_weights(torch, engine, before, f"[dense] {name} train",
+        raise RuntimeError(f"{prefix} {name} trained without positives")
+    check_train_weights(torch, engine, before, f"{prefix} {name} train",
                         DENSE_TRAINED["ssd" if name == "ssd" else "fpn"])
     summary["trainer"] = type(trainer).__name__
     shutil.rmtree(work_dir, ignore_errors=True)
@@ -4724,6 +4761,582 @@ def phase_dense(torch, np):
     log("[dense] no attention launch in any serving or training run and no "
         "cv2 import on the path")
     return runs
+
+
+# [deform]: the deformable half of the dense family at full width, as
+# mmdetection v1.0rc1's configs have them (DEFORM_SOURCES), 81 classes,
+# 800×1333 on 800×1344.  Config keys the JAX modules do not read are left
+# out, as ``dense_configs`` leaves them: RepPoints' GroupNorm ``norm_cfg``
+# (the FPN's and the head's) and ``gradient_mul``, the GA heads'
+# ``anchor_base_sizes`` and samplers; GA-RPN's test_cfg is the JAX RPN
+# engine's single-stage form (one NMS over the levels' union: ``nms_pre``,
+# ``nms.iou_thr`` = ``nms_thr``, ``max_per_img`` = ``max_num``, score_thr
+# 0), and GA-RPN serves only (the JAX package trains no RPN).
+DEFORM_SOURCES = {
+    "ga_retina": "configs/guided_anchoring/ga_retinanet_r50_caffe_fpn_1x.py",
+    "ga_rpn": "configs/guided_anchoring/ga_rpn_r50_caffe_fpn_1x.py",
+    "reppoints": "configs/reppoints/reppoints_moment_r50_fpn_1x.py",
+    "cascade_dcn": "configs/dcn/cascade_rcnn_dconv_c3-c5_r50_fpn_1x.py"}
+DEFORM_BF16 = ("ga_retina", "reppoints")    # served in bf16 as well
+DEFORM_TRAIN = ("ga_retina", "reppoints", "cascade_dcn")
+DEFORM_HOLD_SEEDS = (0,)  # the image of the card-against-CPU hold
+# each dense head's drawn convs in the order they feed each other, with the
+# std of their outputs on the image's maps (``deform_draw_heads``): the
+# location branch (bias at the prior −log(99)) spreads across
+# loc_filter_thr, the shape branch reshapes the squares, the offset convs
+# and RepPoints' init points move the deformable samples by about 1.5 px
+DEFORM_DRAW = {
+    "ga_retina": (("conv_shape", 0.5), ("conv_loc", 2.0),
+                  ("feature_adaption_cls.conv_offset", 1.5),
+                  ("feature_adaption_reg.conv_offset", 1.5),
+                  ("retina_cls", 1.0), ("retina_reg", 0.5)),
+    "ga_rpn": (("conv_shape", 0.5), ("conv_loc", 2.0),
+               ("feature_adaption.conv_offset", 1.5), ("conv_cls", 1.0),
+               ("conv_reg", 0.5)),
+    "reppoints": (("reppoints_pts_init_out", 1.5), ("reppoints_cls_out", 1.0),
+                  ("reppoints_pts_refine_out", 0.5))}
+DEFORM_DCN_PX = 1.5       # the std of the dcn blocks' drawn offsets, px
+# a dcn block on the card against the same block on the CPU fed the card's
+# input, max |Δ| / max |CPU|: one block's rounding, not compounded (the
+# trunk's maps are not held whole: offsets read from random calibrated
+# maps feed the rounding back into the sampling, so the card's and the
+# CPU's trunks part by orders of magnitude more than a plain one's)
+DEFORM_BLOCK_TOL = 1e-4
+DEFORM_OP_TOL = 1e-5      # deform_conv2d card against CPU, of max |CPU|
+DEFORM_OP_HW = (800, 1344)  # the canvas whose shapes deform_op_times times
+
+
+def deform_configs():
+    """The deformable models at full width (``Config`` objects):
+    GA-RetinaNet and GA-RPN R50-caffe-FPN, RepPoints moment R50-FPN and
+    Cascade R-CNN R50-FPN with dcn on c3-c5, each with its test_cfg,
+    train_cfg, img_norm_cfg and optimizer keys (the module comments above
+    say what was left out)."""
+    from hvrnet_tpu_torch.utils.config import Config
+
+    def resnet(style):
+        return dict(type="ResNet", depth=50, num_stages=4,
+                    strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+                    out_indices=(0, 1, 2, 3), frozen_stages=1, style=style)
+
+    def fpn(**kw):
+        return dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                    out_channels=256, num_outs=5, **kw)
+
+    focal = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+                 loss_weight=1.0)
+    caffe_norm = dict(mean=[102.9801, 115.9465, 122.7717],
+                      std=[1.0, 1.0, 1.0], to_rgb=False)
+    pytorch_norm = dict(mean=[123.675, 116.28, 103.53],
+                        std=[58.395, 57.12, 57.375], to_rgb=True)
+    sgd = dict(optimizer=dict(type="SGD", lr=0.01, momentum=0.9,
+                              weight_decay=0.0001),
+               optimizer_config=dict(grad_clip=dict(max_norm=35,
+                                                    norm_type=2)),
+               lr_config=dict(policy="step", warmup="linear",
+                              warmup_iters=500, warmup_ratio=1.0 / 3,
+                              step=[8, 11]))
+    ga = dict(octave_base_scale=4, scales_per_octave=3,
+              octave_ratios=[0.5, 1.0, 2.0], anchoring_means=[.0] * 4,
+              anchoring_stds=[0.07, 0.07, 0.14, 0.14], target_means=[.0] * 4,
+              target_stds=[0.07, 0.07, 0.11, 0.11], loc_filter_thr=0.01,
+              loss_loc=focal, loss_shape=dict(type="BoundedIoULoss",
+                                              beta=0.2, loss_weight=1.0))
+    test = dict(nms_pre=1000, min_bbox_size=0, score_thr=0.05,
+                nms=dict(type="nms", iou_thr=0.5), max_per_img=100)
+    cascade = htc_config().as_dict()
+    model = cascade["model"]
+    for key in ("mask_roi_extractor", "mask_head", "semantic_roi_extractor",
+                "semantic_head", "semantic_fusion", "interleaved",
+                "mask_info_flow"):
+        model.pop(key)
+    model.update(type="CascadeRCNN", backbone=dict(
+        model["backbone"], dcn=dict(modulated=False, deformable_groups=1,
+                                    fallback_on_stride=False),
+        stage_with_dcn=(False, True, True, True)))
+    for stage in cascade["train_cfg"]["rcnn"]:
+        stage.pop("mask_size")
+    cascade["test_cfg"]["rcnn"] = dict(score_thr=0.05, nms=dict(
+        type="nms", iou_thr=0.5), max_per_img=100)
+    cascade["lr_config"]["step"] = [8, 11]
+    cfgs = {
+        "ga_retina": dict(model=dict(
+            type="RetinaNet", backbone=resnet("caffe"),
+            neck=fpn(start_level=1, add_extra_convs=True),
+            bbox_head=dict(type="GARetinaHead", num_classes=81,
+                           in_channels=256, stacked_convs=4,
+                           feat_channels=256, anchor_strides=[8, 16, 32, 64,
+                                                              128],
+                           loss_cls=focal, loss_bbox=dict(
+                               type="SmoothL1Loss", beta=0.04,
+                               loss_weight=1.0), **ga)),
+            train_cfg=dict(
+                ga_assigner=dict(type="ApproxMaxIoUAssigner",
+                                 pos_iou_thr=0.5, neg_iou_thr=0.4,
+                                 min_pos_iou=0.4, ignore_iof_thr=-1),
+                assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                              neg_iou_thr=0.5, min_pos_iou=0.0,
+                              ignore_iof_thr=-1),
+                allowed_border=-1, pos_weight=-1, center_ratio=0.2,
+                ignore_ratio=0.5, debug=False),
+            test_cfg=test, img_norm_cfg=caffe_norm, **sgd),
+        "ga_rpn": dict(model=dict(
+            type="RPN", backbone=resnet("caffe"), neck=fpn(),
+            bbox_head=dict(type="GARPNHead", in_channels=256,
+                           feat_channels=256, num_classes=2,
+                           anchor_strides=[4, 8, 16, 32, 64],
+                           **dict(ga, octave_base_scale=8))),
+            test_cfg=dict(nms_pre=1000, score_thr=0.0,
+                          nms=dict(type="nms", iou_thr=0.7),
+                          max_per_img=300),
+            img_norm_cfg=caffe_norm),
+        "reppoints": dict(model=dict(
+            type="RepPointsDetector", backbone=resnet("pytorch"),
+            neck=fpn(start_level=1, add_extra_convs=True),
+            bbox_head=dict(
+                type="RepPointsHead", num_classes=81, in_channels=256,
+                feat_channels=256, point_feat_channels=256, stacked_convs=3,
+                num_points=9, point_strides=[8, 16, 32, 64, 128],
+                point_base_scale=4, loss_cls=focal,
+                loss_bbox_init=dict(type="SmoothL1Loss", beta=0.11,
+                                    loss_weight=0.5),
+                loss_bbox_refine=dict(type="SmoothL1Loss", beta=0.11,
+                                      loss_weight=1.0),
+                transform_method="moment")),
+            train_cfg=dict(
+                init=dict(assigner=dict(type="PointAssigner", scale=4,
+                                        pos_num=1),
+                          allowed_border=-1, pos_weight=-1, debug=False),
+                refine=dict(assigner=dict(type="MaxIoUAssigner",
+                                          pos_iou_thr=0.5, neg_iou_thr=0.4,
+                                          min_pos_iou=0, ignore_iof_thr=-1),
+                            allowed_border=-1, pos_weight=-1, debug=False)),
+            test_cfg=test, img_norm_cfg=pytorch_norm, **sgd),
+        "cascade_dcn": cascade}
+    return {name: Config(c) for name, c in cfgs.items()}
+
+
+def module_spans(torch, modules):
+    """A context that records a CUDA-event span around every forward call
+    of ``modules`` (hooks); ``ms()`` sums them after a synchronisation,
+    ``calls()`` counts them."""
+    spans = []
+
+    def start(mod, args):
+        spans.append([torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)])
+        spans[-1][0].record()
+
+    def stop(mod, args, out):
+        spans[-1][1].record()
+
+    class Spans(contextlib.AbstractContextManager):
+        def __enter__(self):
+            self.hooks = [h for m in modules for h in (
+                m.register_forward_pre_hook(start),
+                m.register_forward_hook(stop))]
+            return self
+
+        def __exit__(self, *exc):
+            for h in self.hooks:
+                h.remove()
+
+        def ms(self):
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in spans)
+
+        def calls(self):
+            return len(spans)
+
+    return Spans()
+
+
+def deform_draw_heads(torch, np, engine, name, cfg, seed=0):
+    """The dense head's DEFORM_DRAW convs drawn in turn for the image: each
+    one's seeded normal kernel scaled so that on its inputs (one forward
+    pass of the head on the model's image, after the convs drawn before
+    it) its outputs have their std; biases kept."""
+    import torch.nn.functional as F
+    x = dense_image(np, name, cfg)
+    head = engine.model.bbox_head
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        maps = engine.backbone_maps(*x[:2])
+        for n, std in DEFORM_DRAW[name]:
+            conv = head.get_submodule(n)
+            inputs = []
+            hook = conv.register_forward_pre_hook(
+                lambda mod, args: inputs.append(args[0]))
+            try:
+                head(maps)
+            finally:
+                hook.remove()
+            w = torch.randn(conv.weight.shape, generator=gen).to(
+                conv.weight.device)
+            out = torch.cat([F.conv2d(i.float(), w, None, conv.stride,
+                                      conv.padding).flatten()
+                             for i in inputs])
+            conv.weight.copy_(w * (std / out.std()))
+
+
+def deform_draw_offsets(torch, np, engine, name, seed=0):
+    """Every dcn block's ``conv2_offset`` (zero at the init, where the
+    deformable conv is the plain 3×3) drawn in turn, block by block, so
+    that on the model's image its 18 offsets have a std of DEFORM_DCN_PX
+    pixels; returns the blocks."""
+    import torch.nn.functional as F
+    x = zoo_image(np, name)
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [m for m in engine.model.backbone.modules()
+              if getattr(m, "with_dcn", False)]
+    with torch.no_grad():
+        for blk in blocks:
+            conv = blk.conv2_offset
+            inputs = []
+            hook = conv.register_forward_pre_hook(
+                lambda mod, args: inputs.append(args[0]))
+            try:
+                engine.backbone_maps(*x[:2])
+            finally:
+                hook.remove()
+            w = torch.randn(conv.weight.shape, generator=gen).to(
+                conv.weight.device)
+            out = F.conv2d(inputs[0].float(), w, None, conv.stride,
+                           conv.padding, conv.dilation)[:, :18]
+            conv.weight.copy_(w * (DEFORM_DCN_PX / out.std()))
+    return blocks
+
+
+def deform_engines(torch, np, name, cfg):
+    """The f32 serving engine on seeded weights: frozen BNs calibrated on
+    the image, then the dense heads' convs drawn for it
+    (``deform_draw_heads``), or the dcn offsets drawn and the BNs
+    calibrated again (Cascade R-CNN, whose stage heads are drawn as
+    HTC's, ``zoo_scale_heads``); and, for DEFORM_BF16, a bf16 engine on
+    the same weights, the head's weights pre-cast."""
+    from hvrnet_tpu_torch.apis import build_detector
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    t0 = time.time()
+    dense = name != "cascade_dcn"
+    img, ish = (dense_image(np, name, cfg) if dense
+                else zoo_image(np, name))[:2]
+    engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
+    n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
+    if dense:
+        deform_draw_heads(torch, np, engine, name, cfg)
+    else:
+        n_dcn = len(deform_draw_offsets(torch, np, engine, name))
+        calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
+        zoo_scale_heads(torch, np, engine, name)
+    engine16 = None
+    if name in DEFORM_BF16:
+        engine16 = build_detector(cfg.model, test_cfg=cfg.test_cfg,
+                                  device="cuda", dtype=torch.bfloat16)
+        engine16.load_state_dict(engine.model.state_dict())
+        engine16.cast_head_params_bf16()
+    head = (engine.head_type if dense else
+            f"{engine.num_stages} stages, {n_dcn} dcn blocks")
+    log(f"[deform] {type(engine).__name__} ({head}) from mmdetection "
+        f"v1.0rc1's {DEFORM_SOURCES[name]}: {engine.num_classes} classes, "
+        f"{n_bn} frozen BNs calibrated on the {DENSE_SIZES[name][0][1]}x"
+        f"{DENSE_SIZES[name][0][0]} image, "
+        + ("the head's offset, location, shape and output convs"
+           if dense else "the dcn offsets and the stage heads")
+        + " drawn for it; f32" + (" and bf16" if engine16 else "")
+        + f" engines in {time.time() - t0:.1f} s")
+    return engine, engine16
+
+
+def deform_parts(torch, np, engine, name, cfg):
+    """One more ``simple_test`` of the f32 engine with CUDA-event spans
+    around its deformable parts: the head's deformable convs (their
+    offset convs apart) or the backbone's dcn blocks; and, in another call,
+    the samples' spread: the std of the offsets and the share of samples
+    off the integer grid by more than 0.1 px and outside the map by up to
+    a pixel (the border rule's (−1, 0) and (H − 1, H))."""
+    from hvrnet_tpu_torch.ops.deform import DeformConv2d
+    dense = name != "cascade_dcn"
+    x = (dense_image if dense else zoo_image)(np, name, *(
+        (cfg,) if dense else ()))
+    model = engine.model
+    convs = [m for m in model.modules() if isinstance(m, DeformConv2d)]
+    blocks = [m for m in model.backbone.modules()
+              if getattr(m, "with_dcn", False)]
+    stats = []
+
+    def sample(mod, args, out):
+        xin, off = args[0], args[1]
+        h, w = xin.shape[-2:]
+        k = mod.kernel_size[0]
+        ho, wo = off.shape[-2:]
+        taps = torch.arange(k, device=off.device, dtype=torch.float32)
+        o = off.float().reshape(off.shape[0], -1, k, k, 2, ho, wo)
+        base_y = torch.arange(ho, device=off.device) * mod.stride[0] \
+            - mod.padding[0]
+        base_x = torch.arange(wo, device=off.device) * mod.stride[0] \
+            - mod.padding[0]
+        ys = base_y[:, None] + taps[:, None, None, None] * mod.dilation[0] \
+            + o[..., 0, :, :]
+        xs = base_x[None, :] + taps[None, :, None, None] * mod.dilation[0] \
+            + o[..., 1, :, :]
+        frac = torch.minimum((ys - ys.round()).abs(), (xs - xs.round()).abs())
+        edge = ((ys > -1) & (ys < 0)) | ((ys > h - 1) & (ys < h)) \
+            | ((xs > -1) & (xs < 0)) | ((xs > w - 1) & (xs < w))
+        stats.append((float(o.std()), float((frac > 0.1).float().mean()),
+                      float(edge.float().mean()), ys.numel()))
+
+    with torch.no_grad():
+        with module_spans(torch, convs) as conv_t, \
+                module_spans(torch, blocks) as block_t:
+            engine.simple_test(*x)
+        parts = dict(deform_convs_ms=conv_t.ms(), dcn_blocks_ms=block_t.ms(),
+                     deform_calls=conv_t.calls())
+        hooks = [m.register_forward_hook(sample) for m in convs]
+        try:
+            engine.simple_test(*x)      # the samples' spread, untimed
+        finally:
+            for hk in hooks:
+                hk.remove()
+    n = sum(s[3] for s in stats)
+    spread = dict(offset_std=max(s[0] for s in stats),
+                  off_grid=sum(s[1] * s[3] for s in stats) / n,
+                  at_border=sum(s[2] * s[3] for s in stats) / n,
+                  convs=len(stats))
+    log(f"[deform] {type(engine).__name__} f32 deformable parts ({CARD}): "
+        f"{parts['deform_calls']} calls of its {len(convs)} deformable convs "
+        f"{parts['deform_convs_ms']:.3f} ms"
+        + (f" ({len(blocks)} dcn blocks whole {parts['dcn_blocks_ms']:.3f} "
+           "ms)" if blocks else "")
+        + f" of one simple_test (CUDA events); samples: offsets' std up to "
+        f"{spread['offset_std']:.3g} px, {spread['off_grid']:.3f} of them "
+        f"off the integer grid by > 0.1 px, {spread['at_border']:.4f} in "
+        f"(-1, 0) or (H-1, H) on an axis")
+    if not (spread["off_grid"] > 0.5 and spread["at_border"] > 0):
+        raise RuntimeError(f"[deform] {name}: the drawn offsets leave the "
+                           "samples on the grid or away from the borders")
+    return dict(parts, **spread)
+
+
+def deform_block_hold(torch, np, engine, name):
+    """Each dcn block of the card's f32 backbone on the model's image
+    against the same block's CPU run fed the card's input to it: max |Δ| /
+    max |CPU| within DEFORM_BLOCK_TOL.  Returns the worst."""
+    import copy
+    x = zoo_image(np, name)
+    blocks = [(n, m) for n, m in engine.model.backbone.named_modules()
+              if getattr(m, "with_dcn", False)]
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, (args[0], out)))
+        for n, m in blocks]
+    try:
+        with torch.no_grad():
+            engine.backbone_maps(*x[:2])
+    finally:
+        for h in hooks:
+            h.remove()
+    errs = []
+    with torch.no_grad():
+        for n, m in blocks:
+            inp, out = seen[n]
+            want = copy.deepcopy(m).cpu()(inp.cpu())
+            errs.append(((out.cpu() - want).abs().max()
+                         / want.abs().max()).item())
+    log(f"[deform] {type(engine).__name__} f32 dcn blocks ({len(blocks)}: "
+        "layer2-layer4) on the card against each block's CPU run on the "
+        "card's input to it: max |Δ|/max|CPU| per block "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" (limit {DEFORM_BLOCK_TOL})")
+    if max(errs) > DEFORM_BLOCK_TOL:
+        raise RuntimeError("[deform] a dcn block on the card is not the "
+                           "CPU's")
+    return max(errs)
+
+
+def deform_bf16_hold(torch, np, engine, engine16, name, cfg):
+    """bf16 against f32 by depth on the model's image: the bf16 engine's
+    neck maps against the f32 ones (max |Δ|/max|f32| per level, reported);
+    then every conv of the bf16 head, deformable ones included, on the
+    f32 head's inputs to it (its maps, offsets and masks) against the f32
+    conv: max |Δ|/max(|f32|, 1) within the bf16 budget's cls limit.  The
+    whole bf16 head on the f32 maps is reported (``head_budget``: the
+    classifier and location logits as the cls; the deltas, shapes and
+    points as the reg), not held: its offsets (GA's offset convs,
+    RepPoints' init points) come out of bf16 convs rounded to bf16, as in
+    the JAX head, and a random map's rough texture turns that rounding
+    into sampled values that part from f32 by more than one layer's."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    x = dense_image(np, name, cfg)
+    head, head16 = engine.model.bbox_head, engine16.model.bbox_head
+    convs = {n: m for n, m in head.named_modules()
+             if isinstance(m, torch.nn.Conv2d)}
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, n=n: seen.setdefault(n, []).append(
+            (args, out))) for n, m in convs.items()]
+    with torch.no_grad(), f32_precision():
+        maps = engine.backbone_maps(*x[:2])
+        maps16 = engine16.backbone_maps(*x[:2])
+        depth = [((m16.float() - m).abs().max() / m.abs().max()).item()
+                 for m16, m in zip(maps16, maps)]
+        try:
+            want = head(maps)
+        finally:
+            for h in hooks:
+                h.remove()
+        layers = {}
+        for n, calls in seen.items():
+            mod16 = head16.get_submodule(n)
+            layers[n] = max(
+                ((mod16(*args).float() - out).abs().max()
+                 / out.abs().max().clamp_min(1.0)).item()
+                for args, out in calls)
+        got = head16(maps)
+
+    def cls_reg(out):
+        if len(out) == 4:       # guided anchoring: cls and loc; reg, shape
+            return list(out[0]) + list(out[3]), list(out[1]) + list(out[2])
+        return list(out[0]), list(out[1]) + list(out[2])   # RepPoints
+
+    cls, reg = head_budget(cls_reg(got), cls_reg(want))
+    worst = max(layers, key=layers.get)
+    log(f"[deform] {type(engine).__name__} {engine.head_type} bf16 by depth: "
+        f"neck maps max |Δ|/max|f32| per level "
+        + ", ".join(f"{d:.3g}" for d in depth)
+        + f"; each of the head's {len(layers)} convs on the f32 head's "
+        f"inputs: max |Δ|/max(|f32|, 1) up to {layers[worst]:.3g} ({worst}; "
+        f"limit {BF16_CLS_BUDGET}); the whole bf16 head on the f32 maps "
+        f"(reported): max |Δcls|/max(|cls|, 1) {cls:.3g}, max |Δreg| "
+        f"{reg:.3g}")
+    if not (layers[worst] <= BF16_CLS_BUDGET and all(np.isfinite(depth))
+            and np.isfinite(cls) and np.isfinite(reg)):
+        raise RuntimeError(f"[deform] a bf16 {name} head conv is outside the "
+                           "bf16 budget")
+    return dict(maps=depth, layers=layers, cls=cls, reg=reg)
+
+
+def deform_op_times(torch, np):
+    """``deform_conv2d`` alone (the plain PyTorch im2col, no kernel): GA-
+    RetinaNet's 3×3 adaption conv (256 → 256, 4 deformable groups) at each
+    FPN level of the DEFORM_OP_HW canvas and the dcn plugin's 3×3 at each R50
+    stage it replaces (128, 256, 512 channels at strides 8, 16, 32), f32
+    and bf16, offsets of std 1.5 px: ms (CUDA events, mean of 5 after 2),
+    FLOPs (the product over (channel, tap) and the bilinear blend), the
+    bytes a kernel must move (input, offsets, weight read once, output
+    written once) and the bound at the card's f32 peak (the product runs
+    in f32 either way) or its memory rate.  Then the modulated (v2) op at
+    R50's stage-4 shape on the card against the CPU, within
+    DEFORM_OP_TOL.  Returns the cases."""
+    from hvrnet_tpu_torch.ops.deform import deform_conv2d
+    h, w = DEFORM_OP_HW
+    shapes = [(f"GA adaption P{3 + i}", 256, 256, 4, -(-h // s), -(-w // s))
+              for i, s in enumerate((8, 16, 32, 64, 128))]
+    shapes += [(f"dcn c{3 + i}", c, c, 1, h // s, w // s)
+               for i, (c, s) in enumerate(((128, 8), (256, 16), (512, 32)))]
+    gen = torch.Generator().manual_seed(3)
+    cases = []
+    for label, cin, cout, groups, ho, wo in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            xin = torch.randn(1, cin, ho, wo, generator=gen).to("cuda", dtype)
+            off = (torch.randn(1, groups * 18, ho, wo, generator=gen)
+                   * 1.5).to("cuda", dtype)
+            wt = (torch.randn(cout, cin, 3, 3, generator=gen)
+                  * (2 / (9 * cin)) ** 0.5).to("cuda", dtype)
+            ms = cuda_ms(torch, lambda: deform_conv2d(
+                xin, off, wt, None, 1, 1, 1, None, groups))
+            n = ho * wo
+            flops = 2.0 * cout * cin * 9 * n + 8.0 * cin * 9 * n
+            elt = torch.finfo(dtype).bits // 8
+            nbytes = elt * (cin * n + groups * 18 * n + cout * cin * 9
+                            + cout * n)
+            bound = max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3
+            cases.append(dict(label=label, dtype=str(dtype)[6:], ms=ms,
+                              gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                              bound_ms=bound,
+                              bound_by=("bytes" if nbytes / PEAK_BYTES
+                                        > flops / PEAK_F32_FLOPS
+                                        else "operations")))
+            log(f"[deform] deform_conv2d {label} ({cin}->{cout}, {groups} "
+                f"group(s), {ho}x{wo}) {str(dtype)[6:]} ({CARD}): "
+                f"{ms:.3f} ms (CUDA events, mean of 5 after 2); "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; bound "
+                f"{bound:.4f} ms ({cases[-1]['bound_by']}); "
+                f"{bound / ms:.3f} of bound")
+    # v2 at R50's stage 4 on 800×1344: 512 → 512 on 25×42
+    xin = torch.randn(1, 512, 25, 42, generator=gen)
+    off = torch.randn(1, 18, 25, 42, generator=gen) * 1.5
+    mask = torch.sigmoid(torch.randn(1, 9, 25, 42, generator=gen))
+    wt = torch.randn(512, 512, 3, 3, generator=gen) * (2 / 4608) ** 0.5
+    want = deform_conv2d(xin, off, wt, None, 1, 1, 1, mask)
+    got = deform_conv2d(*(t.cuda() for t in (xin, off, wt)), None, 1, 1, 1,
+                        mask.cuda()).cpu()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[deform] modulated deform_conv2d (v2) at R50 stage 4 (512->512, "
+        f"25x42, 27 offset and mask channels) on the card against the CPU: "
+        f"max |Δ|/max|CPU| {err:.3g} (limit {DEFORM_OP_TOL})")
+    if err > DEFORM_OP_TOL:
+        raise RuntimeError("[deform] the card's modulated deform_conv2d is "
+                           "not the CPU's")
+    return cases, err
+
+
+def phase_deform(torch, np):
+    """The deformable half of the dense family at full width
+    (``deform_configs``): per model, f32 ``simple_test`` (and bf16 for
+    DEFORM_BF16) with times, stages and peak memory, the deformable parts
+    timed apart and the samples' spread (``deform_parts``); the card's f32
+    result held to the port's CPU run on the card's maps on one image (the
+    dense models: their maps and head outputs too; Cascade R-CNN: each
+    dcn block on its card input, ``deform_block_hold``); bf16 against f32
+    by depth; each trainable model through ``train_detector`` for 2 + 2
+    steps; ``deform_conv2d`` alone at the models' shapes and v2 card
+    against CPU (``deform_op_times``); no attention launch and no cv2 on
+    the path.  Returns (runs, each with its attention launches (0), the op
+    cases)."""
+    runs = {}
+    for name, cfg in deform_configs().items():
+        t0 = time.time()
+        engine, engine16 = deform_engines(torch, np, name, cfg)
+        dense = name != "cascade_dcn"
+        for eng in (engine, engine16):
+            if eng is None:
+                continue
+            tag = f"{type(eng).__name__} {name} {str(eng.dtype)[6:]}"
+            key = f"deform {name} {str(eng.dtype)[6:]}"
+            runs[key] = (dense_serving(torch, np, eng, name, cfg, tag,
+                                       prefix="[deform]") if dense else
+                         zoo_serving(torch, np, eng, name, tag,
+                                     prefix="[deform]"))[0]
+        run = runs[f"deform {name} float32"]
+        run["parts"] = deform_parts(torch, np, engine, name, cfg)
+        if dense:
+            run["cpu_hold"] = dense_cpu_hold(torch, np, engine, name, cfg,
+                                             prefix="[deform]",
+                                             seeds=DEFORM_HOLD_SEEDS)
+        else:
+            run["block_hold"] = deform_block_hold(torch, np, engine, name)
+            run["cpu_hold"] = zoo_cpu_hold(torch, np, engine, cfg, name,
+                                           prefix="[deform]",
+                                           seeds=DEFORM_HOLD_SEEDS,
+                                           fpn_hold=False)
+        if engine16 is not None:
+            runs[f"deform {name} bfloat16"]["bf16_hold"] = deform_bf16_hold(
+                torch, np, engine, engine16, name, cfg)
+        del engine, engine16
+        torch.cuda.empty_cache()
+        if name in DEFORM_TRAIN:
+            runs[f"deform {name} train"] = (
+                dense_training(torch, np, name, cfg, prefix="[deform]")
+                if dense else zoo_training(torch, np, name, cfg,
+                                           prefix="[deform]"))
+        log(f"[deform] {name}: {time.time() - t0:.1f} s")
+    cases, v2_err = deform_op_times(torch, np)
+    if "cv2" in sys.modules:
+        raise RuntimeError("[deform] the deformable models' path imported "
+                           "cv2")
+    log("[deform] no attention launch in any serving or training run and no "
+        "cv2 import on the path")
+    return runs, dict(cases=cases, v2_card_vs_cpu=v2_err)
 
 
 def kernel_summary(cases, runs, runs16):
@@ -4817,7 +5430,9 @@ def route_summary(cases, runs, dtype):
              "8 frames, 4 per detection; zoo: Cascade R-CNN, Mask R-CNN "
              "and HTC serving and training, 0: no relation head; dense: "
              "RetinaNet, FreeAnchor, FCOS, FoveaBox and SSD300 serving and "
-             "training, 0: no relation head)",
+             "training, 0: no relation head; deform: GA-RetinaNet, GA-RPN, "
+             "RepPoints and Cascade R-CNN with dcn serving and training, 0: "
+             "no relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -4881,6 +5496,8 @@ def main() -> int:
     lap("[zoo]")
     dense = phase_dense(torch, np)
     lap("[dense]")
+    deform, _ = phase_deform(torch, np)
+    lap("[deform]")
     del hvr_weights, selsa_weights
     bf16 = torch.bfloat16
     cases += train_attention(torch)
@@ -4911,13 +5528,13 @@ def main() -> int:
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
             **multipass, "trace": traced, **image,
-            **{k: v for k, v in {**zoo, **dense}.items()
+            **{k: v for k, v in {**zoo, **dense, **deform}.items()
                if "bfloat16" not in k}}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
               **multipass16, **image16,
-              **{k: v for k, v in {**zoo, **dense}.items()
+              **{k: v for k, v in {**zoo, **dense, **deform}.items()
                  if "bfloat16" in k}}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,13 @@ keys reach the trainer.  The engine's type picks the trainer:
 ``FasterRCNNTrainer``, the multi-stage zoo (``CascadeRCNN``,
 ``MaskRCNN``, ``HybridTaskCascade``, ``MaskScoringRCNN``, ``GridRCNN``,
 ``DoubleHeadRCNN``) → ``TwoStageTrainer``, and the single-stage
-engines (``RetinaNet``, ``SingleStageDetector``, ``FCOS``, ``FOVEA``) by
-their head: ``FCOSHead`` → ``FCOSTrainer``, ``FoveaHead`` →
-``FoveaTrainer``, ``FreeAnchorRetinaHead`` → ``FreeAnchorTrainer``,
-``SSDHead`` → ``SSDTrainer``, any other → ``RetinaTrainer``.  The
+engines (``RetinaNet``, ``SingleStageDetector``, ``FCOS``, ``FOVEA``,
+``RepPointsDetector``) by their head: ``FCOSHead`` → ``FCOSTrainer``,
+``FoveaHead`` → ``FoveaTrainer``, ``FreeAnchorRetinaHead`` →
+``FreeAnchorTrainer``, ``SSDHead`` → ``SSDTrainer``, ``RepPointsHead`` →
+``RepPointsTrainer``, ``GARetinaHead`` → ``GATrainer``, any other →
+``RetinaTrainer``; ``RPN`` has no objective (``ValueError``, as the JAX
+``build_trainer``).  The
 still-image trainers' samples may also be still images: ``img`` (H, W, 3), ``gt_bboxes`` (G,
 4), ``gt_labels`` and ``gt_mask`` (G,), ``img_shape`` and ``pad_shape``
 (2,), for a mask head ``gt_masks`` (G, H, W), and for HTC's semantic
@@ -54,12 +57,15 @@ from .core.precision import LossScaleState
 from .engine.calibrate import calibrate_frozen_bn
 from .engine.detector import FasterRCNN, HNMBRCNN, SelsaRCNN
 from .engine.multi_stage import MultiStageEngine
-from .engine.single_stage import (FCOS, FOVEA, RetinaNet,
-                                  SingleStageDetector, SingleStageEngine)
+from .engine.single_stage import (FCOS, FOVEA, RepPointsDetector,
+                                  RetinaNet, SingleStageDetector,
+                                  SingleStageEngine)
 from .engine.stream import train_batch_iterator
 from .engine.train import (FasterRCNNTrainer, HNMBTrainer, SelsaTrainer,
                            still_image)
 from .engine.train_fcos import FCOSTrainer, FoveaTrainer
+from .engine.train_guided_anchor import GATrainer
+from .engine.train_reppoints import RepPointsTrainer
 from .engine.train_single_stage import (FreeAnchorTrainer, RetinaTrainer,
                                         SSDTrainer)
 from .engine.train_two_stage import TwoStageTrainer
@@ -173,11 +179,14 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         trainer_cls = FasterRCNNTrainer
     elif isinstance(engine, MultiStageEngine):
         trainer_cls = TwoStageTrainer
-    elif isinstance(engine, (RetinaNet, SingleStageDetector, FCOS, FOVEA)):
+    elif isinstance(engine, (RetinaNet, SingleStageDetector, FCOS, FOVEA,
+                             RepPointsDetector)):
         trainer_cls = {"FCOSHead": FCOSTrainer, "FoveaHead": FoveaTrainer,
                        "FreeAnchorRetinaHead": FreeAnchorTrainer,
-                       "SSDHead": SSDTrainer}.get(engine.head_type,
-                                                  RetinaTrainer)
+                       "SSDHead": SSDTrainer,
+                       "RepPointsHead": RepPointsTrainer,
+                       "GARetinaHead": GATrainer}.get(engine.head_type,
+                                                      RetinaTrainer)
     else:
         raise ValueError(f"no training objective registered for detector "
                          f"type {type(engine).__name__!r}")

@@ -35,12 +35,16 @@ def max_iou_assign(bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
                    gt_mask: torch.Tensor, gt_labels: Optional[torch.Tensor],
                    pos_iou_thr: float, neg_iou_thr: float,
                    min_pos_iou: float,
-                   box_mask: Optional[torch.Tensor] = None) -> AssignResult:
+                   box_mask: Optional[torch.Tensor] = None,
+                   overlaps: Optional[torch.Tensor] = None) -> AssignResult:
     """``assign_wrt_overlaps`` over (N, 4) boxes and (G, 4) ground truths,
     with masks for padded ground truths and boxes.  Each ground truth then
     claims the boxes at its best IoU (≥ ``min_pos_iou``); where two claim
-    one box the later ground truth wins, as in the reference's loop."""
-    overlaps = bbox_overlaps(gt_bboxes, bboxes)                  # (G, N)
+    one box the later ground truth wins, as in the reference's loop.
+    ``overlaps``: a (G, N) IoU matrix to assign by in place of the boxes'
+    (guided anchoring's max over each square's approx anchors)."""
+    if overlaps is None:
+        overlaps = bbox_overlaps(gt_bboxes, bboxes)              # (G, N)
     overlaps = torch.where(gt_mask[:, None], overlaps, -1.0)
     if box_mask is not None:
         overlaps = torch.where(box_mask[None, :], overlaps, -1.0)

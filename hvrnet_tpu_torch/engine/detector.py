@@ -249,14 +249,18 @@ class BaseEngine:
         call (fc_new_1 alone is 205 MB per frame).  The same cast done
         once, so bit for bit the same outputs; biases and the backbone keep
         float32.  A no-op on a float32 engine; a training engine must not
-        call it."""
+        call it.  A layer that computes in float32 in a bf16 head (RepPoints'
+        deformable convs, as the JAX head) keeps its weights."""
         if self.dtype != torch.bfloat16:
             return
         for head in (self.model.bbox_head,
                      getattr(self.model, "mask_head", None)):
-            for p in () if head is None else head.parameters():
-                if p.dtype == torch.float32 and p.ndim >= 2:
-                    p.data = p.data.to(torch.bfloat16)
+            for m in () if head is None else head.modules():
+                if getattr(m, "compute_dtype", None) == torch.float32:
+                    continue
+                for p in m.parameters(recurse=False):
+                    if p.dtype == torch.float32 and p.ndim >= 2:
+                        p.data = p.data.to(torch.bfloat16)
 
     def _canvas(self, h: int, w: int) -> Canvas:
         key = (h, w)

@@ -1,8 +1,8 @@
 """The single-stage detectors' engine (counterpart of
-``hvrnet_tpu/engine/single_stage.py``): RetinaNet and FreeAnchor, SSD, FCOS
-and FoveaBox, under the registered names ``RetinaNet``,
-``SingleStageDetector``, ``FCOS``, ``FOVEA``, ``RepPointsDetector`` and
-``RPN``.
+``hvrnet_tpu/engine/single_stage.py``): RetinaNet and FreeAnchor, SSD, FCOS,
+FoveaBox, guided-anchoring RetinaNet and RPN, and RepPoints, under the
+registered names ``RetinaNet``, ``SingleStageDetector``, ``FCOS``,
+``FOVEA``, ``RepPointsDetector`` and ``RPN``.
 
 ``simple_test`` runs the backbone (and the neck), the dense head, then per
 level a decode with a static ``nms_pre`` cut, and one class-wise NMS over
@@ -10,19 +10,26 @@ the levels' union, in the JAX engine's three routes:
 
 * anchors (``:83-142``): sigmoid scores, the ``nms_pre`` rows of highest
   row maximum (ties to the lower row, as ``lax.top_k``), ``delta2bbox`` on
-  the level's anchors clamped to ``img_shape``;
+  the level's anchors clamped to ``img_shape``.  A guided-anchoring head
+  (four outputs: cls, reg, shape, loc) brings its own anchors
+  (``guided_anchors``, ``:282-304``): the level's squares
+  (``AnchorGenerator(stride, (octave,), (1.0,))``) reshaped by the shape
+  map through ``delta2bbox(…, wh_ratio_clip=1e-6)``, and its scores times
+  ``sigmoid(loc) ≥ loc_filter_thr``; the zeroed scores tie in the
+  ``nms_pre`` cut, where the lower row goes first;
 * SSD (``:144-180``): softmax scores with the background column, the
   ``nms_pre`` cut ranked on the foreground maximum, SSD's anchors;
 * points (``:182-280``): FCOS's ``i·s + s//2`` points, scores times the
   sigmoid centerness, distances times the stride; FoveaBox's ``(i + 0.5)·s``
-  points and ``exp(reg)·base_len`` distances; boxes clipped to
+  points and ``exp(reg)·base_len`` distances; RepPoints' ``i·s`` points
+  (no half stride), its refined y-first offsets turned to x, y pairs,
+  ``points2bbox`` (``engine/train_reppoints.py``, with the head's
+  ``moment_transfer``) times the stride plus the point; boxes clipped to
   ``img_shape − 1`` before the ``nms_pre`` cut.
 
 The boxes are divided by the mean of ``scale_factor[:4]``; the sigmoid
 routes prepend a zero background column.  A level's (1, A·K, h, w) map is
 flattened in (h, w, anchor, K) order, the order of its anchors and points.
-The guided-anchoring branch and the RepPoints decode wait for the
-deformable convolution: their heads refuse to build.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from .multi_stage import mean_scale
 
 DEFAULT_TEST_CFG = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
                         max_per_img=100, nms_pre=1000)
-POINT_HEADS = ("FCOSHead", "FoveaHead")
+POINT_HEADS = ("FCOSHead", "FoveaHead", "RepPointsHead")
 
 
 class SingleStageModule(nn.Module):
@@ -166,10 +173,36 @@ class SingleStageEngine(BaseEngine):
         nms_pre = int(self.decode_cfg.get("nms_pre", -1))
         return nms_pre if 0 < nms_pre < n_rows else 0
 
-    def decode_anchors(self, cls_maps, reg_maps, img_shape):
+    def guided_anchors(self, shape_map: torch.Tensor, loc_map: torch.Tensor,
+                       lvl: int):
+        """A guided-anchoring level's anchors and location filter: the
+        squares of the level's (h, w) map reshaped by its (1, 2, h, w) shape
+        map (dw, dh), and (h·w,) float32 ones where ``sigmoid(loc) ≥
+        loc_filter_thr``."""
+        head = self.head_cfg
+        h, w = shape_map.shape[2], shape_map.shape[3]
+        stride = tuple(head.get("anchor_strides", (8, 16, 32, 64, 128)))[lvl]
+        octave = float(head.get("octave_base_scale", 8))
+        squares = self._grid(
+            ("squares", h, w, stride), lambda: AnchorGenerator(
+                stride, (octave,), (1.0,)).grid_anchors((h, w), stride))
+        shape = flat(shape_map, 2)
+        anchors = delta2bbox(
+            squares, torch.cat([torch.zeros_like(shape), shape], 1),
+            tuple(head.get("anchoring_means", (0., 0., 0., 0.))),
+            tuple(head.get("anchoring_stds", (1., 1., 1., 1.))),
+            wh_ratio_clip=1e-6)
+        thr = float(head.get("loc_filter_thr", 0.01))
+        keep = (torch.sigmoid(flat(loc_map, 1)[:, 0]) >= thr).float()
+        return anchors, keep
+
+    def decode_anchors(self, cls_maps, reg_maps, img_shape, shape_maps=None,
+                       loc_maps=None):
         """The anchor and SSD routes: per level the scores (sigmoid, or
         softmax with the background column), the ``nms_pre`` cut and
-        ``delta2bbox`` clamped to ``img_shape``."""
+        ``delta2bbox`` clamped to ``img_shape``; with a guided-anchoring
+        head's ``shape_maps`` and ``loc_maps``, on its guided anchors with
+        the filtered-out scores zeroed."""
         ssd = self.head_type == "SSDHead"
         k = self.num_classes if ssd else self.num_classes - 1
         boxes, scores = [], []
@@ -178,7 +211,12 @@ class SingleStageEngine(BaseEngine):
             s = (torch.softmax(logits, dim=-1) if ssd
                  else torch.sigmoid(logits))
             deltas = flat(rm, 4)
-            anchors = self.level_anchors(cm.shape[2], cm.shape[3], lvl)
+            if shape_maps is None:
+                anchors = self.level_anchors(cm.shape[2], cm.shape[3], lvl)
+            else:
+                anchors, keep = self.guided_anchors(shape_maps[lvl],
+                                                    loc_maps[lvl], lvl)
+                s = s * keep[:, None]
             n = self._nms_pre(s.shape[0])
             if n:
                 idx = top_rows((s[:, 1:] if ssd else s).max(dim=1).values, n)
@@ -189,11 +227,22 @@ class SingleStageEngine(BaseEngine):
         return torch.cat(boxes), torch.cat(scores)
 
     def decode_points(self, outs, img_shape):
-        """The point route (FCOS, FoveaBox): per level the points, the
-        scores (FCOS: times the sigmoid centerness), the boxes clipped to
-        ``img_shape − 1``, then the ``nms_pre`` cut."""
+        """The point route (FCOS, FoveaBox, RepPoints): per level the
+        points, the scores (FCOS: times the sigmoid centerness), the boxes
+        clipped to ``img_shape − 1``, then the ``nms_pre`` cut."""
         fcos = self.head_type == "FCOSHead"
-        strides = tuple(self.head_cfg.get("strides", (4, 8, 16, 32, 64)))
+        reppoints = self.head_type == "RepPointsHead"
+        if reppoints:
+            from .train_reppoints import points2bbox
+            strides = tuple(self.head_cfg.get("point_strides",
+                                              (8, 16, 32, 64, 128)))
+            method = str(self.head_cfg.get("transform_method", "moment"))
+            mt = (self.model.bbox_head.moment_transfer
+                  if method == "moment" else None)
+            mul = float(self.head_cfg.get("moment_mul", 0.01))
+        else:
+            strides = tuple(self.head_cfg.get("strides",
+                                              (4, 8, 16, 32, 64)))
         base_lens = tuple(self.head_cfg.get("base_edge_list",
                                             (16, 32, 64, 128, 256)))
         h_img, w_img = (np.float32(v) for v in np.asarray(img_shape)[:2])
@@ -203,17 +252,28 @@ class SingleStageEngine(BaseEngine):
         for lvl, (cm, rm) in enumerate(zip(outs[0], outs[1])):
             h, w = cm.shape[2], cm.shape[3]
             s = torch.sigmoid(flat(cm, self.num_classes - 1))
-            reg = flat(rm, 4)
-            pts = self._grid(("points", h, w, strides[lvl], not fcos),
-                             lambda: level_points(h, w, strides[lvl],
-                                                  not fcos))
-            if fcos:
-                s = s * torch.sigmoid(flat(outs[2][lvl], 1))
-                d = reg * strides[lvl]
+            if reppoints:
+                st = strides[lvl]
+                pts = self._grid(("rep points", h, w, st),
+                                 lambda: level_points(h, w, st, False)
+                                 - np.float32(st // 2))
+                off = flat(outs[2][lvl], rm.shape[1]).reshape(h * w, -1, 2)
+                xy = torch.stack([off[..., 1], off[..., 0]], -1)
+                b = (points2bbox(xy.reshape(h * w, -1), method, mt, mul) * st
+                     + torch.cat([pts, pts], 1))
             else:
-                d = torch.exp(reg) * base_lens[lvl]
-            b = torch.stack([pts[:, 0] - d[:, 0], pts[:, 1] - d[:, 1],
-                             pts[:, 0] + d[:, 2], pts[:, 1] + d[:, 3]], -1)
+                reg = flat(rm, 4)
+                pts = self._grid(("points", h, w, strides[lvl], not fcos),
+                                 lambda: level_points(h, w, strides[lvl],
+                                                      not fcos))
+                if fcos:
+                    s = s * torch.sigmoid(flat(outs[2][lvl], 1))
+                    d = reg * strides[lvl]
+                else:
+                    d = torch.exp(reg) * base_lens[lvl]
+                b = torch.stack([pts[:, 0] - d[:, 0], pts[:, 1] - d[:, 1],
+                                 pts[:, 0] + d[:, 2], pts[:, 1] + d[:, 3]],
+                                -1)
             b = torch.clamp(b, torch.zeros_like(hi), hi)
             n = self._nms_pre(s.shape[0])
             if n:
@@ -229,7 +289,8 @@ class SingleStageEngine(BaseEngine):
         if self.head_type in POINT_HEADS:
             boxes, scores = self.decode_points(outs, img_shape)
         else:
-            boxes, scores = self.decode_anchors(outs[0], outs[1], img_shape)
+            boxes, scores = self.decode_anchors(outs[0], outs[1], img_shape,
+                                                *outs[2:])
         if self.head_type != "SSDHead":
             scores = torch.cat([torch.zeros_like(scores[:, :1]), scores], 1)
         return boxes / mean_scale(scale_factor), scores
@@ -277,8 +338,8 @@ class FOVEA(SingleStageEngine):
 
 @DETECTORS.register_module
 class RepPointsDetector(SingleStageEngine):
-    """Refuses to build: ``RepPointsHead`` waits for the deformable
-    convolution."""
+    """RepPoints (mmdet ``detectors/reppoints_detector.py``): the point
+    route with ``RepPointsHead``."""
 
 
 @DETECTORS.register_module

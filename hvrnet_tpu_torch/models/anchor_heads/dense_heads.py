@@ -18,10 +18,12 @@ Where the JAX heads part from mmdet the port follows them: FCOS's tower
 convs keep a bias before their GroupNorm (flax's, epsilon 1e-6, ``min(32,
 feat_channels)`` groups), and its regression is ``exp(scale · reg)``.
 
-The guided-anchoring and RepPoints heads (``GARetinaHead``,
-``GuidedAnchorHead``, ``GARPNHead``, ``RepPointsHead``) are registered and
-refuse to build: they wait for the deformable convolution
-(``ops/deform.py``).
+The deformable half (``ops/deform.py``): ``GARetinaHead``,
+``GuidedAnchorHead`` / ``GARPNHead`` (mmdet's ``feature_adaption*.
+conv_offset`` / ``.conv_adaption``, ``conv_loc``, ``conv_shape``,
+``conv_cls``, ``conv_reg``) and ``RepPointsHead`` (``pts_convs.{i}.conv``,
+``reppoints_*``, ``moment_transfer``).  RepPoints' towers have no
+GroupNorm: the JAX head reads no ``norm_cfg``, and neither does the port.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.precision import widen
+from ...ops.deform import DeformConv2d
 from ..layers import Conv2d, ConvModule
 from ..registry import HEADS
 
@@ -238,21 +241,179 @@ class FoveaHead(nn.Module):
         return tuple(cls_outs), tuple(reg_outs)
 
 
-def _deformable(name: str):
-    class Refused(nn.Module):
-        __doc__ = (f"``hvrnet_tpu/models/anchor_heads/dense_heads.py:{name}``"
-                   ": not ported yet.")
+class FeatureAdaption(nn.Module):
+    """mmdet's ``FeatureAdaption`` (the JAX heads' ``feature_adaption*``):
+    a bias-free 1×1 ``conv_offset`` (normal(0, 0.1)) on the detached
+    2-channel shape prediction gives the offsets of ``conv_adaption``, a
+    k×k deformable conv of ``deformable_groups`` groups, then ReLU."""
 
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} is not ported yet (ops/deform.py: it waits for the "
-                "deformable convolution)")
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, deformable_groups: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_offset = Conv2d(2, deformable_groups * 2 * kernel_size ** 2,
+                                  1, bias=False, compute_dtype=dtype)
+        self.conv_offset.init_std = 0.1
+        self.conv_adaption = DeformConv2d(
+            in_channels, out_channels, kernel_size,
+            padding=(kernel_size - 1) // 2,
+            deformable_groups=deformable_groups, compute_dtype=dtype)
+        self.conv_adaption.init_std = 0.01
 
-    Refused.__name__ = Refused.__qualname__ = name
-    return HEADS.register_module(Refused)
+    def forward(self, x: torch.Tensor, shape: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.conv_adaption(x, self.conv_offset(shape.detach())))
 
 
-GARetinaHead = _deformable("GARetinaHead")
-RepPointsHead = _deformable("RepPointsHead")
-GuidedAnchorHead = _deformable("GuidedAnchorHead")
-GARPNHead = _deformable("GARPNHead")
+@HEADS.register_module
+class GARetinaHead(nn.Module):
+    """Guided-anchoring RetinaNet (``dense_heads.py:85-172`` of the JAX
+    package): RetinaNet's towers; ``conv_loc`` (1×1, the prior bias) on the
+    classification tower and ``conv_shape`` (1×1, (dw, dh)) on the
+    regression tower; per branch a ``FeatureAdaption``
+    (``feature_adaption_cls`` / ``feature_adaption_reg``) from the shape,
+    then the 3×3 ``retina_cls`` (K − 1 sigmoid logits) and ``retina_reg``
+    (4 deltas), one guided anchor per position.  mmdet's ``MaskedConv2d``
+    skips the positions the location branch filters out; the values it
+    computes are the dense conv's, and the engine zeroes those scores.
+    Returns (cls, reg, shape, loc) maps."""
+
+    def __init__(self, num_classes: int = 81, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 deformable_groups: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cls_convs = _tower(in_channels, feat_channels, stacked_convs,
+                                dtype)
+        self.reg_convs = _tower(in_channels, feat_channels, stacked_convs,
+                                dtype)
+        self.conv_loc = _conv(feat_channels, 1, dtype, bias=_bias_prior(),
+                              k=1)
+        self.conv_shape = _conv(feat_channels, 2, dtype, k=1)
+        self.feature_adaption_cls = FeatureAdaption(
+            feat_channels, feat_channels, 3, deformable_groups, dtype)
+        self.feature_adaption_reg = FeatureAdaption(
+            feat_channels, feat_channels, 3, deformable_groups, dtype)
+        self.retina_cls = _conv(feat_channels, num_classes - 1, dtype,
+                                bias=_bias_prior())
+        self.retina_reg = _conv(feat_channels, 4, dtype)
+
+    def forward(self, feats):
+        outs = ([], [], [], [])
+        for x in feats:
+            c = r = x
+            for conv in self.cls_convs:
+                c = conv(c)
+            for conv in self.reg_convs:
+                r = conv(r)
+            loc = self.conv_loc(c)
+            shape = self.conv_shape(r)
+            c = self.feature_adaption_cls(c, shape)
+            r = self.feature_adaption_reg(r, shape)
+            for out, o in zip(outs, (self.retina_cls(c), self.retina_reg(r),
+                                     shape, loc)):
+                out.append(o)
+        return tuple(tuple(o) for o in outs)
+
+
+@HEADS.register_module
+class GuidedAnchorHead(nn.Module):
+    """The guided-anchor head (``dense_heads.py:382-437``): 1×1
+    ``conv_loc`` (the prior bias) and ``conv_shape`` on the input map, a
+    3×3 ``feature_adaption`` of ``deformable_groups`` groups from the
+    detached shape, then the 1×1 ``conv_cls`` (K − 1 sigmoid logits, a zero
+    bias) and ``conv_reg`` on the adapted map.  Returns (cls, reg, shape,
+    loc) maps."""
+
+    def __init__(self, num_classes: int = 2, in_channels: int = 256,
+                 feat_channels: int = 256, deformable_groups: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_loc = _conv(in_channels, 1, dtype, bias=_bias_prior(), k=1)
+        self.conv_shape = _conv(in_channels, 2, dtype, k=1)
+        self.feature_adaption = FeatureAdaption(
+            in_channels, feat_channels, 3, deformable_groups, dtype)
+        self.conv_cls = _conv(feat_channels, num_classes - 1, dtype, k=1)
+        self.conv_reg = _conv(feat_channels, 4, dtype, k=1)
+
+    def forward(self, feats):
+        outs = ([], [], [], [])
+        for x in feats:
+            shape = self.conv_shape(x)
+            adapted = self.feature_adaption(x, shape)
+            for out, o in zip(outs, (self.conv_cls(adapted),
+                                     self.conv_reg(adapted), shape,
+                                     self.conv_loc(x))):
+                out.append(o)
+        return tuple(tuple(o) for o in outs)
+
+
+@HEADS.register_module
+class GARPNHead(GuidedAnchorHead):
+    """The guided-anchor RPN (binary objectness): ``GuidedAnchorHead``, as
+    the JAX package has it (without mmdet's ``rpn_conv``)."""
+
+
+@HEADS.register_module
+class RepPointsHead(nn.Module):
+    """RepPoints (``dense_heads.py:306-379``): ReLU'd towers ``cls_convs``
+    and ``pts_convs``; the init points ``reppoints_pts_init_out`` (1×1, 2N
+    y-first offsets) on ``reppoints_pts_init_conv``; the detached init
+    points themselves, with no base grid subtracted, are the offsets of two
+    k×k deformable convs (k² = N points, float32 weights, as the JAX head
+    leaves its kernels), ``reppoints_cls_conv`` → ``reppoints_cls_out``
+    (1×1, K − 1 sigmoid logits) and ``reppoints_pts_refine_conv`` →
+    ``reppoints_pts_refine_out``, to which the init points are added.
+    ``moment_transfer`` (2,), zeros, is the head's parameter for the moment
+    transform.  Returns (cls, init points, refined points) maps."""
+
+    def __init__(self, num_classes: int = 81, in_channels: int = 256,
+                 feat_channels: int = 256, point_feat_channels: int = 256,
+                 stacked_convs: int = 3, num_points: int = 9,
+                 transform_method: str = "moment",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        k = int(math.isqrt(num_points))
+        if k * k != num_points:
+            raise ValueError(f"RepPointsHead: num_points {num_points} is not "
+                             "a square")
+        if transform_method == "moment":
+            self.moment_transfer = nn.Parameter(torch.zeros(2))
+        self.cls_convs = _tower(in_channels, feat_channels, stacked_convs,
+                                dtype)
+        self.pts_convs = _tower(in_channels, feat_channels, stacked_convs,
+                                dtype)
+        self.reppoints_pts_init_conv = _conv(feat_channels,
+                                             point_feat_channels, dtype)
+        self.reppoints_pts_init_out = _conv(point_feat_channels,
+                                            2 * num_points, dtype, k=1)
+
+        def dcn():
+            conv = DeformConv2d(feat_channels, point_feat_channels, k,
+                                padding=k // 2)
+            conv.init_std = 0.01
+            return conv
+
+        self.reppoints_cls_conv = dcn()
+        self.reppoints_cls_out = _conv(point_feat_channels, num_classes - 1,
+                                       dtype, bias=_bias_prior(), k=1)
+        self.reppoints_pts_refine_conv = dcn()
+        self.reppoints_pts_refine_out = _conv(point_feat_channels,
+                                              2 * num_points, dtype, k=1)
+
+    def forward(self, feats):
+        cls_outs, init_outs, refine_outs = [], [], []
+        for x in feats:
+            c = p = x
+            for conv in self.cls_convs:
+                c = conv(c)
+            for conv in self.pts_convs:
+                p = conv(p)
+            pts_init = self.reppoints_pts_init_out(
+                F.relu(self.reppoints_pts_init_conv(p)))
+            off = pts_init.detach()
+            c = F.relu(self.reppoints_cls_conv(c, off))
+            p = F.relu(self.reppoints_pts_refine_conv(p, off))
+            cls_outs.append(self.reppoints_cls_out(c))
+            init_outs.append(pts_init)
+            refine_outs.append(self.reppoints_pts_refine_out(p) + off)
+        return tuple(cls_outs), tuple(init_outs), tuple(refine_outs)

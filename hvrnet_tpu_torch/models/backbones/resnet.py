@@ -20,8 +20,17 @@ computes in ``dtype`` (``core/precision.py``).
 ``frozen_stages`` is not the module's business: the trainer leaves the
 stem and stages ≤ ``frozen_stages`` out of its parameters
 (``engine/optim.py:default_trainable_mask``), which is the JAX package's
-``stop_gradient`` for every parameter.  The plugins (``dcn``, ``gcb``,
-``gen_attention``) are not ported yet.
+``stop_gradient`` for every parameter.
+
+The ``dcn`` plugin (``resnet.py:85-112`` of the JAX package) turns a
+bottleneck's 3×3 into a deformable convolution (``ops/deform.py``):
+``conv2_offset``, a regular 3×3 at the block's stride and dilation with a
+bias, zero-initialised, gives 18 offset channels (27 when ``modulated``:
+the first 18 the offsets, the sigmoid of the last 9 the mask), then
+``conv2`` (``DeformConv2d``, no bias) and ``bn2``, mmdet's names.
+``fallback_on_stride`` keeps the plain 3×3 on a strided block;
+``deformable_groups`` must be 1, as in the JAX package.  The other plugins
+(``gcb``, ``gen_attention``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.deform import DeformConv2d
 from ..layers import Conv2d, FrozenBN, max_pool_3x3_s2_p1
 from ..registry import BACKBONES
 
@@ -43,8 +53,12 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 style: str = "pytorch", dtype: torch.dtype = torch.float32):
+                 style: str = "pytorch", dtype: torch.dtype = torch.float32,
+                 dcn=None):
         super().__init__()
+        if dcn is not None:
+            raise ValueError("the ResNet plugins need bottleneck blocks "
+                             "(as in the JAX package)")
         self.conv1 = Conv2d(inplanes, planes, 3, stride=stride,
                             padding=dilation, dilation=dilation, bias=False,
                             compute_dtype=dtype)
@@ -69,21 +83,37 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1×1 → 3×3 → 1×1 (×4) with frozen BNs (``Bottleneck``,
     ``resnet.py:56``): caffe style strides the first 1×1, pytorch style
-    the 3×3."""
+    the 3×3; with ``dcn`` the 3×3 is deformable (the module docstring)."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 style: str = "caffe", dtype: torch.dtype = torch.float32):
+                 style: str = "caffe", dtype: torch.dtype = torch.float32,
+                 dcn=None):
         super().__init__()
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
         out = planes * self.expansion
         self.conv1 = Conv2d(inplanes, planes, 1, stride=s1, bias=False,
                             compute_dtype=dtype)
         self.bn1 = FrozenBN(planes, dtype=dtype)
-        self.conv2 = Conv2d(planes, planes, 3, stride=s2, padding=dilation,
-                            dilation=dilation, bias=False,
-                            compute_dtype=dtype)
+        self.with_dcn = dcn is not None and not (
+            dcn.get("fallback_on_stride", False) and s2 > 1)
+        if self.with_dcn:
+            if int(dcn.get("deformable_groups", 1)) != 1:
+                raise ValueError("the ResNet dcn plugin takes "
+                                 "deformable_groups=1 (as the JAX package)")
+            self.modulated = bool(dcn.get("modulated", False))
+            self.conv2_offset = Conv2d(
+                planes, 27 if self.modulated else 18, 3, stride=s2,
+                padding=dilation, dilation=dilation, compute_dtype=dtype)
+            self.conv2_offset.init_std = 0.0
+            self.conv2 = DeformConv2d(planes, planes, 3, stride=s2,
+                                      padding=dilation, dilation=dilation,
+                                      compute_dtype=dtype)
+        else:
+            self.conv2 = Conv2d(planes, planes, 3, stride=s2,
+                                padding=dilation, dilation=dilation,
+                                bias=False, compute_dtype=dtype)
         self.bn2 = FrozenBN(planes, dtype=dtype)
         self.conv3 = Conv2d(planes, out, 1, bias=False, compute_dtype=dtype)
         self.bn3 = FrozenBN(out, dtype=dtype)
@@ -96,7 +126,15 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        if self.with_dcn:
+            off = self.conv2_offset(out)
+            mask = None
+            if self.modulated:
+                off, mask = off[:, :18], torch.sigmoid(off[:, 18:])
+            out = self.conv2(out, off, mask)
+        else:
+            out = self.conv2(out)
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
@@ -118,13 +156,14 @@ class ResLayer(nn.Sequential):
 
     def __init__(self, block, inplanes: int, planes: int, num_blocks: int,
                  stride: int = 1, dilation: int = 1, style: str = "caffe",
-                 with_cp: bool = False, dtype: torch.dtype = torch.float32):
+                 with_cp: bool = False, dtype: torch.dtype = torch.float32,
+                 dcn=None):
         need_ds = stride != 1 or inplanes != planes * block.expansion
         blocks = [block(inplanes, planes, stride, dilation, need_ds, style,
-                        dtype)]
+                        dtype, dcn)]
         for _ in range(1, num_blocks):
             blocks.append(block(planes * block.expansion, planes, 1,
-                                dilation, False, style, dtype))
+                                dilation, False, style, dtype, dcn))
         super().__init__(*blocks)
         self.with_cp = with_cp
 
@@ -160,7 +199,7 @@ class ResNet(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         for name, plugin, stages in (
-                ("dcn", dcn, stage_with_dcn), ("gcb", gcb, stage_with_gcb),
+                ("gcb", gcb, stage_with_gcb),
                 ("gen_attention", gen_attention, stage_with_gen_attention)):
             if plugin is not None and any(stages[:num_stages]):
                 raise NotImplementedError(
@@ -179,7 +218,8 @@ class ResNet(nn.Module):
             planes = 64 * 2 ** i
             self.add_module(f"layer{i + 1}", ResLayer(
                 block, inplanes, planes, stage_blocks[i], strides[i],
-                dilations[i], style, with_cp, dtype))
+                dilations[i], style, with_cp, dtype,
+                dcn if stage_with_dcn[i] else None))
             inplanes = planes * block.expansion
 
     def forward(self, x: torch.Tensor):

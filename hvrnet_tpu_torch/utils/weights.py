@@ -22,7 +22,9 @@ and flipped in both spatial axes.  The FPN zoo adds the 4-stage backbone
 ``grid_head_state_dict``: two more flipped transposed convs).  A
 single-stage tree (no ``rpn_head``) has a dense ``bbox_head``
 (``dense_head_state_dict``) and a ResNet or ``SSDVGG`` backbone
-(``ssd_vgg_state_dict``).  Because the names are mmdet's, a reference
+(``ssd_vgg_state_dict``); a ``dcn`` block's ``conv2_offset``,
+``conv2_kernel`` and ``conv2_bn`` → ``conv2_offset``, ``conv2`` and
+``bn2``.  Because the names are mmdet's, a reference
 ``.pth`` state_dict loads straight into the port as well.
 """
 from __future__ import annotations
@@ -98,6 +100,13 @@ def _res_layers(prefix: str, tree: Dict[str, Any], out: Dict[str, np.ndarray]):
             for name, node in sub.items():
                 if name == "downsample":
                     _conv_bn(base, node, out, "downsample.0", "downsample.1")
+                elif name == "conv2_offset":            # the dcn plugin's
+                    out.update(_convs(sub, {name: f"{base}.conv2_offset"}))
+                elif name == "conv2_kernel":
+                    out[f"{base}.conv2.weight"] = _conv_w(node)
+                elif name == "conv2_bn":
+                    for k, v in node.items():
+                        out[f"{base}.bn2.{_BN_NAMES[k]}"] = v
                 else:                                   # conv1 / conv2 / conv3
                     _conv_bn(base, node, out, name, "bn" + name[len("conv"):])
 
@@ -204,30 +213,55 @@ def ssd_vgg_state_dict(backbone: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+# RepPoints' JAX layer names → mmdet's
+_REPPOINTS = {"pts_init_conv": "reppoints_pts_init_conv",
+              "pts_init_out": "reppoints_pts_init_out",
+              "cls_dcn_kernel": "reppoints_cls_conv",
+              "cls_out": "reppoints_cls_out",
+              "pts_refine_kernel": "reppoints_pts_refine_conv",
+              "pts_refine_out": "reppoints_pts_refine_out"}
+
+
 def dense_head_state_dict(head: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """A JAX dense head subtree → mmdet's names: the towers'
     ``cls_conv{i}`` / ``reg_conv{i}`` → ``cls_convs.{i}.conv`` / …, FCOS's
     ``cls_gn{i}`` / ``reg_gn{i}`` → ``cls_convs.{i}.gn`` / …,
     ``scale{i}`` → ``scales.{i}.scale``; the output convs (``retina_cls``,
     ``retina_reg``, ``fcos_cls``, ``fcos_reg``, ``fcos_centerness``,
-    ``fovea_cls``, ``fovea_reg``) keep their names.  An ``SSDHead``'s
+    ``fovea_cls``, ``fovea_reg``, ``conv_loc``, ``conv_shape``,
+    ``conv_cls``, ``conv_reg``) keep their names.  An ``SSDHead``'s
     per-level ``cls_conv{i}`` / ``reg_conv{i}`` (its only convs) →
-    ``cls_convs.{i}`` / ``reg_convs.{i}``."""
+    ``cls_convs.{i}`` / ``reg_convs.{i}``.  The deformable heads:
+    ``feature_adaption[_cls|_reg]_offset`` (a bias-free conv) and
+    ``_kernel`` (a bare HWIO kernel) → ``feature_adaption[_cls|_reg].
+    conv_offset`` / ``.conv_adaption``; RepPoints' ``pts_conv{i}`` →
+    ``pts_convs.{i}.conv``, its other layers → ``reppoints_*``
+    (``_REPPOINTS``), ``moment_transfer`` as it is."""
     head = _to_numpy(head)
-    towers = re.compile(r"(cls|reg)_(conv|gn)(\d+)")
+    towers = re.compile(r"(cls|reg|pts)_(conv|gn)(\d+)")
+    adaption = re.compile(r"(feature_adaption(?:_cls|_reg)?)_(offset|kernel)")
     ssd = all(towers.fullmatch(n) for n in head)
     out: Dict[str, np.ndarray] = {}
     for name, node in head.items():
         m = towers.fullmatch(name)
         scale = re.fullmatch(r"scale(\d+)", name)
-        if scale:
+        fa = adaption.fullmatch(name)
+        if name == "moment_transfer":
+            out[name] = node
+        elif fa and fa[2] == "offset":
+            out[f"{fa[1]}.conv_offset.weight"] = _conv_w(node["kernel"])
+        elif fa:
+            out[f"{fa[1]}.conv_adaption.weight"] = _conv_w(node)
+        elif name.endswith("_kernel"):
+            out[f"{_REPPOINTS[name]}.weight"] = _conv_w(node)
+        elif scale:
             out[f"scales.{scale[1]}.scale"] = node["scale"]
         elif m and m[2] == "gn":
             out[f"{m[1]}_convs.{m[3]}.gn.weight"] = node["scale"]
             out[f"{m[1]}_convs.{m[3]}.gn.bias"] = node["bias"]
         else:
-            port = (name if m is None else f"{m[1]}_convs.{m[3]}"
-                    + ("" if ssd else ".conv"))
+            port = (_REPPOINTS.get(name, name) if m is None
+                    else f"{m[1]}_convs.{m[3]}" + ("" if ssd else ".conv"))
             out.update(_convs(head, {name: port}))
     return out
 

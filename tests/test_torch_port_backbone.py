@@ -9,6 +9,8 @@ cross back through the JAX package's ``convert_torch_checkpoint``, so both
 packages run the same weights with O(1) activations.  Sizes are the tiny
 HNMB config (R50 stages, 8 proposals, T = 3) on a 96×128 canvas.
 """
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -30,12 +32,18 @@ IMG_SHAPE = np.array([86.0, 122.0], np.float32)
 PAD_SHAPE = np.array([96.0, 128.0], np.float32)
 
 
+_SHAPES = weakref.WeakKeyDictionary()   # engine → its traced param shapes
+
+
 def jax_param_tree(engine, seed: int):
-    """A parameter tree with the JAX engine's exact structure (traced, not
-    run), filled from numpy in its init scheme: He-normal conv kernels,
-    normal(0, 0.01) dense kernels and RPN convs, zero biases, identity
-    frozen BNs."""
-    shapes = jax.eval_shape(engine.init_params, jax.random.PRNGKey(0))
+    """A parameter tree with the JAX engine's exact structure (traced once
+    per engine, not run), filled from numpy in its init scheme: He-normal
+    conv kernels, normal(0, 0.01) dense kernels and RPN convs, zero
+    biases, identity frozen BNs."""
+    if engine not in _SHAPES:
+        _SHAPES[engine] = jax.eval_shape(engine.init_params,
+                                         jax.random.PRNGKey(0))
+    shapes = _SHAPES[engine]
     rng = np.random.default_rng(seed)
 
     def fill(path, s):

@@ -266,7 +266,7 @@ def test_sgd_step_matches_the_jax_chain(dense_steps, kind):
     eng.load_state_dict(state_dict_from_jax(tree))
     gp = jax.tree_util.tree_map(jnp.asarray, {
         "params": _prune(r["jgrad_tree"]["params"])})
-    scale = 100.0 / optax.global_norm(gp)
+    scale = 100.0 / jax.jit(optax.global_norm)(gp)
     gp = jax.tree_util.tree_map(lambda g: g * scale, gp)
     jp = jax.tree_util.tree_map(jnp.asarray,
                                 {"params": _prune(tree["params"])})
@@ -274,7 +274,8 @@ def test_sgd_step_matches_the_jax_chain(dense_steps, kind):
                                          warmup_ratio=1.0 / 3),
                             momentum=0.9, weight_decay=1e-4, clip_norm=35.0)
     upd, _ = jax.jit(tx.update)(gp, tx.init(jp), jp)
-    want = state_dict_from_jax(_merge(tree, optax.apply_updates(jp, upd)))
+    want = state_dict_from_jax(_merge(tree, jax.jit(optax.apply_updates)(
+        jp, upd)))
     g = state_dict_from_jax(_merge(jax.tree_util.tree_map(np.zeros_like,
                                                           tree),
                                    jax.device_get(gp)))

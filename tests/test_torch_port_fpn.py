@@ -222,12 +222,11 @@ def test_resnet_with_cp_equals_without():
         assert torch.equal(p0.grad, p1.grad), n
 
 
-@pytest.mark.parametrize("plugin", ["dcn", "gcb", "gen_attention"])
+@pytest.mark.parametrize("plugin", ["gcb", "gen_attention"])
 def test_resnet_plugins_are_refused(plugin):
-    """A ResNet plugin on a stage raises "not ported yet"."""
-    cfg = {"dcn": dict(dcn=dict(modulated=False),
-                       stage_with_dcn=(False, True, True, True)),
-           "gcb": dict(gcb=dict(ratio=1. / 4.),
+    """A ResNet plugin on a stage raises "not ported yet" (``dcn`` is
+    ported: ``tests/test_torch_port_deform.py``)."""
+    cfg = {"gcb": dict(gcb=dict(ratio=1. / 4.),
                        stage_with_gcb=(False, True, True, True)),
            "gen_attention": dict(gen_attention=dict(spatial_range=-1),
                                  stage_with_gen_attention=((), (), (0,),

@@ -254,11 +254,12 @@ def test_paramwise_options_match_the_jax_optimizer(hnmb_setup):
             lambda x: (rng.standard_normal(x.shape) * mult).astype(
                 np.float32), tree)
         upd, opt_state = update(_trainable_subtree(grads), opt_state, jp)
-        jp = optax.apply_updates(jp, upd)
+        jp = jax.jit(optax.apply_updates)(jp, upd)
         g = state_dict_from_jax(grads)
         for name, p in params.items():
             p.grad = g[name].clone() if p.requires_grad else None
-        norms.append(float(optax.global_norm(_trainable_subtree(grads))))
+        norms.append(float(jax.jit(optax.global_norm)(
+            _trainable_subtree(grads))))
         trainer.apply_update()
         want = state_dict_from_jax(_merge(tree, jp))
         for name, t in eng.model.state_dict().items():

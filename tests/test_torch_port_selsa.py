@@ -428,7 +428,7 @@ def whole_step(setup):
     # the update is elementwise but for the global norm, so jitting it
     # changes nothing the test holds (eagerly it takes ~25 s of dispatch)
     upd, _ = jax.jit(trainer.tx.update)(grads, state.opt_state, params)
-    after = optax.apply_updates(params, upd)
+    after = jax.jit(optax.apply_updates)(params, upd)
     c4 = jeng.module.apply(params, jsample["imgs"],
                            method=jeng.module.extract_feat)
     n_anchors = Canvas(*TRAIN_CANVAS).anchors.shape[0]
@@ -536,11 +536,46 @@ def test_whole_step_from_jax_c4_matches_jax(setup, whole_step, port_steps,
             assert torch.equal(t, before[name]), name
 
 
+def cached_trunk(backbone, pattern):
+    """``backbone``'s C4 as a function of its input, which reruns only the
+    stages from the first whose parameters changed since the last call
+    (the stem, then each ``layer{i}``): a stage's output is a function of
+    its input and its parameters, so a reused one is the one a rerun
+    would give, bit for bit.  ``pattern`` (replaying) is moved to where
+    the reused stages leave it.  Central differences perturb one tensor
+    at a time, so most of the trunk before it is reused."""
+    import hvrnet_tpu_torch.models.backbones.resnet as resnet
+    stages = [(lambda h: resnet.max_pool_3x3_s2_p1(torch.nn.functional.relu(
+        backbone.bn1(backbone.conv1(h)))), (backbone.conv1, backbone.bn1))]
+    stages += [(layer, (layer,)) for layer in (
+        getattr(backbone, f"layer{i + 1}")
+        for i in range(backbone.num_stages))]
+    cache = []
+
+    def run(x):
+        h, fresh = x, False
+        for i, (fn, mods) in enumerate(stages):
+            params = [p for m in mods for p in m.parameters()]
+            if not fresh and i < len(cache) and all(
+                    torch.equal(p, q) for p, q in zip(params, cache[i][0])):
+                h, pattern.replaying = cache[i][1], cache[i][2]
+                continue
+            fresh = True
+            h = fn(h)
+            entry = ([p.detach().clone() for p in params], h,
+                     pattern.replaying)
+            cache[i:i + 1] = [entry]
+        return h
+
+    return run
+
+
 def float64_loss(setup, whole_step, pattern, monkeypatch):
     """The port's float64 loss from the images on the float32 step's ReLU
     pattern, as a function of the float64 parameters it returns with it.
     The first call fixes the offset from C4 to the JAX c4, and the
-    proposals, which the step takes from detached maps."""
+    proposals, which the step takes from detached maps; the trunk reruns
+    from the first stage a perturbation touched (``cached_trunk``)."""
     import hvrnet_tpu_torch.engine.train as train_module
     c4, noise = whole_step[3:]
     trainer = port_trainer(setup)
@@ -558,11 +593,12 @@ def float64_loss(setup, whole_step, pattern, monkeypatch):
         return fixed[i]
 
     monkeypatch.setattr(train_module, "_rpn_proposals", held_proposals)
+    trunk = cached_trunk(model.backbone, pattern)
 
     def loss():
         with default_dtype(torch.float64), torch.no_grad(), \
                 relu_as(pattern), pattern.replay():
-            own = model.extract_feat(x)
+            own = trunk(x)
             if not offset:
                 offset.append(_nchw(c4).double() - own)
             return trainer.loss_from_c4(own + offset[0], sample,

@@ -405,7 +405,8 @@ def test_multi_frame_roi_extractor_matches_jax(setup):
     rois = np.concatenate([np.repeat(np.arange(3.0), 5)[:, None],
                            _rand_boxes(rng, 15, 60.0)], 1).astype(np.float32)
     g = rng.standard_normal((15, 7, 7, 16)).astype(np.float32)
-    want, vjp = jax.vjp(lambda f: jeng.roi_extractor([f], rois), feats)
+    want, vjp = jax.vjp(jax.jit(lambda f: jeng.roi_extractor([f], rois)),
+                        feats)
     x = _nchw(feats).requires_grad_()
     got = port.roi_extractor(x, _t(rois))
     got.backward(_t(g).permute(0, 3, 1, 2))
@@ -603,8 +604,8 @@ def test_forward_train_matches_jax(setup):
                                    method=mod.bbox_forward_train_hrnmp)
         return objective(cls, reg, trip, jnp.asarray), (cls, reg, trip)
 
-    (_, (jcls, jreg, jtrip)), jgrads = jax.value_and_grad(
-        jax_fn, has_aux=True)(params)
+    (_, (jcls, jreg, jtrip)), jgrads = jax.jit(jax.value_and_grad(
+        jax_fn, has_aux=True))(params)
     cls, reg, trip = head.forward_train(
         torch.from_numpy(feats.transpose(0, 1, 4, 2, 3).copy()), _t(labels),
         _t(valid))

@@ -469,10 +469,8 @@ def test_cascade_stages_refine(zoo_test):
 # ------------------------------------------------------------ refusals
 def _refused(what):
     cfg = base_cfg(1, True)
-    if what in ("dcn", "gcb", "gen_attention"):
-        plugin = {"dcn": dict(dcn=dict(modulated=False),
-                              stage_with_dcn=(False, True, True, False)),
-                  "gcb": dict(gcb=dict(ratio=1. / 4.),
+    if what in ("gcb", "gen_attention"):
+        plugin = {"gcb": dict(gcb=dict(ratio=1. / 4.),
                               stage_with_gcb=(False, True, True, False)),
                   "gen_attention": dict(
                       gen_attention=dict(spatial_range=-1),
@@ -486,13 +484,13 @@ def _refused(what):
                                                   out_size=7)))
 
 
-@pytest.mark.parametrize("what", ["RoIPool", "dcn", "gcb", "gen_attention",
+@pytest.mark.parametrize("what", ["RoIPool", "gcb", "gen_attention",
                                   "HRFPN"])
 def test_not_ported_yet_is_refused(what):
     """What waits for a later slice raises "not ported yet" when the
-    engine is built: ``RoIPool``, the ResNet plugins (deformable
-    convolutions, the global context block, generalized attention) and the
-    HRNet neck ``HRFPN``."""
+    engine is built: ``RoIPool``, the ResNet plugins (the global context
+    block, generalized attention) and the HRNet neck ``HRFPN``.  (The
+    ``dcn`` plugin is ported: ``tests/test_torch_port_deform.py``.)"""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         apis.build_detector(_refused(what), test_cfg=TEST_CFG, device="cpu")
 
