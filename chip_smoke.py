@@ -204,7 +204,30 @@ stops the script with a non-zero exit:
     kernels move); ``deform_conv2d`` alone at the models' shapes (f32,
     bf16; FLOPs, bytes, bound) and v2 at R50's stage 4 card against CPU;
     no attention launch and no cv2 import on the path.
-20. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+20. ``[trunks]``: HVRNet on the ResNeXt-101 64x4d and Res2Net-101-v1b
+    26w-4s C5 trunks (``TRUNK_CONFIGS``: the config with its backbone and
+    shared head swapped; T=21, 300 proposals, 608×1008, seeded weights
+    calibrated on the first frame) over the synthetic video: X101's exact
+    and streaming rings in f32 and bf16, Res2Net's exact ring in f32;
+    4 launches per exact detection, 2 per streaming one plus 4 per replay;
+    the window head with the kernel against the plain attention on the
+    trunk's own window (bf16: its kernel calls held to their plain
+    version and to the f32 head), streaming against exact as ``[stream]``
+    compares them, the card's trunk against the port's CPU run by depth,
+    stage times (backbone, shared head, RPN head, window head) and the
+    backbone's idle share.
+21. ``[plugins]``: the rest of the backbone zoo at full width
+    (``plugin_configs``: mmdetection v1.0's Mask R-CNN R50-FPN with the
+    context block on c3-c5, Faster R-CNN R50-FPN with generalized
+    attention '1111' on c4-c5 run by the multi-stage engine at one stage,
+    Cascade R-CNN HRNetV2p-W32 + HRFPN; 800×1333 on 800×1344), seeded
+    weights with the plugins made live: ``simple_test`` in f32 and bf16,
+    the plugin blocks' time and peak memory, the card against the CPU
+    (plugin blocks on their card inputs, HRFPN's outputs, the detections
+    on the card's maps), bf16 against f32 by depth; ``roi_pool`` alone at
+    HVRNet's shapes (300 RoIs on the 38×63×1024 C4 map) bit for bit the
+    CPU's, timed.
+22. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -224,6 +247,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "faster_rcnn_r101_hrnmp_c5.py"
+# HVRNet's C5 trunks beside the config's R101 ([trunks]): mmdetection's
+# resnext101_64x4d widths and Res2Net-101-v1b 26w-4s; only the backbone and
+# the shared head change
+TRUNK_CONFIGS = {
+    "X101-64x4d": dict(
+        backbone=dict(type="ResNeXt", depth=101, groups=64, base_width=4,
+                      num_stages=3, strides=(1, 2, 2), dilations=(1, 1, 1),
+                      out_indices=(2,), frozen_stages=1, style="pytorch"),
+        shared_head=dict(type="ResXLayer", depth=101, stage=3, stride=1,
+                         dilation=2, groups=64, base_width=4,
+                         external_conv=True)),
+    "Res2Net-101-v1b-26w-4s": dict(
+        backbone=dict(type="Res2NetV1b", depth=101, scales=4, base_width=26,
+                      num_stages=3, strides=(1, 2, 2), dilations=(1, 1, 1),
+                      out_indices=(2,), frozen_stages=1),
+        shared_head=dict(type="Res2Layer", depth=101, stage=3, stride=1,
+                         dilation=2, scales=4, base_width=26,
+                         external_conv=True))}
 N_FRAMES = 30
 CANVAS = (608, 1008)
 CONTENT = (600, 1000)
@@ -551,8 +592,9 @@ def run_video(torch, np, engine, tag, **runner_kw):
 
 
 def build_engine(torch, np, window=None, stream_theta=None, weights=None,
-                 dtype=None):
-    """HNMBRCNN from the shipped config, optionally at another window
+                 dtype=None, trunk=None):
+    """HNMBRCNN from the shipped config, with ``trunk``'s backbone and
+    shared head (``TRUNK_CONFIGS``) where given, optionally at another window
     (frame_interval, t_dim and key_dim set together, as the 63-frame
     cache sets them) or with a head ``stream_theta``; ``weights`` is a
     state_dict to load, else seeded random weights with frozen-BN
@@ -568,6 +610,8 @@ def build_engine(torch, np, window=None, stream_theta=None, weights=None,
         test_cfg["bbox_head"].update(t_dim=window, key_dim=(window - 1) // 2)
     if stream_theta is not None:
         model_cfg["bbox_head"]["stream_theta"] = stream_theta
+    if trunk:
+        model_cfg.update(TRUNK_CONFIGS[trunk])
     t0 = time.time()
     engine = HNMBRCNN(model_cfg, test_cfg, device="cuda", seed=0,
                       dtype=dtype or torch.float32)
@@ -580,7 +624,7 @@ def build_engine(torch, np, window=None, stream_theta=None, weights=None,
     engine.cast_head_params_bf16()
     torch.cuda.synchronize()
     bh = engine.model_cfg["bbox_head"]
-    log(f"[build] HNMBRCNN R101-C5 {str(engine.dtype)[6:]} in "
+    log(f"[build] HNMBRCNN {trunk or 'R101'}-C5 {str(engine.dtype)[6:]} in "
         f"{time.time() - t0:.1f} s ({how}): "
         f"window {engine.window}, t_dim {bh['t_dim']}, key_dim "
         f"{engine.key_dim}, {engine.proposal_num} proposals/frame, "
@@ -619,19 +663,25 @@ def head_budget(got, want):
 
 
 def phase_main_path(torch, np):
-    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
-    from hvrnet_tpu_torch.ops.attention import (attention_plain,
-                                                masked_attention)
-
     engine = build_engine(torch, np)
     warm_up(torch, np, engine)
     run = run_video(torch, np, engine, "[main]")
     if run["launches"] != 4 * run["detections"]:
         raise RuntimeError("the main path did not run the attention kernel "
                            "4 times per detection")
+    stage_times(torch, np, engine, *window_head_check(torch, np, engine,
+                                                      "[main]"))
+    return engine, run
 
-    # the window head on the last full window, with the kernel and with the
-    # plain attention (these launches are not part of the counts above)
+
+def window_head_check(torch, np, engine, tag):
+    """The window head on the last full window of the synthetic video with
+    the kernel and with the plain attention (these launches are not part
+    of any run's count): logits within 1e-4.  Returns the window's frame
+    caches, fc1 rows, masks and the head's output."""
+    from hvrnet_tpu_torch.models.bbox_heads import selsa_bbox_head
+    from hvrnet_tpu_torch.ops.attention import (attention_plain,
+                                                masked_attention)
     feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
              for f in synthetic_video(np, engine.window, seed=1)]
     fc1 = torch.cat([f["fc1"] for f in feats])
@@ -646,13 +696,12 @@ def phase_main_path(torch, np):
         finally:
             selsa_bbox_head.masked_attention = masked_attention
     worst = logit_err(got, want)
-    log(f"[main] window head logits, kernel vs plain attention: max "
+    log(f"{tag} window head logits, kernel vs plain attention: max "
         f"|Δ|/max(|ref|, 1) = {worst:.3g}")
     if not worst <= 1e-4:
-        raise RuntimeError("window head with the kernel disagrees with the "
-                           "plain attention")
-    stage_times(torch, np, engine, feats, fc1, valid, got)
-    return engine, run
+        raise RuntimeError(f"{tag} window head with the kernel disagrees "
+                           "with the plain attention")
+    return feats, fc1, valid, got
 
 
 def final_window_check(torch, np, engine):
@@ -3595,9 +3644,15 @@ ZOO_RPN_PROPOSAL = dict(nms_across_levels=False, nms_pre=12000,
 ZOO_SIZES = {"cascade": ((600, 1000), (608, 1008), 0.78125),
              "mask": ((800, 1333), (800, 1344), 0.625),
              "htc": ((800, 1333), (800, 1344), 0.625),
-             "cascade_dcn": ((800, 1333), (800, 1344), 0.625)}   # [deform]
+             "cascade_dcn": ((800, 1333), (800, 1344), 0.625),   # [deform]
+             "mask_gcb": ((800, 1333), (800, 1344), 0.625),      # [plugins]
+             "faster_attention": ((800, 1333), (800, 1344), 0.625),
+             "cascade_hrnet": ((800, 1333), (800, 1344), 0.625)}
 ZOO_TRUNKS = {"cascade": "R101-C5", "mask": "R101-C5", "htc": "R50-FPN",
-              "cascade_dcn": "R50-FPN, dcn c3-c5"}
+              "cascade_dcn": "R50-FPN, dcn c3-c5",
+              "mask_gcb": "R50-FPN, gcb c3-c5",
+              "faster_attention": "R50-FPN, gen_attention 1111 c4-c5",
+              "cascade_hrnet": "HRNetV2p-W32 + HRFPN"}
 ZOO_CALLS = 3             # timed simple_test calls after one warm-up call
 ZOO_TRAIN_TIMED = 2       # timed training steps after TRAIN_WARMUP
 ZOO_HOLD_SEEDS = (0, 1, 2, 3)   # the images of the card-against-CPU hold
@@ -3615,7 +3670,11 @@ ZOO_BOX_TOL, ZOO_SCORE_TOL, ZOO_MASK_TOL = 1e-3, 1e-5, 1e-5
 # the card and the CPU round 1-5 ulps apart: on the H100 eight images read
 # 4.14e-5 to 1.30e-4 (boxes ≤ 6.1e-4 px, scores ≤ 3.25e-6); the limit is
 # over twice the largest, and a wrong flow or fusion is off by O(0.1)
-ZOO_MASK_TOLS = {"htc": 3e-4}
+# The gcb Mask R-CNN's FCN mask head ([plugins]) reads P2 of an R50-FPN, as
+# HTC's heads do, whose 256-channel outputs give it larger logits than the
+# C5 models' RoIs: on the H100 one image read 8.66e-5 (boxes 2.4e-4 px,
+# scores 4.9e-6), under a third of HTC's limit, which it is held to
+ZOO_MASK_TOLS = {"htc": 3e-4, "mask_gcb": 3e-4}
 # the card's f32 FPN outputs against the port's CPU run of the same
 # backbone and neck on the same image, max |Δ| / max |CPU| per level: the
 # f32 limit [lanes] holds a batched backbone's maps to at every depth
@@ -3775,7 +3834,7 @@ def zoo_image(np, name, seed=0):
     pad_shape, scale_factor (4,))."""
     content, canvas, scale = ZOO_SIZES[name]
     scene = synthetic_image(np, content, seed).astype(np.float32)
-    if name in ("htc", "cascade_dcn"):
+    if name in ("htc", "cascade_dcn") or name in PLUGIN_SOURCES:
         cfg = htc_config().img_norm_cfg
         scene = ((scene[..., ::-1] - np.float32(cfg.mean))
                  / np.float32(cfg.std))
@@ -3818,7 +3877,9 @@ def zoo_scale_heads(torch, np, engine, name, logit_std=3.0,
         emb = engine.semantic_embedding(maps)
         boxes = engine._proposals_lanes(c5, cls_map, reg_map, [x[1]],
                                         [x[2]])[0][0]
-        for st, head in enumerate(engine.model.bbox_head):
+        heads = engine.model.bbox_head
+        for st, head in enumerate(heads if isinstance(
+                heads, torch.nn.ModuleList) else [heads]):
             hook = head.fc_cls.register_forward_pre_hook(
                 lambda mod, args: feats.__setitem__("x", args[0]))
             try:
@@ -3836,15 +3897,17 @@ def zoo_scale_heads(torch, np, engine, name, logit_std=3.0,
                 boxes = engine.refine(boxes, cls, reg, st, x[1])
 
 
-def zoo_engines(torch, np, name, cfg, prefix="[zoo]"):
-    """The f32 serving engine on seeded weights (heads spread, frozen BNs
-    calibrated on the image) and a bf16 one on the same weights, heads
-    pre-cast."""
+def zoo_engines(torch, np, name, cfg, prefix="[zoo]", prepare=None):
+    """The f32 serving engine on seeded weights (``prepare(engine)`` first
+    where given, then frozen BNs calibrated on the image, heads spread)
+    and a bf16 one on the same weights, heads pre-cast."""
     from hvrnet_tpu_torch.apis import build_detector
     from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
     t0 = time.time()
     img, ish = zoo_image(np, name)[:2]
     engine = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cuda")
+    if prepare is not None:
+        prepare(engine)
     n_bn = calibrate_frozen_bn(engine, [dict(img=img, img_shape=ish)])
     if engine.model.neck is not None:
         zoo_scale_heads(torch, np, engine, name)
@@ -3855,8 +3918,8 @@ def zoo_engines(torch, np, name, cfg, prefix="[zoo]"):
     engine16.load_state_dict(engine.model.state_dict())
     engine16.cast_head_params_bf16()
     origin = {"htc": "htc_r50_fpn_1x's settings",
-              "cascade_dcn": DEFORM_SOURCES.get(name)}.get(
-                  name, f"{CONFIG.name}'s trunk")
+              "cascade_dcn": DEFORM_SOURCES["cascade_dcn"],
+              **PLUGIN_SOURCES}.get(name, f"{CONFIG.name}'s trunk")
     log(f"{prefix} {type(engine).__name__} {ZOO_TRUNKS[name]} from {origin}: "
         f"{engine.num_stages} stage(s), {engine.num_classes} classes, "
         f"{engine.proposal_num} proposals, mask heads "
@@ -3934,7 +3997,7 @@ def to_device(obj, device):
     return obj.to(device)
 
 
-def zoo_fpn_hold(torch, np, engine, cpu, name):
+def zoo_fpn_hold(torch, np, engine, cpu, name, prefix="[zoo]"):
     """The card's f32 FPN outputs (backbone and neck) of the model's image
     against the port's CPU run of the same weights on the same image: max
     |Δ| / max |CPU| per level within ZOO_FPN_TOL.  Returns the worst."""
@@ -3944,12 +4007,12 @@ def zoo_fpn_hold(torch, np, engine, cpu, name):
         want = cpu.backbone_maps(*x[:2])[0]
     errs = [((c.cpu() - w).abs().max() / w.abs().max()).item()
             for c, w in zip(card, want)]
-    log(f"[zoo] {type(engine).__name__} f32 FPN outputs P2-P6 on the card "
+    log(f"{prefix} {type(engine).__name__} f32 FPN outputs P2-P6 on the card "
         f"against the port's CPU run of the same backbone and neck: max "
         f"|Δ|/max|CPU| " + ", ".join(f"{e:.3g}" for e in errs)
         + f" (limit {ZOO_FPN_TOL})")
     if max(errs) > ZOO_FPN_TOL:
-        raise RuntimeError(f"[zoo] the card's {type(engine).__name__} FPN "
+        raise RuntimeError(f"{prefix} the card's {type(engine).__name__} FPN "
                            "outputs are not the CPU's")
     return max(errs)
 
@@ -3968,7 +4031,7 @@ def zoo_cpu_hold(torch, np, engine, cfg, name, prefix="[zoo]",
     from hvrnet_tpu_torch.apis import build_detector
     cpu = build_detector(cfg.model, test_cfg=cfg.test_cfg, device="cpu")
     cpu.load_state_dict(host_state_dict(engine))
-    fpn = (zoo_fpn_hold(torch, np, engine, cpu, name)
+    fpn = (zoo_fpn_hold(torch, np, engine, cpu, name, prefix)
            if engine.model.neck is not None and fpn_hold else None)
     real = engine.backbone_maps, engine.semantic_embedding
     mask_tol = ZOO_MASK_TOLS.get(name, ZOO_MASK_TOL)
@@ -4014,7 +4077,7 @@ def zoo_cpu_hold(torch, np, engine, cfg, name, prefix="[zoo]",
     return dict(worst=worst, fpn=fpn)
 
 
-def zoo_bf16_hold(torch, np, engine, engine16, name):
+def zoo_bf16_hold(torch, np, engine, engine16, name, prefix="[zoo]"):
     """Each bf16 head on the f32 engine's inputs against the f32 head, by
     depth: the semantic head on the f32 FPN maps (its embedding and
     logits as the cls), each box stage on the f32 pooled RoIs (the stages'
@@ -4065,7 +4128,7 @@ def zoo_bf16_hold(torch, np, engine, engine16, name):
                     want, feat = head(pooled, last, return_feat=True)
                     worst[0] = max(worst[0], rel(head16(pooled, last), want))
                     last = feat
-    log(f"[zoo] {type(engine).__name__} bf16 heads on the f32 engine's inputs "
+    log(f"{prefix} {type(engine).__name__} bf16 heads on the f32 engine's inputs "
         f"against the f32 heads ("
         + ("the semantic head, " if emb is not None else "")
         + f"{engine.num_stages} box stage(s)"
@@ -4074,7 +4137,7 @@ def zoo_bf16_hold(torch, np, engine, engine16, name):
         + f"): max |Δcls|/max(|cls|, 1) {worst[0]:.3g}, max |Δreg| "
         f"{worst[1]:.3g} (limits {BF16_CLS_BUDGET}, {BF16_REG_BUDGET})")
     if not (worst[0] <= BF16_CLS_BUDGET and worst[1] <= BF16_REG_BUDGET):
-        raise RuntimeError(f"[zoo] the bf16 {type(engine).__name__} heads are "
+        raise RuntimeError(f"{prefix} the bf16 {type(engine).__name__} heads are "
                            "outside the bf16 budget")
     return worst
 
@@ -5339,6 +5402,357 @@ def phase_deform(torch, np):
     return runs, dict(cases=cases, v2_card_vs_cpu=v2_err)
 
 
+# ------------------------------------------------------------------ [trunks]
+TRUNK_DEPTH_LIMIT = LANES_MAP_LIMIT["float32"][0]
+
+
+def trunk_depth_check(torch, np, engine, tag):
+    """The card's f32 trunk on one frame against the port's CPU run of the
+    same engine's weights on the same frame, by depth (the stem, layer1-3
+    = C4, then C5 and the RPN maps), |Δ|₂ / |CPU|₂ within the f32 limit
+    ``[lanes]`` holds a batched backbone to at every depth (the seeded
+    weights' rounding amplified per stage).  Returns the distances."""
+    from hvrnet_tpu_torch.engine import HNMBRCNN
+    frame = next(synthetic_video(np, 1, seed=20))
+    cpu = HNMBRCNN(engine.model_cfg, engine.test_cfg, device="cpu")
+    cpu.load_state_dict(host_state_dict(engine))
+    t0 = time.time()
+    with torch.no_grad():
+        card = backbone_depths(torch, engine, frame["img"],
+                               frame["img_shape"])[0]
+        want = backbone_depths(torch, cpu, frame["img"],
+                               frame["img_shape"])[0]
+    dist = {d: ((card[d].float().cpu() - want[d]).norm()
+                / want[d].norm()).item() for d in LANES_MAP_DEPTHS}
+    log(f"{tag} f32 trunk on the card against the port's CPU run of the "
+        f"same weights on the same frame ({time.time() - t0:.1f} s), "
+        f"|Δ|₂/|CPU|₂ by depth " + json.dumps(
+            {d: float(f"{v:.3g}") for d, v in dist.items()})
+        + f" (limit {TRUNK_DEPTH_LIMIT})")
+    if max(dist.values()) > TRUNK_DEPTH_LIMIT:
+        raise RuntimeError(f"{tag}: the card's trunk is not the CPU's")
+    return dist
+
+
+def trunk_stage_times(torch, np, engine, tag, fc1, valid):
+    """The trunk's stages alone on one frame (CUDA events, mean of 3 after
+    one): the backbone (C4), the shared head (C5), the RPN head, and the
+    exact window head on ``fc1``; then the backbone's device time
+    (``torch.profiler``) against its span, the card's idle share."""
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    frame = next(synthetic_video(np, 1, seed=2))
+    x = engine._to_input(frame["img"], frame["img_shape"])
+    model, head = engine.model, engine.model.bbox_head
+    kd, P = engine.key_dim, engine.proposal_num
+    with torch.no_grad(), f32_precision():
+        c4 = model.extract_feat(x)
+        stages = {"backbone (C4)": lambda: model.extract_feat(x),
+                  "shared head (C5)": lambda: model.shared(c4),
+                  "RPN head": lambda: model.rpn(c4),
+                  "window head NL1-NL4 and fcs": lambda: head.forward_fc1(
+                      fc1, kd * P, P, valid)}
+        ms = {name: cuda_ms(torch, fn, iters=3, warmup=1)
+              for name, fn in stages.items()}
+        busy = device_ms(torch, stages["backbone (C4)"])
+    idle = (f"idle {1 - busy / ms['backbone (C4)']:.2f}" if busy > 0
+            else "device time not traced")
+    log(f"{tag} stages ({CARD}; CUDA events, ms): " + json.dumps(
+        {k: round(v, 3) for k, v in ms.items()}))
+    log(f"{tag} [busy] backbone (C4): device {busy:.3f} ms of a "
+        f"{ms['backbone (C4)']:.3f} ms span, {idle}")
+    return dict(stages_ms=ms, backbone_device_ms=busy)
+
+
+def trunk_rings(torch, np, engine, tag, stream=True):
+    """The exact ring (4 launches per detection) and, with ``stream``, the
+    streaming ring (2 per detection + 4 per replay) at T=21 over the
+    synthetic video, streaming against exact as ``[stream]`` (f32) and
+    ``[bf16]`` (bf16) compare them.  Returns the runs by ring."""
+    runs = {}
+    for ring in ("exact", "stream") if stream else ("exact",):
+        engine.stream = ring == "stream"
+        run = run_video(torch, np, engine, f"{tag} {ring} T=21")
+        want = (4 * run["detections"] if ring == "exact"
+                else 2 * run["detections"] + 4 * run["replayed"])
+        if run["launches"] != want:
+            raise RuntimeError(f"{tag} {ring} ring launched the kernel "
+                               f"{run['launches']} times, not {want}")
+        runs[ring] = run
+    if stream and engine.dtype == torch.bfloat16:
+        log(f"{tag} T=21 frames with the same per-class detection counts, "
+            "streaming vs exact: %d of %d (no limit)" % count_agreement(
+                runs["exact"]["results"], runs["stream"]["results"]))
+    elif stream:
+        log_agreement(f"{tag} T=21", runs["exact"], runs["stream"])
+    if stream:
+        final_window_check(torch, np, engine)
+    engine.stream = False
+    return runs
+
+
+def phase_trunks(torch, np):
+    """HVRNet on the ResNeXt-101 64x4d and Res2Net-101-v1b 26w-4s C5
+    trunks (``TRUNK_CONFIGS``) at full width, T=21, 300 proposals, on the
+    synthetic video, seeded weights calibrated on the first frame: X101's
+    exact and streaming rings in f32 and bf16, Res2Net's exact ring in
+    f32; launches per detection, the window head with the kernel against
+    the plain attention on the trunk's own window (bf16: its kernel calls
+    against their plain version and the f32 head), the card's trunk
+    against the port's CPU run by depth, stage times and the backbone's
+    idle share.  Returns the f32 and bf16 runs by path."""
+    runs, runs16 = {}, {}
+    for trunk in TRUNK_CONFIGS:
+        t0 = time.time()
+        short = trunk.split("-v1b")[0]
+        tag = f"[trunks] {short}"
+        stream = trunk.startswith("X101")
+        engine = build_engine(torch, np, trunk=trunk)
+        warm_up(torch, np, engine)
+        for ring, run in trunk_rings(torch, np, engine, tag, stream).items():
+            runs[f"trunks {short} {ring} T=21"] = run
+        _, fc1, valid, _ = window_head_check(torch, np, engine, tag)
+        trunk_stage_times(torch, np, engine, tag, fc1, valid)
+        trunk_depth_check(torch, np, engine, tag)
+        if stream:
+            engine16 = build_engine(torch, np, trunk=trunk,
+                                    weights=engine.model.state_dict(),
+                                    dtype=torch.bfloat16)
+            warm_up(torch, np, engine16)
+            for ring, run in trunk_rings(torch, np, engine16,
+                                         f"{tag} bf16").items():
+                runs16[f"trunks {short} {ring} T=21"] = run
+            bf16_window_checks(torch, np, engine16, engine, f"{tag} bf16")
+            del engine16
+        del engine
+        torch.cuda.empty_cache()
+        log(f"{tag}: {time.time() - t0:.1f} s")
+    return runs, runs16
+
+
+# ----------------------------------------------------------------- [plugins]
+PLUGIN_SOURCES = {
+    "mask_gcb": "configs/gcnet/mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py",
+    "faster_attention":
+        "configs/empirical_attention/faster_rcnn_r50_fpn_attention_1111_1x.py",
+    "cascade_hrnet": "configs/hrnet/cascade_rcnn_hrnetv2p_w32_20e.py"}
+PLUGIN_HOLD_SEEDS = (0,)  # the image of the card-against-CPU hold
+# a plugin block (context block, generalized attention) on the card against
+# the same block on the CPU fed the card's input to it, max |Δ| / max |CPU|:
+# one block's rounding, not compounded over the calibrated trunk
+PLUGIN_BLOCK_TOL = 1e-4
+ROI_POOL_SHAPE = (1, 1024, 38, 63)    # HVRNet's C4 on the 608×1008 canvas
+ROI_POOL_ROIS = 300
+
+
+def plugin_configs():
+    """The plugin models at full width (``Config`` objects, from
+    ``htc_config``'s R50-FPN settings with mmdetection v1.0's changes for
+    each, ``PLUGIN_SOURCES``): Mask R-CNN with the context block (ratio
+    1/16) on c3-c5; Faster R-CNN with generalized attention ('1111', 8
+    heads, kv stride 2) in every block of c4 and the first three of c5,
+    run by the multi-stage engine at one stage (``CascadeRCNN`` with one
+    ``bbox_head``, as the JAX engine runs it); Cascade R-CNN on
+    HRNetV2p-W32 with HRFPN (256 channels, 5 levels).  81 classes,
+    1000 proposals, score_thr 0.05."""
+    from hvrnet_tpu_torch.utils.config import Config
+    base = htc_config().as_dict()
+    model = base["model"]
+    for key in ("mask_roi_extractor", "mask_head", "semantic_roi_extractor",
+                "semantic_head", "semantic_fusion", "interleaved",
+                "mask_info_flow"):
+        model.pop(key)
+    head = dict(model["bbox_head"][0], reg_class_agnostic=False)
+    test = dict(rpn=base["test_cfg"]["rpn"], rcnn=dict(
+        score_thr=0.05, nms=dict(type="nms", iou_thr=0.5), max_per_img=100))
+    mask = dict(model, type="MaskRCNN", bbox_head=head,
+                backbone=dict(model["backbone"], gcb=dict(ratio=1. / 16.),
+                              stage_with_gcb=(False, True, True, True)),
+                mask_roi_extractor=dict(model["bbox_roi_extractor"],
+                                        roi_layer=dict(type="RoIAlign",
+                                                       out_size=14,
+                                                       sample_num=2)),
+                mask_head=dict(type="FCNMaskHead", num_convs=4,
+                               in_channels=256, conv_out_channels=256,
+                               num_classes=81))
+    attention = dict(
+        model, type="CascadeRCNN", num_stages=1, bbox_head=head,
+        backbone=dict(model["backbone"], gen_attention=dict(
+            spatial_range=-1, num_heads=8, attention_type="1111",
+            kv_stride=2), stage_with_gen_attention=(
+                (), (), (0, 1, 2, 3, 4, 5), (0, 1, 2))))
+    hrnet = dict(model, type="CascadeRCNN",
+                 backbone=dict(type="HRNet"),
+                 neck=dict(type="HRFPN", in_channels=[32, 64, 128, 256],
+                           out_channels=256, num_outs=5))
+    return {"mask_gcb": Config(dict(
+                model=mask, test_cfg=dict(test, rcnn=dict(
+                    test["rcnn"], mask_thr_binary=0.5)))),
+            "faster_attention": Config(dict(model=attention, test_cfg=test)),
+            "cascade_hrnet": Config(dict(model=hrnet, test_cfg=test))}
+
+
+def plugin_blocks(engine):
+    """The backbone's plugin modules by name."""
+    from hvrnet_tpu_torch.models.plugins import (ContextBlock,
+                                                 GeneralizedAttention)
+    return [(n, m) for n, m in engine.model.backbone.named_modules()
+            if isinstance(m, (ContextBlock, GeneralizedAttention))]
+
+
+def plugin_draw(torch, engine, seed=0):
+    """The plugins made live before calibration: at their zero inits a
+    context block and a generalized attention block are identities.  Each
+    attention block's ``gamma`` at 0.1; each context block's last conv
+    drawn at std 0.02 and its first conv's bias at std 0.5 (on a
+    calibrated map the pooled context nearly cancels, and the LayerNorm
+    would rescale that sum's rounding to O(1))."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(t, std):
+        t.copy_((torch.randn(t.shape, generator=gen) * std).to(t.device))
+
+    with torch.no_grad():
+        for _, m in plugin_blocks(engine):
+            if hasattr(m, "gamma"):
+                m.gamma.fill_(0.1)
+                continue
+            for fusion in m.fusion_types:
+                reduce, _, _, expand = getattr(m, f"{fusion}_conv")
+                draw(expand.weight, 0.02)
+                draw(reduce.bias, 0.5)
+
+
+def plugin_block_hold(torch, np, engine, name, prefix="[plugins]"):
+    """Each plugin block of the card's f32 backbone on the model's image
+    against the same block's CPU run fed the card's input to it: max |Δ| /
+    max |CPU| within PLUGIN_BLOCK_TOL.  Returns the worst."""
+    import copy
+    x = zoo_image(np, name)
+    blocks = plugin_blocks(engine)
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, (args[0], out)))
+        for n, m in blocks]
+    try:
+        with torch.no_grad():
+            engine.backbone_maps(*x[:2])
+    finally:
+        for h in hooks:
+            h.remove()
+    errs = []
+    with torch.no_grad():
+        for n, m in blocks:
+            inp, out = seen[n]
+            want = copy.deepcopy(m).cpu()(inp.cpu())
+            errs.append(((out.cpu() - want).abs().max()
+                         / want.abs().max()).item())
+    log(f"{prefix} {type(engine).__name__} {name} f32 plugin blocks "
+        f"({len(blocks)}) on the card against each block's CPU run on the "
+        "card's input to it: max |Δ|/max|CPU| per block "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" (limit {PLUGIN_BLOCK_TOL})")
+    if max(errs) > PLUGIN_BLOCK_TOL:
+        raise RuntimeError(f"{prefix} a plugin block on the card is not the "
+                           "CPU's")
+    return max(errs)
+
+
+def plugin_spans(torch, np, engine, name, prefix="[plugins]"):
+    """The plugin blocks' share of one ``simple_test`` (CUDA-event spans
+    around every call of each, summed) and the peak memory of that call
+    above what was allocated before it."""
+    x = zoo_image(np, name)
+    blocks = [m for _, m in plugin_blocks(engine)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with module_spans(torch, blocks) as spans:
+        engine.simple_test(*x)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"{prefix} {type(engine).__name__} {name} ({CARD}): the "
+        f"{spans.calls()} plugin block calls of one simple_test "
+        f"{spans.ms():.3f} ms (CUDA events); the call's peak {peak:.2f} GiB "
+        "above its start")
+    return dict(ms=spans.ms(), calls=spans.calls(), peak_gib=peak)
+
+
+def roi_pool_times(torch, np):
+    """``roi_pool`` alone at HVRNet's shapes: 300 seeded RoIs of 16-600 px
+    on the 608×1008 canvas over a seeded 38×63×1024 map at stride 16, the
+    card's result bit for bit the port's CPU result; time (CUDA events,
+    mean of 10 after 3), the bound (the map read once, the RoIs, the
+    pooled output written once, at 3.35 TB/s) and the call's peak memory
+    above its inputs."""
+    from hvrnet_tpu_torch.ops.roi_pool import roi_pool
+    gen = torch.Generator().manual_seed(0)
+    feats = torch.randn(ROI_POOL_SHAPE, generator=gen)
+    rng = np.random.default_rng(0)
+    lo = rng.uniform(0, 1, (ROI_POOL_ROIS, 2)) * [CANVAS[1], CANVAS[0]]
+    wh = np.exp(rng.uniform(np.log(16), np.log(600), (ROI_POOL_ROIS, 2)))
+    hi = np.minimum(lo + wh, [CANVAS[1] - 1, CANVAS[0] - 1])
+    rois = torch.from_numpy(np.concatenate(
+        [np.zeros((ROI_POOL_ROIS, 1)), lo, hi], 1).astype(np.float32))
+    want = roi_pool(feats, rois, 7, 1 / 16)
+    fc, rc = feats.cuda(), rois.cuda()
+    got = roi_pool(fc, rc, 7, 1 / 16)
+    bitwise = torch.equal(got.cpu(), want)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: roi_pool(fc, rc, 7, 1 / 16), iters=10,
+                 warmup=3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    nbytes = 4 * (feats.numel() + rois.numel() + want.numel())
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"[plugins] roi_pool ({CARD}): {ROI_POOL_ROIS} RoIs on the "
+        f"{ROI_POOL_SHAPE[2]}x{ROI_POOL_SHAPE[3]}x{ROI_POOL_SHAPE[1]} map, "
+        f"card bit for bit the CPU: {bitwise}; {ms:.3f} ms (CUDA events, "
+        f"mean of 10 after 3) against a {bound:.4f} ms bound "
+        f"({nbytes / 1e6:.1f} MB at 3.35 TB/s); peak {peak:.3f} GiB above "
+        "its inputs")
+    if not bitwise:
+        raise RuntimeError("[plugins] roi_pool on the card is not the CPU's")
+    return dict(ms=ms, bound_ms=bound, peak_gib=peak)
+
+
+def phase_plugins(torch, np):
+    """The rest of the backbone zoo at full width (``plugin_configs``) at
+    800×1333 on 800×1344, seeded weights, the plugins made live
+    (``plugin_draw``), frozen BNs calibrated on the image, the stage heads
+    drawn for it: ``simple_test`` in f32 and bf16 with times, stages and
+    peak memory; the plugin blocks' share of a call; the card's f32 result
+    held to the port's CPU run on the card's maps (the gcb and attention
+    models: each plugin block on its card input; HRNet: the HRFPN outputs
+    whole), bf16 against f32 by depth; then ``roi_pool`` alone at HVRNet's
+    shapes.  No attention launch on the path.  Returns the runs."""
+    runs = {}
+    for name, cfg in plugin_configs().items():
+        t0 = time.time()
+        plugged = name != "cascade_hrnet"
+        engine, engine16 = zoo_engines(
+            torch, np, name, cfg, prefix="[plugins]",
+            prepare=(lambda e: plugin_draw(torch, e)) if plugged else None)
+        for eng in (engine, engine16):
+            tag = f"{type(eng).__name__} {name} {str(eng.dtype)[6:]}"
+            runs[f"plugins {name} {str(eng.dtype)[6:]}"] = zoo_serving(
+                torch, np, eng, name, tag, prefix="[plugins]")[0]
+        run = runs[f"plugins {name} float32"]
+        if plugged:
+            run["spans"] = plugin_spans(torch, np, engine, name)
+            run["block_hold"] = plugin_block_hold(torch, np, engine, name)
+        run["cpu_hold"] = zoo_cpu_hold(torch, np, engine, cfg, name,
+                                       prefix="[plugins]",
+                                       seeds=PLUGIN_HOLD_SEEDS,
+                                       fpn_hold=not plugged)
+        runs[f"plugins {name} bfloat16"]["bf16_hold"] = zoo_bf16_hold(
+            torch, np, engine, engine16, name, prefix="[plugins]")
+        del engine, engine16
+        torch.cuda.empty_cache()
+        log(f"[plugins] {name}: {time.time() - t0:.1f} s")
+    runs["plugins roi_pool"] = dict(roi_pool_times(torch, np), launches=0)
+    return runs
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -5432,7 +5846,12 @@ def route_summary(cases, runs, dtype):
              "RetinaNet, FreeAnchor, FCOS, FoveaBox and SSD300 serving and "
              "training, 0: no relation head; deform: GA-RetinaNet, GA-RPN, "
              "RepPoints and Cascade R-CNN with dcn serving and training, 0: "
-             "no relation head)",
+             "no relation head; trunks: HVRNet on the X101-64x4d and "
+             "Res2Net-101 C5 trunks over the 30-frame video, 4 per exact "
+             "detection, 2 per streaming detection and 4 per replay; "
+             "plugins: Mask R-CNN gcb, Faster R-CNN gen_attention and "
+             "Cascade R-CNN HRNet serving, and roi_pool alone, 0: no "
+             "relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -5499,6 +5918,10 @@ def main() -> int:
     deform, _ = phase_deform(torch, np)
     lap("[deform]")
     del hvr_weights, selsa_weights
+    trunks, trunks16 = phase_trunks(torch, np)
+    lap("[trunks]")
+    plugins = phase_plugins(torch, np)
+    lap("[plugins]")
     bf16 = torch.bfloat16
     cases += train_attention(torch)
     cases += train_attention(torch, dtype=bf16)
@@ -5527,14 +5950,16 @@ def main() -> int:
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
-            **multipass, "trace": traced, **image,
-            **{k: v for k, v in {**zoo, **dense, **deform}.items()
+            **multipass, "trace": traced, **image, **trunks,
+            **{k: v for k, v in {**zoo, **dense, **deform,
+                                 **plugins}.items()
                if "bfloat16" not in k}}
     runs16 = {"stream T=21": stream16, "exact T=21": exact16,
               "selsa T=21": selsa16, "train": train16,
               "selsa train": selsa_train16, **cli16, **lanes16, **aug16,
-              **multipass16, **image16,
-              **{k: v for k, v in {**zoo, **dense, **deform}.items()
+              **multipass16, **image16, **trunks16,
+              **{k: v for k, v in {**zoo, **dense, **deform,
+                                   **plugins}.items()
                  if "bfloat16" in k}}
     print(json.dumps(kernel_summary(cases, runs, runs16)), flush=True)
     print(json.dumps({"ok": True, "device": {

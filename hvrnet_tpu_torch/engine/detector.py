@@ -93,7 +93,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
     He-normal convolutions (a transposed one's fan-in is its input
     channels × its kernel area), normal(0, 0.01) dense layers and RPN
     convs (a layer's ``init_std`` where it has one), zero biases (a
-    conv's ``init_bias`` where it has one), identity frozen BNs."""
+    conv's ``init_bias`` where it has one), identity frozen BNs, and a
+    module's own bare parameters from its ``draw_params(gen)``."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -115,6 +116,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
                 for buf, val in (("weight", 1.0), ("bias", 0.0),
                                  ("running_mean", 0.0), ("running_var", 1.0)):
                     getattr(m, buf).fill_(val)
+            elif hasattr(m, "draw_params"):
+                m.draw_params(gen)
             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
                               torch.nn.Linear)) and m.bias is not None:
                 m.bias.fill_(getattr(m, "init_bias", 0.0))

@@ -29,8 +29,14 @@ bias, zero-initialised, gives 18 offset channels (27 when ``modulated``:
 the first 18 the offsets, the sigmoid of the last 9 the mask), then
 ``conv2`` (``DeformConv2d``, no bias) and ``bn2``, mmdet's names.
 ``fallback_on_stride`` keeps the plain 3×3 on a strided block;
-``deformable_groups`` must be 1, as in the JAX package.  The other plugins
-(``gcb``, ``gen_attention``) are not ported yet.
+``deformable_groups`` must be 1, as in the JAX package.
+
+The ``gen_attention`` plugin (``models/plugins.py:GeneralizedAttention``,
+``gen_attention_block``) runs after conv2's ReLU on ``planes`` channels,
+only in the blocks ``stage_with_gen_attention`` lists for the stage; the
+``gcb`` plugin (``ContextBlock``, ``context_block``) after conv3's BN on
+``planes · 4`` channels in every block of a stage ``stage_with_gcb``
+marks, as the JAX ``Bottleneck`` runs them (``resnet.py:117-127``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.deform import DeformConv2d
 from ..layers import Conv2d, FrozenBN, max_pool_3x3_s2_p1
+from ..plugins import ContextBlock, GeneralizedAttention
 from ..registry import BACKBONES
 
 
@@ -54,9 +61,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
                  style: str = "pytorch", dtype: torch.dtype = torch.float32,
-                 dcn=None):
+                 dcn=None, gcb=None, gen_attention=None):
         super().__init__()
-        if dcn is not None:
+        if (dcn, gcb, gen_attention) != (None, None, None):
             raise ValueError("the ResNet plugins need bottleneck blocks "
                              "(as in the JAX package)")
         self.conv1 = Conv2d(inplanes, planes, 3, stride=stride,
@@ -83,13 +90,14 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     """1×1 → 3×3 → 1×1 (×4) with frozen BNs (``Bottleneck``,
     ``resnet.py:56``): caffe style strides the first 1×1, pytorch style
-    the 3×3; with ``dcn`` the 3×3 is deformable (the module docstring)."""
+    the 3×3; with ``dcn`` the 3×3 is deformable, ``gen_attention`` and
+    ``gcb`` add their plugins (the module docstring)."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False,
                  style: str = "caffe", dtype: torch.dtype = torch.float32,
-                 dcn=None):
+                 dcn=None, gcb=None, gen_attention=None):
         super().__init__()
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
         out = planes * self.expansion
@@ -117,6 +125,11 @@ class Bottleneck(nn.Module):
         self.bn2 = FrozenBN(planes, dtype=dtype)
         self.conv3 = Conv2d(planes, out, 1, bias=False, compute_dtype=dtype)
         self.bn3 = FrozenBN(out, dtype=dtype)
+        self.gen_attention_block = (
+            None if gen_attention is None else
+            GeneralizedAttention(planes, dtype=dtype, **gen_attention))
+        self.context_block = (None if gcb is None else
+                              ContextBlock(out, dtype=dtype, **gcb))
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
@@ -135,7 +148,11 @@ class Bottleneck(nn.Module):
         else:
             out = self.conv2(out)
         out = F.relu(self.bn2(out))
+        if self.gen_attention_block is not None:
+            out = self.gen_attention_block(out)
         out = self.bn3(self.conv3(out))
+        if self.context_block is not None:
+            out = self.context_block(out)
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
 
@@ -152,18 +169,27 @@ ARCH_SETTINGS = {
 class ResLayer(nn.Sequential):
     """One ResNet stage (mmdet ``make_res_layer``, ``ResLayerBlock`` in
     the JAX package): its blocks under ``{i}``, each recomputed in the
-    backward pass with ``with_cp`` when its input needs a gradient."""
+    backward pass with ``with_cp`` when its input needs a gradient; the
+    ``dcn`` and ``gcb`` plugins in every block, ``gen_attention`` in the
+    blocks ``gen_attention_blocks`` lists; ``block_kw`` goes to every
+    block (the grouped bottleneck's ``groups`` and ``base_width``)."""
 
     def __init__(self, block, inplanes: int, planes: int, num_blocks: int,
                  stride: int = 1, dilation: int = 1, style: str = "caffe",
                  with_cp: bool = False, dtype: torch.dtype = torch.float32,
-                 dcn=None):
+                 dcn=None, gcb=None, gen_attention=None,
+                 gen_attention_blocks: Sequence[int] = (), **block_kw):
         need_ds = stride != 1 or inplanes != planes * block.expansion
-        blocks = [block(inplanes, planes, stride, dilation, need_ds, style,
-                        dtype, dcn)]
-        for _ in range(1, num_blocks):
-            blocks.append(block(planes * block.expansion, planes, 1,
-                                dilation, False, style, dtype, dcn))
+        blocks = []
+        for i in range(num_blocks):
+            plugins = {k: v for k, v in dict(
+                dcn=dcn, gcb=gcb, gen_attention=(
+                    gen_attention if i in tuple(gen_attention_blocks)
+                    else None)).items() if v is not None}
+            blocks.append(block(
+                inplanes if i == 0 else planes * block.expansion, planes,
+                stride if i == 0 else 1, dilation, need_ds and i == 0, style,
+                dtype, **plugins, **block_kw))
         super().__init__(*blocks)
         self.with_cp = with_cp
 
@@ -198,13 +224,6 @@ class ResNet(nn.Module):
                  stage_with_gen_attention: Sequence = ((),) * 4,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        for name, plugin, stages in (
-                ("gcb", gcb, stage_with_gcb),
-                ("gen_attention", gen_attention, stage_with_gen_attention)):
-            if plugin is not None and any(stages[:num_stages]):
-                raise NotImplementedError(
-                    f"the ResNet plugin {name} is not ported yet (it waits "
-                    "for the plugins slice)")
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"invalid depth {depth} for resnet")
         block, stage_blocks = ARCH_SETTINGS[depth]
@@ -219,7 +238,9 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", ResLayer(
                 block, inplanes, planes, stage_blocks[i], strides[i],
                 dilations[i], style, with_cp, dtype,
-                dcn if stage_with_dcn[i] else None))
+                dcn if stage_with_dcn[i] else None,
+                gcb if stage_with_gcb[i] else None, gen_attention,
+                tuple(stage_with_gen_attention[i])))
             inplanes = planes * block.expansion
 
     def forward(self, x: torch.Tensor):

@@ -1,6 +1,19 @@
-"""SSD's VGG16 backbone (NCHW), counterpart of
-``hvrnet_tpu/models/backbones/resnext.py:98`` (``SSDVGG``), and the
-registered ``ResNeXt``, which is not ported yet.
+"""ResNeXt and SSD's VGG16 backbones (NCHW), counterparts of
+``hvrnet_tpu/models/backbones/resnext.py``: ``GroupedBottleneck`` and
+``ResNeXt`` (``:16-95``), ``SSDVGG`` (``:98``).
+
+``GroupedBottleneck`` is the ResNet bottleneck with a grouped 3×3 of width
+``int(planes · base_width / 64) · groups``; ``style`` puts the stride on
+the first 1×1 (caffe) or on the 3×3 (pytorch).  ``ResNeXt`` is the 7×7
+stem, the 3×3/2 max pool and ``num_stages`` stages of grouped bottlenecks
+at their strides and dilations, returning the maps of ``out_indices``;
+``frozen_stages`` is the trainer's business, as for ``ResNet``
+(``engine/optim.py:default_trainable_mask``).  Its names are mmdet's: the
+stem ``conv1`` / ``bn1``, ``layer{i}.{j}.conv{k}`` / ``bn{k}`` and
+``downsample.0`` / ``.1`` (the JAX module's ``stem_conv`` / ``stem_bn``,
+``layer{i}_block{j}`` and ``ds_conv`` / ``ds_bn``).  The grouped 3×3 is
+``F.conv2d(groups=...)``: the JAX module's is a plain XLA convolution,
+not a Pallas kernel.
 
 ``SSDVGG`` follows the JAX module, not mmdet's ``ssd_vgg.py``, where they
 part:
@@ -33,8 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.precision import widen
-from ..layers import Conv2d
+from ..layers import Conv2d, FrozenBN, max_pool_3x3_s2_p1
 from ..registry import BACKBONES
+from .resnet import ARCH_SETTINGS, ResLayer
 
 # VGG16's layers as the JAX module lists them: widths and "M" (a 2×2 pool)
 VGG16 = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
@@ -135,11 +149,87 @@ class SSDVGG(nn.Module):
         return tuple(outs)
 
 
+class GroupedBottleneck(nn.Module):
+    """1×1 → grouped 3×3 → 1×1 (×4) with frozen BNs (the JAX
+    ``GroupedBottleneck``): the stride on conv1 (caffe) or conv2
+    (pytorch), the 3×3 padded and dilated by ``dilation``."""
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, downsample: bool = False,
+                 style: str = "pytorch", dtype: torch.dtype = torch.float32,
+                 groups: int = 32, base_width: int = 4):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        out = planes * self.expansion
+        self.conv1 = Conv2d(inplanes, width, 1, stride=s1, bias=False,
+                            compute_dtype=dtype)
+        self.bn1 = FrozenBN(width, dtype=dtype)
+        self.conv2 = Conv2d(width, width, 3, stride=s2, padding=dilation,
+                            dilation=dilation, groups=groups, bias=False,
+                            compute_dtype=dtype)
+        self.bn2 = FrozenBN(width, dtype=dtype)
+        self.conv3 = Conv2d(width, out, 1, bias=False, compute_dtype=dtype)
+        self.bn3 = FrozenBN(out, dtype=dtype)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                Conv2d(inplanes, out, 1, stride=stride, bias=False,
+                       compute_dtype=dtype),
+                FrozenBN(out, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+def grouped_layer(inplanes: int, planes: int, num_blocks: int, stride: int,
+                  dilation: int, style: str, groups: int, base_width: int,
+                  dtype: torch.dtype = torch.float32) -> ResLayer:
+    """One stage of grouped bottlenecks, the first downsampling where its
+    stride or width asks (mmdet's ``make_res_layer``)."""
+    return ResLayer(GroupedBottleneck, inplanes, planes, num_blocks, stride,
+                    dilation, style, dtype=dtype, groups=groups,
+                    base_width=base_width)
+
+
 @BACKBONES.register_module
 class ResNeXt(nn.Module):
-    """``hvrnet_tpu/models/backbones/resnext.py:ResNeXt``: not ported yet."""
+    """ResNeXt (depth 50, 101 or 152) with partial stages; returns the
+    maps of ``out_indices``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ResNeXt is not ported yet (the grouped "
-                                  "bottleneck waits for the ResNet plugins' "
-                                  "slice)")
+    def __init__(self, depth: int = 101, groups: int = 32,
+                 base_width: int = 4, num_stages: int = 4,
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 dilations: Sequence[int] = (1, 1, 1, 1),
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 style: str = "pytorch", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if depth not in (50, 101, 152):
+            raise KeyError(f"invalid depth {depth} for resnext")
+        stage_blocks = ARCH_SETTINGS[depth][1]
+        self.num_stages = num_stages
+        self.out_indices = tuple(out_indices)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                            compute_dtype=dtype)
+        self.bn1 = FrozenBN(64, dtype=dtype)
+        inplanes = 64
+        for i in range(num_stages):
+            planes = 64 * 2 ** i
+            self.add_module(f"layer{i + 1}", grouped_layer(
+                inplanes, planes, stage_blocks[i], strides[i], dilations[i],
+                style, groups, base_width, dtype))
+            inplanes = planes * GroupedBottleneck.expansion
+
+    def forward(self, x: torch.Tensor):
+        x = max_pool_3x3_s2_p1(F.relu(self.bn1(self.conv1(x))))
+        outs = []
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)

@@ -141,6 +141,15 @@ class ConvBN(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(..., "nearest")``: half-pixel centres, torch's
+    ``nearest-exact`` (``nearest`` differs at a non-integer ratio); ``x``
+    itself at its own size."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="nearest-exact")
+
+
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 

@@ -1,7 +1,6 @@
 """Necks (NCHW), counterparts of ``hvrnet_tpu/models/necks/fpn.py``:
 the Feature Pyramid Network (``FPN``, ``:26-70``) and the Balanced
-Feature Pyramid (``BFP``, ``:74-101``).  ``HRFPN`` is registered and
-refused: it waits for HRNet.
+Feature Pyramid (``BFP``, ``:74-101``).  ``HRFPN`` is in ``hrfpn.py``.
 
 ``FPN`` keeps mmdet's names: ``lateral_convs.{i}.conv`` and
 ``fpn_convs.{i}.conv``, the extra stride-2 convs appended to
@@ -15,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import ConvModule
+from ..layers import ConvModule, resize_nearest
 from ..registry import NECKS
 
 
@@ -99,25 +98,11 @@ class BFP(nn.Module):
         self.num_levels = num_levels
         self.refine_level = refine_level
 
-    @staticmethod
-    def _resize(x, size):
-        if tuple(x.shape[2:]) == tuple(size):
-            return x
-        return F.interpolate(x, size=tuple(size), mode="nearest-exact")
-
     def forward(self, inputs):
         if len(inputs) != self.num_levels:
             raise ValueError(f"BFP takes {self.num_levels} maps, got "
                              f"{len(inputs)}")
         size = inputs[self.refine_level].shape[2:]
-        bsf = sum(self._resize(x, size) for x in inputs) / len(inputs)
-        return tuple(x + self._resize(bsf, x.shape[2:]) for x in inputs)
+        bsf = sum(resize_nearest(x, size) for x in inputs) / len(inputs)
+        return tuple(x + resize_nearest(bsf, x.shape[2:]) for x in inputs)
 
-
-@NECKS.register_module
-class HRFPN(nn.Module):
-    """``hvrnet_tpu/models/necks/hrfpn.py``: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("HRFPN is not ported yet (it waits for "
-                                  "the HRNet backbone)")

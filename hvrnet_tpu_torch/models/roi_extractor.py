@@ -1,10 +1,11 @@
 """RoI extractor (counterpart of ``hvrnet_tpu/models/roi_extractor.py``):
-RoIAlign over one map or a list of maps.  The shipped configs pool one
+RoIAlign or RoIPool over one map or a list of maps.  The shipped configs pool one
 stride-16 map with RoIAlign(out 7, sample 2); training pools the frames of
 a video in one call, by the frame index in each RoI.  Over several maps
 each RoI goes to one level by its scale (``map_roi_levels``, mmdet's
 ``finest_scale`` rule) and the levels' pools are summed under their 0/1
-masks, as in the JAX package.  ``RoIPool`` is not ported yet."""
+masks, as in the JAX package.  ``RoIPool`` (``ops/roi_pool.py``) max-pools
+in place of RoIAlign where the config's ``roi_layer`` names it."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -12,6 +13,7 @@ from typing import Sequence
 import torch
 
 from ..ops.roi_align import roi_align
+from ..ops.roi_pool import roi_pool
 
 
 class SingleRoIExtractor:
@@ -21,11 +23,9 @@ class SingleRoIExtractor:
                  finest_scale: int = 56):
         cfg = dict(roi_layer)
         layer = cfg.pop("type", "RoIAlign")
-        if layer == "RoIPool":
-            raise NotImplementedError("RoIPool is not ported yet (it waits "
-                                      "for ops/roi_pool.py)")
-        if layer != "RoIAlign":
+        if layer not in ("RoIAlign", "RoIPool"):
             raise ValueError(f"unknown roi layer {layer}")
+        self.layer = layer
         self.out_size = int(cfg.get("out_size", 7))
         self.sample_num = int(cfg.get("sample_num", 2))
         self.featmap_strides = [int(s) for s in featmap_strides]
@@ -44,6 +44,8 @@ class SingleRoIExtractor:
         return target.clamp(0, num_levels - 1).long()
 
     def _pool(self, feat, rois, stride):
+        if self.layer == "RoIPool":
+            return roi_pool(feat, rois, self.out_size, 1.0 / stride)
         return roi_align(feat, rois, self.out_size, 1.0 / stride,
                          self.sample_num)
 

@@ -24,8 +24,19 @@ single-stage tree (no ``rpn_head``) has a dense ``bbox_head``
 (``dense_head_state_dict``) and a ResNet or ``SSDVGG`` backbone
 (``ssd_vgg_state_dict``); a ``dcn`` block's ``conv2_offset``,
 ``conv2_kernel`` and ``conv2_bn`` → ``conv2_offset``, ``conv2`` and
-``bn2``.  Because the names are mmdet's, a reference
-``.pth`` state_dict loads straight into the port as well.
+``bn2``.  The backbone zoo adds ``ResNeXt`` (``stem_conv`` / ``stem_bn``
+→ ``conv1`` / ``bn1``, ``layer{i}_block{j}`` → ``layer{i}.{j}``, ``ds_conv``
+/ ``ds_bn`` → ``downsample.0`` / ``.1``; flax's grouped kernel (kh, kw,
+in / groups, out) takes the same transpose to (out, in / groups, kh, kw)),
+``Res2NetV1b`` (``stem1`` … ``stem3`` → ``conv1.0`` / ``.1``, ``conv1.3`` /
+``.4``, ``conv1.6`` / ``bn1``; ``conv2_{s}`` → ``convs.{s}`` / ``bns.{s}``;
+``downsample`` → ``downsample.1`` / ``.2``), the shared heads
+``Res2Layer`` / ``ResXLayer`` (``layer4_block{j}`` → ``layer4.{j}``),
+``HRNet`` (``hrnet_state_dict``) with ``HRFPN`` (``reduction_conv``,
+``fpn_conv{i}`` → ``fpn_convs.{i}.conv``) and the ResNet plugins
+``gen_attention_block`` and ``context_block`` (``plugin_state_dict``).
+Because the names are mmdet's, a reference ``.pth`` state_dict loads
+straight into the port as well.
 """
 from __future__ import annotations
 
@@ -85,41 +96,166 @@ def _fc_w(w: np.ndarray, roi: bool, hw: int = 7) -> np.ndarray:
 
 def _conv_bn(prefix: str, node: Dict[str, Any], out: Dict[str, np.ndarray],
              conv_name: str, bn_name: str):
-    """A JAX ConvBN subtree {conv: {kernel}, bn: {...}} → mmdet names."""
-    out[f"{prefix}.{conv_name}.weight"] = _conv_w(node["conv"]["kernel"])
+    """A JAX ConvBN subtree {conv: {kernel}, bn: {...}} → mmdet names
+    (under ``prefix.``, or at the top with an empty prefix)."""
+    base = f"{prefix}." if prefix else ""
+    out[f"{base}{conv_name}.weight"] = _conv_w(node["conv"]["kernel"])
     for k, v in node["bn"].items():
-        out[f"{prefix}.{bn_name}.{_BN_NAMES[k]}"] = v
+        out[f"{base}{bn_name}.{_BN_NAMES[k]}"] = v
 
 
 def _res_layers(prefix: str, tree: Dict[str, Any], out: Dict[str, np.ndarray]):
+    """The stages of a JAX ResNet (``layer{i}/block{j}``), ResNeXt or
+    Res2Net (``layer{i}_block{j}``) subtree → ``{prefix}layer{i}.{j}.…``."""
     for layer, blocks in tree.items():
-        if not layer.startswith("layer"):
-            continue
-        for block, sub in blocks.items():
-            base = f"{prefix}{layer}.{int(block[len('block'):])}"
-            for name, node in sub.items():
-                if name == "downsample":
-                    _conv_bn(base, node, out, "downsample.0", "downsample.1")
-                elif name == "conv2_offset":            # the dcn plugin's
-                    out.update(_convs(sub, {name: f"{base}.conv2_offset"}))
-                elif name == "conv2_kernel":
-                    out[f"{base}.conv2.weight"] = _conv_w(node)
-                elif name == "conv2_bn":
-                    for k, v in node.items():
-                        out[f"{base}.bn2.{_BN_NAMES[k]}"] = v
-                else:                                   # conv1 / conv2 / conv3
-                    _conv_bn(base, node, out, name, "bn" + name[len("conv"):])
+        m = re.fullmatch(r"(layer\d+)_block(\d+)", layer)
+        if m:
+            _block(f"{prefix}{m[1]}.{m[2]}", blocks, out)
+        elif re.fullmatch(r"layer\d+", layer):
+            for block, sub in blocks.items():
+                _block(f"{prefix}{layer}.{int(block[len('block'):])}", sub,
+                       out)
+
+
+def _block(base: str, sub: Dict[str, Any], out: Dict[str, np.ndarray]):
+    """One block: a ResNet bottleneck or basic block (ConvBN subtrees
+    ``conv{k}`` and ``downsample``, the dcn plugin's ``conv2_offset`` /
+    ``conv2_kernel`` / ``conv2_bn``, the ``gen_attention_block`` and
+    ``context_block`` plugins), a ResNeXt one (bare ``conv{k}`` / ``bn{k}``,
+    ``ds_conv`` / ``ds_bn``) or a Res2Net one (``conv2_{s}``, the
+    downsample's conv and BN after its pool)."""
+    res2 = any(re.fullmatch(r"conv2_\d+", k) for k in sub)
+    for name, node in sub.items():
+        split = re.fullmatch(r"conv2_(\d+)", name)
+        if split:
+            _conv_bn(base, node, out, f"convs.{split[1]}",
+                     f"bns.{split[1]}")
+        elif name == "downsample":
+            _conv_bn(base, node, out, *(("downsample.1", "downsample.2")
+                                        if res2 else
+                                        ("downsample.0", "downsample.1")))
+        elif name in ("gen_attention_block", "context_block"):
+            out.update({f"{base}.{name}.{k}": v for k, v in
+                        plugin_state_dict(node).items()})
+        elif name == "conv2_offset":                    # the dcn plugin's
+            out.update(_convs(sub, {name: f"{base}.conv2_offset"}))
+        elif name == "conv2_kernel":
+            out[f"{base}.conv2.weight"] = _conv_w(node)
+        elif name in ("conv2_bn", "ds_bn") or re.fullmatch(r"bn\d", name):
+            port = {"conv2_bn": "bn2", "ds_bn": "downsample.1"}.get(name,
+                                                                   name)
+            for k, v in node.items():
+                out[f"{base}.{port}.{_BN_NAMES[k]}"] = v
+        elif name == "ds_conv" or "kernel" in node:     # ResNeXt's bare convs
+            port = "downsample.0" if name == "ds_conv" else name
+            out[f"{base}.{port}.weight"] = _conv_w(node["kernel"])
+        else:                                           # conv1 / conv2 / conv3
+            _conv_bn(base, node, out, name, "bn" + name[len("conv"):])
+
+
+# Res2Net-v1b's deep stem: the JAX ConvBN → the reference (conv, BN)
+_RES2_STEM = {"stem1": ("conv1.0", "conv1.1"), "stem2": ("conv1.3", "conv1.4"),
+              "stem3": ("conv1.6", "bn1")}
 
 
 def backbone_state_dict(backbone: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX ``ResNet`` subtree → mmdet's names (without the
-    ``backbone.`` prefix): the stem's conv and BN → ``conv1`` / ``bn1``,
-    each block's ConvBNs → ``convK`` / ``bnK``, ``downsample.{0,1}``."""
+    """A JAX ``ResNet``, ``ResNeXt``, ``Res2NetV1b`` or ``HRNet`` subtree →
+    mmdet's names (without the ``backbone.`` prefix): the stem → ``conv1``
+    / ``bn1`` (Res2Net's deep stem ``_RES2_STEM``), each block's convs and
+    BNs → ``convK`` / ``bnK`` (Res2Net's splits ``convs.{s}`` /
+    ``bns.{s}``), ``downsample.{0,1}`` (Res2Net's ``.{1,2}``)."""
     bb = _to_numpy(backbone)
-    out = {"conv1.weight": _conv_w(bb["stem"]["conv"]["kernel"])}
-    for k, v in bb["stem"]["bn"].items():
-        out[f"bn1.{_BN_NAMES[k]}"] = v
+    if any(k.startswith("trans") for k in bb):
+        return hrnet_state_dict(bb)
+    out: Dict[str, np.ndarray] = {}
+    if "stem" in bb or "stem_conv" in bb:
+        conv, bn = ((bb["stem"]["conv"], bb["stem"]["bn"]) if "stem" in bb
+                    else (bb["stem_conv"], bb["stem_bn"]))
+        out["conv1.weight"] = _conv_w(conv["kernel"])
+        for k, v in bn.items():
+            out[f"bn1.{_BN_NAMES[k]}"] = v
+    else:
+        for name, (conv, bn) in _RES2_STEM.items():
+            _conv_bn("", bb[name], out, conv, bn)
     _res_layers("", bb, out)
+    return out
+
+
+def hrnet_state_dict(bb: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``HRNet`` subtree → mmdet's names (``models/backbones/
+    hrnet.py``): ``stem1`` / ``stem2`` → ``conv1`` / ``bn1``, ``conv2`` /
+    ``bn2``; ``layer1_block{i}`` → ``layer1.{i}``; ``trans{s}_{b}`` →
+    ``transition{s-1}.{b}.0`` / ``.1`` on an adapted branch and
+    ``.{b}.0.0`` / ``.0.1`` on a new one; ``stage{s}_module{m}``'s
+    ``branch{b}_block{i}`` → ``stage{s}.{m}.branches.{b}.{i}``,
+    ``fuse_{j}_to_{i}`` → ``fuse_layers.{i}.{j}.0`` / ``.1`` and
+    ``fuse_{j}_to_{i}_{k}`` → ``fuse_layers.{i}.{j}.{k}.0`` / ``.1``."""
+    out: Dict[str, np.ndarray] = {}
+    _conv_bn("", bb["stem1"], out, "conv1", "bn1")
+    _conv_bn("", bb["stem2"], out, "conv2", "bn2")
+
+    def branches(stage):
+        if stage == 1:
+            return 1
+        return sum(re.fullmatch(r"branch\d+_block0", k) is not None
+                   for k in bb[f"stage{stage}_module0"])
+
+    for name, node in bb.items():
+        m = re.fullmatch(r"layer1_block(\d+)", name)
+        t = re.fullmatch(r"trans(\d+)_(\d+)", name)
+        st = re.fullmatch(r"stage(\d+)_module(\d+)", name)
+        if m:
+            _block(f"layer1.{m[1]}", node, out)
+        elif t:
+            s, b = int(t[1]), int(t[2])
+            base = f"transition{s - 1}.{b}" + (
+                ".0" if b >= branches(s - 1) else "")
+            _conv_bn(base, node, out, "0", "1")
+        elif st:
+            base = f"stage{st[1]}.{st[2]}"
+            for part, sub in node.items():
+                br = re.fullmatch(r"branch(\d+)_block(\d+)", part)
+                fu = re.fullmatch(r"fuse_(\d+)_to_(\d+)(?:_(\d+))?", part)
+                if br:
+                    _block(f"{base}.branches.{br[1]}.{br[2]}", sub, out)
+                else:
+                    k = "" if fu[3] is None else f".{fu[3]}"
+                    _conv_bn(f"{base}.fuse_layers.{fu[2]}.{fu[1]}{k}", sub,
+                             out, "0", "1")
+    return out
+
+
+def plugin_state_dict(node: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX plugin subtree (``models/plugins.py``) → the port module's
+    names: convs ``{kernel[, bias]}`` by name (``NonLocal2D``'s ``g`` /
+    ``theta`` / ``phi`` / ``conv_out`` under ``.conv``; the context
+    block's ``{fusion}_conv1`` / ``_ln`` / ``_conv2`` → ``{fusion}_conv.0``
+    / ``.1`` (shape (planes, 1, 1)) / ``.3``); dense kernels
+    (``appr_geom_fc_x`` / ``_y``) transposed; bare arrays (``appr_bias``,
+    ``geom_bias``, ``gamma``) as they are."""
+    node = _to_numpy(node)
+    out: Dict[str, np.ndarray] = {}
+    for name, sub in node.items():
+        fusion = re.fullmatch(r"(channel_(?:add|mul))_(conv1|ln|conv2)", name)
+        if not isinstance(sub, dict):
+            out[name] = sub
+            continue
+        if fusion:
+            port = f"{fusion[1]}_conv." + {"conv1": "0", "ln": "1",
+                                           "conv2": "3"}[fusion[2]]
+        elif name in ("g", "theta", "phi", "conv_out"):
+            port = f"{name}.conv"
+        else:
+            port = name
+        if "scale" in sub:                              # the LayerNorm
+            out[f"{port}.weight"] = sub["scale"].reshape(-1, 1, 1)
+            out[f"{port}.bias"] = sub["bias"].reshape(-1, 1, 1)
+            continue
+        kernel = sub["kernel"]
+        out[f"{port}.weight"] = (kernel.T if kernel.ndim == 2
+                                 else _conv_w(kernel))
+        if "bias" in sub:
+            out[f"{port}.bias"] = sub["bias"]
     return out
 
 
@@ -134,8 +270,8 @@ def state_dict_from_jax(params: Dict[str, Any],
     bb = tree["backbone"]
     out: Dict[str, np.ndarray] = {
         f"backbone.{k}": v for k, v in (
-            backbone_state_dict(bb) if "stem" in bb
-            else ssd_vgg_state_dict(bb)).items()}
+            ssd_vgg_state_dict(bb) if "fc6" in bb
+            else backbone_state_dict(bb)).items()}
     if "rpn_head" not in tree:          # a single-stage detector
         out.update({f"bbox_head.{k}": v for k, v in
                     dense_head_state_dict(tree["bbox_head"]).items()})
@@ -278,13 +414,17 @@ def _convs(node: Dict[str, Any], names: Dict[str, str]
 
 
 def neck_state_dict(neck: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX ``FPN`` subtree → mmdet's names: ``lateral_conv{i}`` →
-    ``lateral_convs.{i}.conv``, ``fpn_conv{i}`` → ``fpn_convs.{i}.conv``,
-    ``extra_conv{i}`` → ``fpn_convs.{levels + i}.conv``."""
+    """The JAX ``FPN`` or ``HRFPN`` subtree → mmdet's names:
+    ``lateral_conv{i}`` → ``lateral_convs.{i}.conv``, ``fpn_conv{i}`` →
+    ``fpn_convs.{i}.conv``, ``extra_conv{i}`` → ``fpn_convs.{levels +
+    i}.conv``, ``reduction_conv`` → ``reduction_conv.conv``."""
     neck = _to_numpy(neck)
     levels = sum(k.startswith("lateral_conv") for k in neck)
     names = {}
     for name in neck:
+        if name == "reduction_conv":
+            names[name] = "reduction_conv.conv"
+            continue
         kind, i = re.fullmatch(r"(lateral|fpn|extra)_conv(\d+)",
                                name).groups()
         i = int(i) + (levels if kind == "extra" else 0)

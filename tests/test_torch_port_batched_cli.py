@@ -18,6 +18,7 @@ same limits where the frame program's batch changes the convolutions'
 rounding.
 """
 import functools
+import shutil
 
 import numpy as np
 import pytest
@@ -78,8 +79,9 @@ def setup(tmp_path_factory):
     root = landscape_tree(str(work / "VID"))
     cfgs = tiny_hnmb_cfg()
     cfg = write_config(work / "hnmb.py", *cfgs, root)
-    return dict(work=work, root=root, hnmb=(cfg, shared_checkpoint(
+    yield dict(work=work, root=root, hnmb=(cfg, shared_checkpoint(
         work / "hnmb.pth", *cfgs, JaxHNMBRCNN, HNMBRCNN, root, seed=4)))
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def _port(setup, name, *flags, cli=test_cli):

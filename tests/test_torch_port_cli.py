@@ -26,6 +26,7 @@ import contextlib
 import functools
 import importlib
 import pickle
+import shutil
 import sys
 from pathlib import Path
 
@@ -198,7 +199,8 @@ def setup(tmp_path_factory):
     cfg = write_config(work / "tiny_hnmb.py", model_cfg, test_cfg, root)
     ckpt = shared_checkpoint(work / "tiny_hnmb.pth", model_cfg, test_cfg,
                              JaxHNMBRCNN, HNMBRCNN, root, seed=4)
-    return root, cfg, ckpt, work
+    yield root, cfg, ckpt, work
+    shutil.rmtree(work, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

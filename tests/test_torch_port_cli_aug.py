@@ -16,6 +16,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -61,7 +62,8 @@ def setup(tmp_path_factory):
     out["hnmb9"] = (write_config(work / "hnmb9.py",
                                  *tiny_hnmb_cfg(window_interval=4), root),
                     out["hnmb"][1])
-    return out
+    yield out
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def _argv(setup, model, name, *extra):

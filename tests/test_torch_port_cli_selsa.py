@@ -4,6 +4,8 @@ and one checkpoint file, as ``tests/test_torch_port_cli.py`` runs
 ``hnl_test``; the port's ``--u8-transfer`` and ``--bf16`` runs; and
 ``HNLRCNN`` through the trainer.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -40,7 +42,8 @@ def setup(tmp_path_factory):
     want = work / "jax.pkl"
     jax_cli("test", [cfg, ckpt, "--out", str(want), "--tmpdir",
                      str(work / "jax_parts")], seed=1)
-    return cfg, ckpt, work, str(want)
+    yield cfg, ckpt, work, str(want)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +189,6 @@ def test_window_above_the_config_matches_jax(setup, window):
 
 @pytest.fixture
 def work_dir(tmp_path):
-    import shutil
     yield tmp_path
     shutil.rmtree(tmp_path, ignore_errors=True)
 
@@ -212,7 +214,7 @@ def test_hnlrcnn_trains_with_the_hnmb_trainer(work_dir):
         assert torch.equal(v, states[1][k]), k
 
 
-def test_load_params_for_engine(setup, tmp_path, caplog):
+def test_load_params_for_engine(setup, work_dir, caplog):
     """A checkpoint (the port's own, or a bare mmdet ``state_dict``) loads
     onto an engine; missing tensors keep the engine's values with a warning
     that counts them; an unknown name or another shape raises."""
@@ -223,7 +225,7 @@ def test_load_params_for_engine(setup, tmp_path, caplog):
     eng = apis.build_detector(model_cfg, None, test_cfg, device="cpu",
                               seed=9)
     own = eng.model.state_dict()["bbox_head.fc_cls.weight"].clone()
-    bare = tmp_path / "bare.pth"
+    bare = work_dir / "bare.pth"
     torch.save({k: v for k, v in state.items()
                 if not k.startswith("bbox_head.fc_cls.")}, bare)
     with caplog.at_level(logging.WARNING, logger="hvrnet_tpu_torch"):
@@ -237,7 +239,7 @@ def test_load_params_for_engine(setup, tmp_path, caplog):
     for k, v in eng.model.state_dict().items():
         assert torch.equal(v, state[k]), k
     # a reference BatchNorm2d state_dict also carries num_batches_tracked
-    counted = tmp_path / "counted.pth"
+    counted = work_dir / "counted.pth"
     torch.save({"state_dict": dict(state, **{
         k[:-len("running_var")] + "num_batches_tracked": torch.tensor(0)
         for k in state if k.endswith(".running_var")})}, counted)
@@ -248,13 +250,13 @@ def test_load_params_for_engine(setup, tmp_path, caplog):
         assert torch.equal(v, state[k]), k
     fresh = apis.build_detector(model_cfg, None, test_cfg, device="cpu",
                                 seed=9)
-    extra = tmp_path / "extra.pth"
+    extra = work_dir / "extra.pth"
     torch.save(dict(state, **{"neck.weight": torch.zeros(1)}), extra)
     with pytest.raises(KeyError, match="does not have"):
         apis.load_params_for_engine(fresh, str(extra))
     assert torch.equal(fresh.model.state_dict()["bbox_head.fc_cls.weight"],
                        own)                        # nothing was loaded
-    wrong = tmp_path / "wrong.pth"
+    wrong = work_dir / "wrong.pth"
     torch.save(dict(state, **{"backbone.conv1.weight": torch.zeros(1)}),
                wrong)
     with pytest.raises(ValueError, match="shape mismatch"):

@@ -552,14 +552,3 @@ def test_build_detector_builds_dense_engines(kind):
     with pytest.raises(ValueError, match="simple_test"):
         apis.detect_image(eng, dict(img=None, img_shape=None,
                                     pad_shape=None, scale_factor=None))
-
-
-@pytest.mark.parametrize("what", ["ResNeXt"])
-def test_deformable_half_is_refused(what):
-    """What waits for a later slice raises "not ported yet" when the
-    engine is built: ResNeXt.  (The guided-anchoring and RepPoints heads
-    are ported: ``tests/test_torch_port_deform.py``.)"""
-    cfg = dense_cfg("retina")
-    cfg["backbone"] = dict(cfg["backbone"], type=what)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        apis.build_detector(cfg, test_cfg=TEST_CFG, device="cpu")

@@ -222,19 +222,6 @@ def test_resnet_with_cp_equals_without():
         assert torch.equal(p0.grad, p1.grad), n
 
 
-@pytest.mark.parametrize("plugin", ["gcb", "gen_attention"])
-def test_resnet_plugins_are_refused(plugin):
-    """A ResNet plugin on a stage raises "not ported yet" (``dcn`` is
-    ported: ``tests/test_torch_port_deform.py``)."""
-    cfg = {"gcb": dict(gcb=dict(ratio=1. / 4.),
-                       stage_with_gcb=(False, True, True, True)),
-           "gen_attention": dict(gen_attention=dict(spatial_range=-1),
-                                 stage_with_gen_attention=((), (), (0,),
-                                                           ()))}[plugin]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ResNet(depth=50, **RESNET_KW, **cfg)
-
-
 # ---------------------------------------------------------------- necks
 NECK_CASES = {
     "fpn max-pool extras": (JaxFPN, dict(
@@ -284,13 +271,6 @@ def test_necks_match_jax(case):
                                      else cfg["num_outs"])
     for g, w in zip(got, want):
         _rel_close(g.numpy(), np.asarray(w).transpose(0, 3, 1, 2), 1e-5)
-
-
-def test_hrfpn_is_refused():
-    """``HRFPN`` is registered and raises "not ported yet"."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_submodule(dict(type="HRFPN", in_channels=[18, 36],
-                             out_channels=16), NECKS)
 
 
 # ---------------------------------------------------------------- heads

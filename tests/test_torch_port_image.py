@@ -23,6 +23,8 @@ port's calls the frame program on video engines only, and its
 ``FasterRCNN`` result is held to the JAX function's own preprocessing
 followed by the JAX ``simple_test``.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -600,7 +602,8 @@ def api(tmp_path_factory):
                          jeng=jeng, params=params,
                          engine=apis.init_detector(str(path), str(ckpt),
                                                    device="cpu"))
-    return out
+    yield out
+    shutil.rmtree(work, ignore_errors=True)
 
 
 @pytest.mark.parametrize("name", list(API_ENGINES))

@@ -180,7 +180,8 @@ def test_port_imports_no_image_library_at_module_level():
 
 def test_port_imports_with_jax_blocked(tmp_path):
     """With JAX, the JAX package, cv2 and PIL blocked (as on the card
-    machine), every port module imports, one frame of a VID tree goes
+    machine), every port module imports (the backbone zoo's and
+    ``roi_pool`` among them, which pools once), one frame of a VID tree goes
     through the test pipeline and the stream with an injected numpy
     decoder, a float frame through the training transforms, and an image
     through the single-image API's pipeline (``apis.image_input``)."""
@@ -199,6 +200,13 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "import hvrnet_tpu_torch.core.precision\n"
             "import hvrnet_tpu_torch.data, hvrnet_tpu_torch.core.evaluation\n"
             "import hvrnet_tpu_torch.utils.dist_io\n"
+            "import torch\n"
+            "from hvrnet_tpu_torch.models.backbones import hrnet, res2net\n"
+            "from hvrnet_tpu_torch.models import plugins\n"
+            "from hvrnet_tpu_torch.models.necks import hrfpn\n"
+            "from hvrnet_tpu_torch.ops.roi_pool import roi_pool\n"
+            "assert roi_pool(torch.ones(1, 2, 4, 4), torch.tensor(\n"
+            "    [[0., 0., 0., 3., 3.]]), 2, 1.0).shape == (1, 2, 2, 2)\n"
             "from hvrnet_tpu_torch.tools import hnl_test, test, train, "
             "vid_eval\n"
             "import hvrnet_tpu_torch.engine.eval_hook\n"

@@ -216,7 +216,8 @@ def test_autoscale_lr_quarters_the_rate(trees, tmp_path, monkeypatch):
     assert [c["optimizer"]["lr"] for c in seen] == [1e-3, 1e-3 / 4]
 
 
-def test_load_from_takes_a_reference_state_dict(tmp_path, caplog):
+def test_load_from_takes_a_reference_state_dict(work_dir,  # noqa: F811
+                                                 caplog):
     """``train_detector(load_from=...)`` loads through
     ``load_params_for_engine``: a reference ``state_dict`` with BatchNorm
     counters loads (the counters dropped) and the missing tensors are
@@ -229,13 +230,13 @@ def test_load_from_takes_a_reference_state_dict(tmp_path, caplog):
     ref = {k: v for k, v in state.items() if not k.startswith("bbox_head.")}
     ref.update({k[:-len("running_var")] + "num_batches_tracked":
                 torch.tensor(7) for k in state if k.endswith("running_var")})
-    path = tmp_path / "ref.pth"
+    path = work_dir / "ref.pth"
     torch.save({"state_dict": ref}, path)
     batch = {k: v[0] for k, v in triplet_sample(0).items()}
     engine = apis.build_detector(model_cfg, train_cfg=train_cfg,
                                  device="cpu", seed=6)
     with caplog.at_level(logging.WARNING, logger="hvrnet_tpu_torch"):
-        apis.train_detector(engine, [batch], OPT, str(tmp_path / "run"),
+        apis.train_detector(engine, [batch], OPT, str(work_dir / "run"),
                             total_epochs=1, steps_per_epoch=1,
                             load_from=str(path))
     n_head = sum(k.startswith("bbox_head.") for k in state)
@@ -246,7 +247,7 @@ def test_load_from_takes_a_reference_state_dict(tmp_path, caplog):
     torch.save({"state_dict": dict(ref, **{"neck.w": torch.zeros(1)})},
                path)
     with pytest.raises(KeyError, match="does not have"):
-        apis.train_detector(engine, [batch], OPT, str(tmp_path / "bad"),
+        apis.train_detector(engine, [batch], OPT, str(work_dir / "bad"),
                             total_epochs=1, steps_per_epoch=1,
                             load_from=str(path))
 

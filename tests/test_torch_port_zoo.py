@@ -2,9 +2,9 @@
 bbox heads, ``FCNMaskHead``, ``mask_target``, ``paste_masks``,
 ``mask_branch_loss``, the config-built losses, the multi-level RoI
 extractor, ``CascadeRCNN`` (3 stages) and ``MaskRCNN`` ``simple_test``
-(``tests/test_multi_stage.py:base_cfg``), and the refusals of what is
-not ported yet; the training step and the ``build_detector`` /
-``train_detector`` dispatch are in ``tests/test_torch_port_zoo_train.py``.
+(``tests/test_multi_stage.py:base_cfg``); the training step and the
+``build_detector`` / ``train_detector`` dispatch are in
+``tests/test_torch_port_zoo_train.py``.
 
 Weights: a JAX parameter tree filled from numpy crosses to the port
 through ``state_dict_from_jax``; the port calibrates the frozen-BN
@@ -320,7 +320,8 @@ def test_expand_binary_labels_matches_jax():
 def test_multilevel_roi_extractor_matches_jax():
     """Over three maps (strides 4, 8, 16): ``map_roi_levels`` equal to the
     JAX levels and the pooled RoIs (each from its level's map) within 1e-6
-    of their max; one map pools as RoIAlign; ``RoIPool`` is refused."""
+    of their max; one map pools as RoIAlign; with ``RoIPool`` the pooled
+    RoIs are the JAX extractor's bit for bit."""
     cfg = dict(roi_layer=dict(type="RoIAlign", out_size=7, sample_num=2),
                out_channels=8, featmap_strides=[4, 8, 16])
     rng = np.random.default_rng(7)
@@ -343,9 +344,12 @@ def test_multilevel_roi_extractor_matches_jax():
     one = ext(_nchw(feats[2]), torch.from_numpy(rois)).numpy()
     want1 = np.asarray(jext([jnp.asarray(feats[2])], jnp.asarray(rois)))
     _rel_close(one, want1.transpose(0, 3, 1, 2), 1e-6)
-    with pytest.raises(NotImplementedError, match="RoIPool"):
-        build_roi_extractor(dict(cfg, roi_layer=dict(type="RoIPool",
-                                                     out_size=7)))
+    pool_cfg = dict(cfg, roi_layer=dict(type="RoIPool", out_size=7))
+    want = np.asarray(JaxSingleRoIExtractor(**pool_cfg)(
+        [jnp.asarray(f) for f in feats], jnp.asarray(rois)))
+    got = build_roi_extractor(dict(pool_cfg, type="SingleRoIExtractor"))(
+        [_nchw(f) for f in feats], torch.from_numpy(rois)).numpy()
+    assert got.tobytes() == want.transpose(0, 3, 1, 2).tobytes()
 
 
 # --------------------------------------------------------- engines
@@ -464,35 +468,6 @@ def test_cascade_stages_refine(zoo_test):
             seen.append(port.refine(seen[-1], cls, reg, st, ish))
     for a, b in zip(seen, seen[1:]):
         assert (a - b).abs().max() > 0.05
-
-
-# ------------------------------------------------------------ refusals
-def _refused(what):
-    cfg = base_cfg(1, True)
-    if what in ("gcb", "gen_attention"):
-        plugin = {"gcb": dict(gcb=dict(ratio=1. / 4.),
-                              stage_with_gcb=(False, True, True, False)),
-                  "gen_attention": dict(
-                      gen_attention=dict(spatial_range=-1),
-                      stage_with_gen_attention=((), (), (0,), ()))}[what]
-        return dict(cfg, backbone=dict(cfg["backbone"], **plugin))
-    if what == "HRFPN":
-        return dict(cfg, neck=dict(type="HRFPN", in_channels=[18, 36],
-                                   out_channels=256))
-    return dict(cfg, bbox_roi_extractor=dict(
-        cfg["bbox_roi_extractor"], roi_layer=dict(type="RoIPool",
-                                                  out_size=7)))
-
-
-@pytest.mark.parametrize("what", ["RoIPool", "gcb", "gen_attention",
-                                  "HRFPN"])
-def test_not_ported_yet_is_refused(what):
-    """What waits for a later slice raises "not ported yet" when the
-    engine is built: ``RoIPool``, the ResNet plugins (the global context
-    block, generalized attention) and the HRNet neck ``HRFPN``.  (The
-    ``dcn`` plugin is ported: ``tests/test_torch_port_deform.py``.)"""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        apis.build_detector(_refused(what), test_cfg=TEST_CFG, device="cpu")
 
 
 def test_inference_detector_refuses_multi_stage(zoo_test):
