@@ -227,7 +227,28 @@ stops the script with a non-zero exit:
     on the card's maps), bf16 against f32 by depth; ``roi_pool`` alone at
     HVRNet's shapes (300 RoIs on the 38×63×1024 C4 map) bit for bit the
     CPU's, timed.
-22. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+22. ``[datasets]``: the still-image data layer on the still-image Faster
+    R-CNN R101-C5 (``faster_rcnn_config``, seeded random weights, frozen
+    BNs calibrated on the first image).  A COCO-format tree (COCO's 80
+    categories under their ids 1-90, 8 images of 360-640 px, landscape and
+    portrait, crowd and sub-pixel boxes) and a VOC2007 tree (6 images, an
+    object of a class outside VOC's), written at run time as PPM bytes
+    under ``.jpg`` names and deleted after; both built by ``build_dataset``
+    and iterated by ``build_dataloader`` in test mode through
+    ``inference_detector`` at 81 and 21 classes (ms per image, CUDA
+    events).  Checked: the annotations equal what was written,
+    ``results2json`` maps back to the detections, and the ground truth as
+    detections scores 1.0 in ``coco_style_eval``, ``voc_eval`` and
+    ``eval_recalls`` (the RPN's 300 proposals at 100 and 300, IoU
+    0.5:0.95); then one ``FasterRCNNTrainer`` step (the trainer
+    ``train_detector`` picks for this engine) on a
+    COCO item through ``Albu`` (mmdet's example block) packed by
+    ``collate_train`` (portrait items skipped), finite losses, frozen
+    tensors bitwise, trainable ones moved.  Printed: the host's ms per
+    item of ``Albu`` and of the whole training pipeline,
+    ``PrefetchLoader`` items/s at 1, 2 and 4 workers.  No attention
+    launch on the path.
+23. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -5753,6 +5774,468 @@ def phase_plugins(torch, np):
     return runs
 
 
+# [datasets]: the still-image data layer on the still-image Faster R-CNN.
+# A COCO-format tree (COCO's 80 categories under their real ids, 1-90 with
+# ten gaps) and a VOC2007-format tree written at run time, their images
+# binary PPM under the datasets' ``.jpg`` names, read by ``read_ppm``.
+COCO_IDS = (tuple(range(1, 12)) + tuple(range(13, 26)) + (27, 28)
+            + tuple(range(31, 45)) + tuple(range(46, 66)) + (67, 70)
+            + tuple(range(72, 83)) + tuple(range(84, 91)))
+# (width, height) of each COCO image (landscape and portrait, as COCO's)
+COCO_SIZES = ((640, 480), (480, 640), (640, 427), (427, 640), (500, 375),
+              (640, 360), (375, 500), (612, 612))
+VOC_SIZES = ((500, 375), (375, 500), (500, 333), (353, 500), (500, 400),
+             (480, 360))
+DATASETS_CANVAS = (608, 1008)
+DATASETS_WORKERS = (1, 2, 4)   # PrefetchLoader throughput, items/s
+DATASETS_PASSES = 2            # passes over the train set per worker count
+DATASETS_ALBU = dict(
+    type="Albu", transforms=[
+        dict(type="ShiftScaleRotate", shift_limit=0.0625, scale_limit=0.0,
+             rotate_limit=0, interpolation=1, p=0.5),
+        dict(type="RandomBrightnessContrast", brightness_limit=[0.1, 0.3],
+             contrast_limit=[0.1, 0.3], p=0.2),
+        dict(type="OneOf", transforms=[
+            dict(type="Blur", blur_limit=3, p=1.0),
+            dict(type="MedianBlur", blur_limit=3, p=1.0)], p=0.1),
+        dict(type="HueSaturationValue", hue_shift_limit=20,
+             sat_shift_limit=30, val_shift_limit=20, p=0.1),
+        dict(type="ChannelShuffle", p=0.1)],
+    bbox_params=dict(type="BboxParams", format="pascal_voc",
+                     label_fields=["gt_labels"], min_visibility=0.0,
+                     filter_lost_elements=True),
+    keymap={"img": "image", "gt_bboxes": "bboxes"},
+    update_pad_shape=False, skip_img_without_anno=True)
+
+
+def datasets_scene(np, w, h, boxes, seed):
+    """A BGR uint8 scene of 16-px blocks with each box filled with a
+    colour of its own."""
+    img = synthetic_image(np, (h, w), seed)
+    rng = np.random.default_rng(seed + 100)
+    for x1, y1, x2, y2 in boxes:
+        img[int(y1):int(y2) + 1, int(x1):int(x2) + 1] = rng.integers(
+            0, 256, 3, dtype=np.uint8)
+    return img
+
+
+def write_coco_tree(np, root):
+    """``annotations.json`` and ``images/*.jpg`` (PPM bytes): per image 2–4
+    objects of random categories, a crowd box on images 1 and 4, a box 0.5
+    px wide on image 2 and one 0.5 px high on image 5.  Returns the json's
+    path and, per image, the annotation the dataset must give."""
+    from hvrnet_tpu_torch.core.evaluation import coco_classes
+    rng = np.random.default_rng(0)
+    (root / "images").mkdir(parents=True)
+    images, anns, truth = [], [], []
+    for i, (w, h) in enumerate(COCO_SIZES):
+        boxes, labels, ignore = [], [], []
+        for _ in range(int(rng.integers(2, 5))):
+            bw, bh = (float(v) for v in rng.uniform(0.08, 0.4, 2) * (w, h))
+            x, y = float(rng.uniform(0, w - bw)), float(rng.uniform(0, h - bh))
+            label = int(rng.integers(80)) + 1
+            anns.append(dict(image_id=i + 1, bbox=[x, y, bw, bh], iscrowd=0,
+                             category_id=COCO_IDS[label - 1]))
+            boxes.append([x, y, x + bw - 1, y + bh - 1])
+            labels.append(label)
+        # crowds on images 1 and 4, a box 0.5 px wide on 2, high on 5
+        extra = {1: (0.02, 0.03, 0.3, 0.2, 1), 4: (0.05, 0.05, 0.25, 0.2, 1),
+                 2: (0.1, 0.15, 0.5 / w, 0.1, 0), 5: (0.1, 0.1, 0.05, 0.5 / h,
+                                                      0)}
+        if i in extra:
+            fx, fy, fw, fh, crowd = extra[i]
+            x, y, bw, bh = fx * w, fy * h, fw * w, fh * h
+            anns.append(dict(image_id=i + 1, bbox=[x, y, bw, bh],
+                             iscrowd=crowd, category_id=COCO_IDS[i]))
+            if crowd:
+                ignore.append([x, y, x + bw - 1, y + bh - 1])
+        name = f"{i + 1:012d}.jpg"
+        write_ppm(root / "images" / name, datasets_scene(np, w, h, boxes, i))
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+        truth.append(dict(bboxes=np.float32(boxes).reshape(-1, 4),
+                          labels=np.int64(labels),
+                          bboxes_ignore=np.float32(ignore).reshape(-1, 4)))
+    for k, a in enumerate(anns):
+        a.update(id=k + 1, area=a["bbox"][2] * a["bbox"][3])
+    path = root / "annotations.json"
+    path.write_text(json.dumps(dict(
+        images=images, annotations=anns, categories=[
+            dict(id=c, name=n) for c, n in zip(COCO_IDS, coco_classes())])))
+    return path, truth
+
+
+def write_voc_tree(np, root):
+    """``VOC2007/{Annotations,ImageSets/Main/test.txt,JPEGImages}``: per
+    image 1–3 objects of VOC classes and one of a class outside them
+    (dropped).  Returns the imageset's path and the truth per image."""
+    import xml.etree.ElementTree as ET
+    from hvrnet_tpu_torch.core.evaluation import voc_classes
+    classes = voc_classes()
+    rng = np.random.default_rng(1)
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        (root / sub).mkdir(parents=True)
+    ids, truth = [], []
+    for i, (w, h) in enumerate(VOC_SIZES):
+        img_id = f"{i + 1:06d}"
+        objs = []
+        for _ in range(int(rng.integers(1, 4))):
+            bw, bh = (int(v) for v in rng.uniform(0.1, 0.4, 2) * (w, h))
+            x1 = int(rng.integers(1, w - bw))
+            y1 = int(rng.integers(1, h - bh))
+            objs.append((classes[int(rng.integers(20))],
+                         (x1, y1, x1 + bw, y1 + bh)))
+        objs.insert(1, ("cyclops", (5, 5, w // 4, h // 4)))
+        ann = ET.Element("annotation")
+        size = ET.SubElement(ann, "size")
+        for key, v in (("width", w), ("height", h), ("depth", 3)):
+            ET.SubElement(size, key).text = str(v)
+        for name, box in objs:
+            obj = ET.SubElement(ann, "object")
+            ET.SubElement(obj, "name").text = name
+            ET.SubElement(obj, "difficult").text = "0"
+            bnd = ET.SubElement(obj, "bndbox")
+            for key, v in zip(("xmin", "ymin", "xmax", "ymax"), box):
+                ET.SubElement(bnd, key).text = str(v)
+        ET.ElementTree(ann).write(root / "Annotations" / f"{img_id}.xml")
+        kept = [(n, b) for n, b in objs if n in classes]
+        boxes = np.float32([b for _, b in kept]) - 1
+        write_ppm(root / "JPEGImages" / f"{img_id}.jpg",
+                  datasets_scene(np, w, h, boxes, 50 + i))
+        ids.append(img_id)
+        truth.append(dict(bboxes=boxes, labels=np.int64(
+            [classes.index(n) + 1 for n, _ in kept]),
+            bboxes_ignore=np.zeros((0, 4), np.float32)))
+    listing = root / "ImageSets" / "Main" / "test.txt"
+    listing.write_text("\n".join(ids) + "\n")
+    return listing, truth
+
+
+def check_annotations(np, dataset, truth, tag):
+    """The dataset's annotations equal what the tree holds: boxes, labels,
+    ignored boxes (crowds) and no dropped box."""
+    for i, want in enumerate(truth):
+        got = dataset.get_ann_info(i)
+        for key, value in want.items():
+            if got[key].shape != value.shape or not np.array_equal(
+                    got[key], value):
+                raise RuntimeError(f"[datasets] {tag} image {i}: {key} "
+                                   f"{got[key].tolist()} is not "
+                                   f"{value.tolist()}")
+    n = sum(len(t["bboxes"]) for t in truth)
+    n_ignore = sum(len(t["bboxes_ignore"]) for t in truth)
+    log(f"[datasets] {tag}: {len(truth)} images, {n} boxes, {n_ignore} "
+        f"ignored, labels and boxes equal to the tree's")
+
+
+def datasets_engine(torch, np, num_classes, img):
+    """``init_detector`` on ``faster_rcnn_config`` with ``num_classes``
+    (seeded random weights), frozen BNs calibrated on ``img``."""
+    from hvrnet_tpu_torch.apis import image_input, init_detector
+    from hvrnet_tpu_torch.engine.calibrate import calibrate_frozen_bn
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = faster_rcnn_config().as_dict()
+    cfg["model"]["bbox_head"]["num_classes"] = num_classes
+    cfg = Config(cfg)
+    engine = init_detector(cfg, device="cuda")
+    calibrate_frozen_bn(engine, [image_input(engine.cfg, img)])
+    return engine
+
+
+def datasets_inference(torch, np, engine, loader, tag, proposals=False):
+    """``inference_detector`` on every item ``loader`` yields, each timed
+    by CUDA events; with ``proposals`` also each image's RPN proposals in
+    original-image coordinates (n, 5), by score.  Returns (results,
+    proposals, ms per image)."""
+    from hvrnet_tpu_torch.apis import image_input, inference_detector
+    from hvrnet_tpu_torch.engine.detector import f32_precision
+    results, props, ms = [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for item in loader:
+        img = item["img"]
+        inference_detector(engine, img)         # warm for this canvas
+        torch.cuda.synchronize()
+        ev[0].record()
+        result = inference_detector(engine, img)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        if len(result) != engine.num_classes - 1 or not all(
+                c.shape[1:] == (5,) and np.isfinite(c).all() for c in result):
+            raise RuntimeError(f"[datasets] {tag}: not a "
+                               f"{engine.num_classes - 1}-class result of "
+                               "finite boxes")
+        results.append(result)
+        if proposals:
+            x = image_input(engine.cfg, img)
+            with torch.no_grad(), f32_precision():
+                maps = engine.backbone_maps(x["img"], x["img_shape"])
+                boxes, scores, mask = engine._proposals_lanes(
+                    *maps, [x["img_shape"]], [x["pad_shape"]])
+            keep = mask[0].cpu().numpy()
+            b = boxes[0].cpu().numpy()[keep] / x["scale_factor"]
+            props.append(np.concatenate(
+                [b, scores[0].cpu().numpy()[keep, None]], 1))
+    mean = sum(ms) / len(ms)
+    log(f"[datasets] {tag} ({CARD}): Faster R-CNN R101-C5 "
+        f"{engine.num_classes} classes, inference_detector "
+        f"{mean:.3f} ms per image (CUDA events, each image once after a "
+        f"warm-up call; min {min(ms):.3f}, max {max(ms):.3f}) over "
+        f"{len(ms)} images; {sum(sum(len(c) for c in r) for r in results)} "
+        "boxes")
+    return results, props, mean
+
+
+def truth_detections(np, truth, n_classes):
+    """The ground truth as detections of score 1, per image per class."""
+    out = []
+    for t in truth:
+        per = [np.zeros((0, 5), np.float32) for _ in range(n_classes)]
+        for b, lab in zip(t["bboxes"], t["labels"]):
+            per[lab - 1] = np.concatenate([per[lab - 1], np.concatenate(
+                [b, [1.0]])[None].astype(np.float32)])
+        out.append(per)
+    return out
+
+
+def datasets_evaluation(np, work, coco, coco_truth, coco_results, props,
+                        voc, voc_truth, voc_results):
+    """``results2json`` (and back), ``coco_style_eval``, ``voc_eval`` and
+    ``eval_recalls`` on the card's detections and proposals, and each on
+    the ground truth as detections (1.0)."""
+    import io
+    from hvrnet_tpu_torch.core.evaluation import eval_recalls
+    from hvrnet_tpu_torch.tools.coco_eval import coco_style_eval, results2json
+    from hvrnet_tpu_torch.tools.voc_eval import voc_eval
+    path = results2json(coco, coco_results, str(work / "dets.json"))
+    entries = json.loads(Path(path).read_text())
+    back = [[[] for _ in coco.CLASSES] for _ in coco_results]
+    ids = [info["id"] for info in coco.img_infos]
+    for d in entries:
+        x, y, w, h = d["bbox"]
+        back[ids.index(d["image_id"])][coco.cat2label[d["category_id"]] - 1
+                                       ].append([x, y, x + w - 1, y + h - 1,
+                                                 d["score"]])
+    err = max([float(np.abs(np.asarray(b, np.float64).reshape(-1, 5)
+                            - dets).max()) for res, row in zip(
+        coco_results, back) for dets, b in zip(res, row) if len(dets)] or [0])
+    if len(entries) != sum(len(d) for r in coco_results for d in r) \
+            or err > 1e-9:
+        raise RuntimeError(f"[datasets] results2json: {len(entries)} "
+                           f"entries, back to the detections within {err}")
+    log(f"[datasets] results2json: {len(entries)} entries, category ids in "
+        f"{sorted({d['category_id'] for d in entries})[:3]}..., mapped back "
+        f"to the detections within {err:.1e} px")
+    gts = [t["bboxes"] for t in coco_truth]
+    labels = [t["labels"] for t in coco_truth]
+    scores = {}
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        scores["coco AP@[0.50:0.95]"] = coco_style_eval(
+            coco_results, gts, labels, coco.CLASSES)
+        scores["coco AP, truth"] = coco_style_eval(
+            truth_detections(np, coco_truth, 80), gts, labels, coco.CLASSES)
+        for name, dets in (("voc mAP", voc_results), ("voc mAP, truth",
+                           truth_detections(np, voc_truth, 20))):
+            pkl = work / "voc_results.pkl"
+            pkl.write_bytes(pickle.dumps(dets))
+            scores[name] = voc_eval(str(pkl), voc)[0]
+        thrs = np.arange(0.5, 0.951, 0.05)
+        recall = eval_recalls(gts, props, (100, 300), thrs)
+        truth_recall = eval_recalls(
+            gts, [np.concatenate([g, np.ones((len(g), 1), np.float32)], 1)
+                  for g in gts], (100, 300), thrs)
+    scores["recall@100 IoU 0.5:0.95"] = float(recall[0].mean())
+    scores["recall@300 IoU 0.5:0.95"] = float(recall[1].mean())
+    scores["recall, truth"] = float(truth_recall.min())
+    log(f"[datasets] evaluation on the card's detections (seeded random "
+        f"weights) and on the ground truth as detections: "
+        + json.dumps({k: round(v, 6) for k, v in scores.items()})
+        + f"; proposals per image {[len(p) for p in props]}")
+    truth_keys = ("coco AP, truth", "voc mAP, truth", "recall, truth")
+    if any(scores[k] != 1.0 for k in truth_keys) or not all(
+            0.0 <= v <= 1.0 for v in scores.values()):
+        raise RuntimeError(f"[datasets] evaluation: {scores}")
+    return scores
+
+
+def datasets_train_pipeline(norm):
+    return [dict(type="LoadImageFromFile"),
+            dict(type="LoadAnnotations", with_bbox=True), DATASETS_ALBU,
+            dict(type="Resize", img_scale=(1000, 600), keep_ratio=True),
+            dict(type="RandomFlip", flip_ratio=0.5),
+            dict(type="Normalize", **norm),
+            dict(type="Pad", size_divisor=16),
+            dict(type="DefaultFormatBundle"),
+            dict(type="Collect", keys=["img", "gt_bboxes", "gt_labels"])]
+
+
+def datasets_host_times(np, train_cfg):
+    """Host ms per item of ``Albu`` alone and of the whole training
+    pipeline, and ``PrefetchLoader`` items/s over the training set at
+    ``DATASETS_WORKERS`` workers."""
+    from hvrnet_tpu_torch.data import build_dataset, pipelines
+    from hvrnet_tpu_torch.data.loader import PrefetchLoader
+    ds = build_dataset(dict(train_cfg), dict(seed=1, imread=read_ppm))
+    load = pipelines.Compose(train_cfg["pipeline"][:2], ds.rng, read_ppm)
+    albu = pipelines.build_transform(DATASETS_ALBU, ds.rng)
+    albu_ms, item_ms = [], []
+    ds[0]                               # warm
+    for i in range(len(ds)):
+        r = dict(img_info=ds.img_infos[i], ann_info=ds.get_ann_info(i))
+        ds.pre_pipeline(r)
+        r = load(r)
+        t0 = time.perf_counter()
+        albu(r)
+        albu_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ds[i]
+        item_ms.append((time.perf_counter() - t0) * 1e3)
+    rates = {}
+    for workers in DATASETS_WORKERS:
+        order = list(range(len(ds))) * DATASETS_PASSES
+        t0 = time.perf_counter()
+        n = sum(1 for _ in PrefetchLoader(lambda i: ds[i], iter(order),
+                                          workers))
+        rates[workers] = n / (time.perf_counter() - t0)
+    log(f"[datasets] host ({CARD}): Albu (mmdet's example block) "
+        f"{sum(albu_ms) / len(albu_ms):.3f} ms per item alone, the whole "
+        f"training pipeline {sum(item_ms) / len(item_ms):.3f} ms per item "
+        f"(mean over {len(ds)} COCO images of 360-640 px, after one warm "
+        f"item); PrefetchLoader "
+        + ", ".join(f"{w} worker{'s' * (w > 1)} {r:.2f} items/s"
+                    for w, r in rates.items())
+        + f" over {len(ds) * DATASETS_PASSES} items")
+    return dict(albu_ms=sum(albu_ms) / len(albu_ms),
+                item_ms=sum(item_ms) / len(item_ms),
+                items_per_s=rates)
+
+
+def datasets_training(torch, np, train_cfg, model_cfg):
+    """One training step of the Faster R-CNN R101-C5 on the first item of
+    the training loader's epoch that fits the canvas, packed by
+    ``collate_train`` (the epoch's portrait items do not fit and are
+    skipped, as ``train_batch_iterator`` skips them), by
+    ``FasterRCNNTrainer``, the trainer ``train_detector`` picks for the
+    ``FasterRCNN`` engine, on seeded weights with frozen BNs calibrated on
+    the item.  Returns the step."""
+    from hvrnet_tpu_torch.data import build_dataloader, build_dataset
+    from hvrnet_tpu_torch.engine import FasterRCNN
+    from hvrnet_tpu_torch.engine.canvas import FrameTooLarge
+    from hvrnet_tpu_torch.engine.stream import collate_train
+    from hvrnet_tpu_torch.engine.train import FasterRCNNTrainer
+    ds = build_dataset(dict(train_cfg), dict(seed=0, imread=read_ppm))
+    skipped, sample = 0, None
+    for item in build_dataloader(ds, imgs_per_gpu=1, workers_per_gpu=1):
+        try:
+            packed = collate_train([item], DATASETS_CANVAS)
+        except FrameTooLarge:
+            skipped += 1
+            continue
+        sample = sample or packed
+    if sample is None or not skipped:
+        raise RuntimeError(f"[datasets] of {len(ds)} training items "
+                           f"{skipped} were skipped and "
+                           f"{'one' if sample else 'none'} fits the canvas")
+    tag = "[datasets] train FasterRCNNTrainer"
+    engine = calibrated_training_engine(torch, FasterRCNN, model_cfg, sample,
+                                        tag)
+    before = {k: t.clone() for k, t in engine.model.state_dict().items()}
+    trainer = FasterRCNNTrainer(engine, model_cfg, 1, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train_step(sample)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    logs = {k: float(v) for k, v in logs.items()}
+    log(f"{tag} ({CARD}): one step (the first, host wall) on the first "
+        f"COCO item of the loader's epoch that fits the canvas "
+        f"{DATASETS_CANVAS} ({skipped} of {len(ds)} portrait items "
+        f"skipped in the epoch, {int(sample['gt_mask'].sum())} boxes): "
+        f"{ms:.3f} ms; " + json.dumps(
+            {k: round(v, 6) for k, v in logs.items()
+             if k.startswith(("loss", "acc"))}))
+    if not all(np.isfinite(v) for v in logs.values()):
+        raise RuntimeError(f"{tag}: non-finite logs {logs}")
+    check_train_weights(torch, engine, before, tag, (
+        "backbone.layer2.", "backbone.layer3.", "rpn_head.",
+        "shared_head.", "bbox_head."))
+    del engine, trainer
+    torch.cuda.empty_cache()
+    return dict(step_ms=ms, loss=logs["loss"], skipped=skipped)
+
+
+def phase_datasets(torch, np):
+    """The still-image data layer at full width.  A COCO-format and a
+    VOC2007-format tree written at run time (deleted after): both built by
+    ``build_dataset`` from config dicts, their annotations held to what was
+    written, iterated by ``build_dataloader`` in test mode through
+    ``inference_detector`` on the still-image Faster R-CNN R101-C5
+    (``faster_rcnn_config``, 81 and 21 classes, seeded random weights,
+    frozen BNs calibrated on the first image); ``coco_eval``, ``voc_eval``
+    and ``eval_recalls`` over the RPN's proposals; one
+    ``FasterRCNNTrainer`` step on a COCO item through ``Albu``; the
+    host's times.  No attention launch on
+    the path.  Returns the run."""
+    import shutil
+    from hvrnet_tpu_torch.data import build_dataloader, build_dataset
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    from hvrnet_tpu_torch.utils.config import Config
+    work = ROOT / "build" / "chip_smoke_datasets"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        ann_file, coco_truth = write_coco_tree(np, work / "coco")
+        listing, voc_truth = write_voc_tree(
+            np, work / "VOCdevkit" / "VOC2007")
+        test = [dict(type="LoadImageFromFile")]
+        coco_cfg = dict(type="CocoDataset", ann_file=str(ann_file),
+                        img_prefix=str(work / "coco" / "images") + "/",
+                        pipeline=test)
+        voc_cfg = dict(type="VOCDataset", ann_file=str(listing),
+                       img_prefix=str(work / "VOCdevkit" / "VOC2007") + "/",
+                       pipeline=test)
+        args = dict(test_mode=True, imread=read_ppm)
+        coco = build_dataset(dict(coco_cfg), dict(args))
+        voc = build_dataset(dict(voc_cfg), dict(args))
+        check_annotations(np, coco, coco_truth, "CocoDataset")
+        check_annotations(np, voc, voc_truth, "VOCDataset")
+        if coco.cat_ids != list(COCO_IDS) or voc.year != 2007:
+            raise RuntimeError("[datasets] category ids or VOC year wrong")
+        masked_attention.launches = 0
+        first = read_ppm(work / "coco" / "images" / coco.img_infos[0][
+            "filename"])
+        engine = datasets_engine(torch, np, 81, first)
+        coco_results, props, coco_ms = datasets_inference(
+            torch, np, engine, build_dataloader(coco, 1, 2), "COCO",
+            proposals=True)
+        del engine
+        engine = datasets_engine(torch, np, 21, read_ppm(
+            work / "VOCdevkit" / "VOC2007" / voc.img_infos[0]["filename"]))
+        voc_results, _, voc_ms = datasets_inference(
+            torch, np, engine, build_dataloader(voc, 1, 2), "VOC")
+        del engine
+        torch.cuda.empty_cache()
+        scores = datasets_evaluation(np, work, coco, coco_truth,
+                                     coco_results, props, voc, voc_truth,
+                                     voc_results)
+        hvr = Config.fromfile(str(CONFIG)).as_dict()
+        norm = hvr["img_norm_cfg"]
+        train_cfg = dict(coco_cfg, pipeline=datasets_train_pipeline(norm))
+        model_cfg = faster_rcnn_config().as_dict()
+        model_cfg["model"]["bbox_head"]["num_classes"] = 81
+        train = datasets_training(torch, np, train_cfg, model_cfg)
+        launches = masked_attention.launches
+        host = datasets_host_times(np, train_cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[datasets] attention kernel launches on the path: {launches}")
+    if launches:
+        raise RuntimeError(f"[datasets] {launches} attention launches on a "
+                           "path without a relation head")
+    return {"datasets": dict(launches=launches, coco_ms=coco_ms,
+                             voc_ms=voc_ms, scores=scores, train=train,
+                             host=host)}
+
+
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
     one detected frame of the exact ring at T=21 (NL1..NL4, two calls at
@@ -5851,7 +6334,8 @@ def route_summary(cases, runs, dtype):
              "detection, 2 per streaming detection and 4 per replay; "
              "plugins: Mask R-CNN gcb, Faster R-CNN gen_attention and "
              "Cascade R-CNN HRNet serving, and roi_pool alone, 0: no "
-             "relation head)",
+             "relation head; datasets: Faster R-CNN over the COCO and VOC "
+             "trees and one training step, 0: no relation head)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -5922,6 +6406,8 @@ def main() -> int:
     lap("[trunks]")
     plugins = phase_plugins(torch, np)
     lap("[plugins]")
+    datasets = phase_datasets(torch, np)
+    lap("[datasets]")
     bf16 = torch.bfloat16
     cases += train_attention(torch)
     cases += train_attention(torch, dtype=bf16)
@@ -5950,7 +6436,7 @@ def main() -> int:
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
-            **multipass, "trace": traced, **image, **trunks,
+            **multipass, "trace": traced, **image, **trunks, **datasets,
             **{k: v for k, v in {**zoo, **dense, **deform,
                                  **plugins}.items()
                if "bfloat16" not in k}}

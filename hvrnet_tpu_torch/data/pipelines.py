@@ -1,7 +1,8 @@
 """Host-side pipelines (counterpart of ``hvrnet_tpu/data/pipelines.py``):
 the test transforms (load, keep-ratio resize, flip, normalise, pad,
 collect) and the training ones (float loading, annotations,
-``PhotoMetricDistortion``, ``Expand``, ``MinIoURandomCrop``).  numpy only.
+``PhotoMetricDistortion``, ``Expand``, ``MinIoURandomCrop``, ``Albu``,
+``LoadProposals``).  numpy only.
 
 Two things the caller hands in rather than the module importing them:
 - ``imread(path) -> (H, W, 3) uint8 BGR``, the image decoder.  The default
@@ -12,8 +13,9 @@ Two things the caller hands in rather than the module importing them:
   generator per dataset, drawn in the reference's order, gives the same
   draws from the same seed).
 
-``Resize`` resizes with ``data/resize.py`` and the distortion converts
-colours with ``data/color.py``, both bit for bit cv2.
+``Resize`` resizes with ``data/resize.py``, the distortion converts
+colours with ``data/color.py`` and ``Albu`` runs ``data/albu_mini.py``
+on ``data/imgproc.py``, all bit for bit cv2.
 
 A pipeline run on ``results`` with ``lazy`` set decodes nothing: the image
 is a ``LazyImage``, its shape and dtype known from ``img_info`` and each
@@ -443,6 +445,97 @@ class MinIoURandomCrop:
                 return results
 
 
+class LoadProposals:
+    """Precomputed proposals on the sample (mmdet ``loading.py:131``): the
+    first four columns of ``results["proposals"]`` ((n, 4) or (n, 5)), at
+    most ``num_max_proposals`` of them, one all-zero box when none is left,
+    added to ``bbox_fields``.  A sample without proposals passes as it
+    is."""
+
+    def __init__(self, num_max_proposals: Optional[int] = None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results):
+        proposals = results.get("proposals")
+        if proposals is None:
+            return results
+        if proposals.shape[1] not in (4, 5):
+            raise AssertionError(
+                f"proposals should be (n, 4|5), got {proposals.shape}")
+        proposals = proposals[:, :4]
+        if self.num_max_proposals is not None:
+            proposals = proposals[:self.num_max_proposals]
+        if len(proposals) == 0:
+            proposals = np.array([[0, 0, 0, 0]], np.float32)
+        results["proposals"] = proposals
+        results.setdefault("bbox_fields", []).append("proposals")
+        return results
+
+
+class Albu:
+    """The albumentations bridge (mmdet ``transforms.py:705-817``) on the
+    port's own backend (``data/albu_mini.py``): probability gates,
+    pascal_voc boxes, ``min_visibility``, and with ``filter_lost_elements``
+    in ``bbox_params`` the label fields re-indexed by the boxes that
+    survive (an index field rides with the boxes in their place); a sample
+    left with no box is dropped (None) under ``skip_img_without_anno``.
+    Draws from the pipeline's ``rng`` in the JAX package's order.  A
+    planned image is decoded first: the transforms need its pixels."""
+
+    def __init__(self, transforms, bbox_params=None, keymap=None,
+                 update_pad_shape=False, skip_img_without_anno=False,
+                 rng=None):
+        from .albu_mini import AlbuCompose
+        self.filter_lost_elements = False
+        self.update_pad_shape = update_pad_shape
+        self.skip_img_without_anno = skip_img_without_anno
+        bbox_params = dict(bbox_params) if bbox_params else None
+        if (isinstance(bbox_params, dict) and "label_fields" in bbox_params
+                and "filter_lost_elements" in bbox_params):
+            self.filter_lost_elements = True
+            self.origin_label_fields = list(bbox_params["label_fields"])
+            bbox_params = dict(bbox_params, label_fields=["idx_mapper"])
+            del bbox_params["filter_lost_elements"]
+        rng = rng if rng is not None else np.random.RandomState(0)
+        self.aug = AlbuCompose(transforms, bbox_params, rng)
+        self.keymap_to_albu = keymap or {"img": "image",
+                                         "gt_bboxes": "bboxes"}
+        self.keymap_back = {v: k for k, v in self.keymap_to_albu.items()}
+
+    @staticmethod
+    def mapper(d, keymap):
+        return {keymap.get(k, k): v for k, v in d.items()}
+
+    def __call__(self, results):
+        results["img"] = render(results["img"])
+        data = self.mapper(results, self.keymap_to_albu)
+        had_boxes = "bboxes" in data
+        if self.filter_lost_elements and had_boxes:
+            data["idx_mapper"] = np.arange(len(data["bboxes"]))
+        kw = {k: data[k] for k in ("image", "bboxes", "idx_mapper")
+              if k in data}
+        # label fields move with the boxes (the reference hands the whole
+        # results dict to albumentations)
+        for f in self.aug.label_fields:
+            if f in data and f not in kw:
+                kw[f] = data[f]
+        data.update(self.aug(**kw))
+        if self.filter_lost_elements and had_boxes:
+            idx = np.asarray(data.pop("idx_mapper"), int)
+            for f in self.origin_label_fields:
+                data[f] = np.asarray(data[f])[idx]
+            if not len(data["bboxes"]) and self.skip_img_without_anno:
+                return None
+        if had_boxes:
+            data["bboxes"] = np.asarray(data["bboxes"],
+                                        np.float32).reshape(-1, 4)
+        results = self.mapper(data, self.keymap_back)
+        results["img_shape"] = results["img"].shape
+        if self.update_pad_shape:
+            results["pad_shape"] = results["img"].shape
+        return results
+
+
 class MultiScaleFlipAug:
     """The reference's ``test_aug.py:8``: one sample expanded into its
     scale × flip augmentations, a LIST of results dicts (one per
@@ -519,18 +612,18 @@ TRANSFORMS = {
     "DefaultFormatBundle": DefaultFormatBundle,
     "Collect": Collect,
     "MultiScaleFlipAug": MultiScaleFlipAug,
+    "LoadProposals": LoadProposals,
+    "Albu": Albu,
 }
 
 # the transforms that draw from the dataset's generator
 RANDOM = ("RandomFlip", "PhotoMetricDistortion", "Expand",
-          "MinIoURandomCrop")
+          "MinIoURandomCrop", "Albu")
 
 # the JAX package's augmentation transforms still to port, and the ROADMAP
 # item that ports each
 NOT_PORTED = {
-    "Corrupt": "Queue 1 item 8",
-    "Albu": "Queue 1 item 8",
-    "LoadProposals": "Queue 1 item 8",
+    "Corrupt": "Queue 1 item 9",
 }
 
 

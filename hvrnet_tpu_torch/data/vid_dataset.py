@@ -60,16 +60,22 @@ def list_from_file(path: str) -> List[str]:
         return [line.rstrip("\n") for line in f if line.strip()]
 
 
+MAX_OBJECTS = 256          # the JAX package's native scanner keeps this many
+
+
 def parse_vid_xml(xml_path: str, class_to_index: Dict[str, int]):
     """VOC-style XML → (ann dict, (width, height), number of kept boxes);
     boxes −1 to 0-based float32, labels 1-based int64, names outside
-    ``class_to_index`` skipped."""
+    ``class_to_index`` skipped, and the first ``MAX_OBJECTS`` kept boxes
+    only (``hvrnet_tpu/data/native.py:_MAX_OBJ``)."""
     root = ET.parse(xml_path).getroot()
     size = root.find("size")
     width = int(size.find("width").text)
     height = int(size.find("height").text)
     bboxes, labels = [], []
     for obj in root.findall("object"):
+        if len(bboxes) == MAX_OBJECTS:
+            break
         name = obj.find("name").text
         if name not in class_to_index:
             continue

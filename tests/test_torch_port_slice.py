@@ -178,6 +178,28 @@ def test_port_imports_no_image_library_at_module_level():
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
+# the still-image data layer and its cv2 counterparts: no image library,
+# not even inside a function (the default decoder's lazy cv2 import lives
+# in data/pipelines.py)
+NO_IMAGE_LIBRARY = ("data/datasets.py", "data/loader.py",
+                    "data/albu_mini.py", "data/imgproc.py", "data/color.py",
+                    "core/evaluation/recall.py", "tools/coco_eval.py",
+                    "tools/voc_eval.py", "tools/convert_datasets/pascal_voc.py")
+
+
+def test_data_layer_imports_no_image_library_anywhere():
+    for rel in NO_IMAGE_LIBRARY:
+        path = ROOT / "hvrnet_tpu_torch" / rel
+        for name in _imports(path):
+            assert name.split(".")[0] not in ("cv2", "PIL"), \
+                f"{path.relative_to(ROOT)} imports {name}"
+        calls = [n for n in ast.walk(ast.parse(path.read_text()))
+                 if isinstance(n, ast.Call)
+                 and getattr(n.func, "attr", getattr(n.func, "id", ""))
+                 in ("import_module", "__import__")]
+        assert not calls, f"{path.relative_to(ROOT)} imports dynamically"
+
+
 def test_port_imports_with_jax_blocked(tmp_path):
     """With JAX, the JAX package, cv2 and PIL blocked (as on the card
     machine), every port module imports (the backbone zoo's and
@@ -208,7 +230,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "assert roi_pool(torch.ones(1, 2, 4, 4), torch.tensor(\n"
             "    [[0., 0., 0., 3., 3.]]), 2, 1.0).shape == (1, 2, 2, 2)\n"
             "from hvrnet_tpu_torch.tools import hnl_test, test, train, "
-            "vid_eval\n"
+            "vid_eval, coco_eval, voc_eval\n"
+            "from hvrnet_tpu_torch.tools.convert_datasets import pascal_voc\n"
             "import hvrnet_tpu_torch.engine.eval_hook\n"
             "from hvrnet_tpu_torch.data import pipelines\n"
             "from hvrnet_tpu_torch.data import VIDSeqDataset\n"
@@ -223,6 +246,9 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "assert frame['key_frame_flag'] == 1\n"
             "steps = [dict(type=t) for t in ('PhotoMetricDistortion', "
             "'Expand', 'MinIoURandomCrop')]\n"
+            "steps.append(dict(type='Albu', transforms=[dict(type=t, p=1.0)\n"
+            "    for t in ('ShiftScaleRotate', 'Blur', 'MedianBlur',\n"
+            "              'HueSaturationValue')]))\n"
             "steps.append(dict(type='Resize', img_scale=(96, 64)))\n"
             "r = pipelines.Compose(steps, np.random.RandomState(0))(dict(\n"
             "    img=np.full((48, 72, 3), 9, np.float32),\n"
