@@ -80,12 +80,12 @@ stops the script with a non-zero exit:
     1280×720, a portrait 540×960 video, the class lists; 6 distinct PPM
     scenes linked), 6 DET images and a 20-frame val tree; the configs'
     whole training pipeline.  HVRNet (27 frames, 128 RoIs, 608×1008)
-    with ``--calibrate-bn --validate`` for 2 epochs × 2 steps, resumed
-    from ``latest.pth`` for a third; SELSA on the VID + DET concatenation
-    for 2 steps.  Checked: finite losses, 9 and 2 launches per step,
-    frozen tensors bitwise and trainable ones moved, the first sample the
-    CLI trained on bitwise equal to ``train_batch_iterator``'s in this
-    process, the step carried on, the hook's mAP per epoch equal to
+    with ``--calibrate-bn --validate`` for 2 epochs of one step, resumed
+    from ``latest.pth`` for a third; SELSA on the VID + DET
+    concatenation for 2 steps.  Checked: finite losses, 9 and 2 launches
+    per step, frozen tensors bitwise and trainable ones moved, the first
+    sample the CLI trained on bitwise equal to ``train_batch_iterator``'s
+    in this process, the step carried on, the hook's mAP per epoch equal to
     ``hnl_test --eval`` on that epoch's checkpoint.  Printed: each
     training transform's host ms per frame alone, wall and device ms per
     step, the wait for samples and its share of the wall, peak memory.
@@ -108,7 +108,7 @@ stops the script with a non-zero exit:
     memory and launches; ``[busy]`` of the batched bf16 frame program.
     ``[cli]``: ``test --batched 4 --loader-workers 4 --u8-transfer`` from
     disk equal to ``--batched 4`` with no loader threads, frames/s beside
-    the sequential ``hnl_test``; on 4 videos of 64 frames against the
+    the sequential ``hnl_test``; on 4 videos of 32 frames against the
     sequential ``test`` with the same loader threads.
 13. ``[aug]``: flip-augmented testing (``test --aug-test``).  The kernel
     on 2 lanes at (2, 6300, 6300) and (2, 300, 6300), f32 and bf16, as
@@ -248,7 +248,26 @@ stops the script with a non-zero exit:
     item of ``Albu`` and of the whole training pipeline,
     ``PrefetchLoader`` items/s at 1, 2 and 4 workers.  No attention
     launch on the path.
-23. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
+23. ``[multi]``: the multi-device paths on this machine's one card.
+    HVRNet training at full width (the [train] phase's calibrated
+    weights, 27-frame samples): a data-parallel step at world 1 over NCCL
+    (``parallel/mesh.py:init_distributed``; NCCL takes one rank per card,
+    so one card shows it at one rank only), held to one process's step,
+    and two ranks sharing the card over gloo (spawned processes with a
+    timeout), each on its own sample: their parameters equal bit for bit
+    and equal within ``dryrun.PARAM_TOL`` to one process that averages
+    the two samples' gradients; ms per step and peak memory per rank.
+    B = 4 lockstep lanes over two replicas on the card
+    (``enable_spmd_lanes``): each replica's backbone by depth within
+    ``LANES_MAP_LIMIT`` of the unsharded batched engine's lanes, the post
+    bit for bit, the ring's detections against the unsharded ring fed the
+    same caches, 4 launches per replica and lockstep detection.  The
+    K/V-sharded attention (``masked_attention_kv_sharded``, 2 and 4
+    shards side by side on the card) at the T=21 shapes in f32 and bf16
+    against ``attention_plain`` and the kernel, timed beside it; one
+    HVRNet window detection with ``enable_kv_sharded_attention`` against
+    the unsharded engine, launching no kernel.
+24. One JSON line of per-kernel numbers (the kernel's f32 and bf16 routes
     as two entries), then the result line.
 
 Every path runs at full width and depth, the SELSA ones included.
@@ -2255,7 +2274,7 @@ def train_transform_probe(np, config, n=TRAIN_CLI_PROBE_FRAMES):
 def phase_train_cli(torch, np):
     """``tools/train.py`` from a synthetic VID training tree on disk at
     full width, f32: HVRNet with ``--calibrate-bn --validate`` for 2 epochs
-    × 2 steps, resumed from ``latest.pth`` for a third epoch, then SELSA on
+    of one step, resumed from ``latest.pth`` for a third, then SELSA on
     the VID + DET concatenation for 2 steps.  Checked: finite losses, 9 /
     2 launches per step, frozen tensors bitwise and trainable ones moved,
     the first sample bitwise the in-process ``train_batch_iterator``'s, the
@@ -2263,7 +2282,8 @@ def phase_train_cli(torch, np):
     ``epoch_1.pth``.  Returns the runs for the kernels line."""
     import shutil
     from hvrnet_tpu_torch.data.vid_dataset import build_dataset
-    from hvrnet_tpu_torch.engine.stream import train_batch_iterator
+    from hvrnet_tpu_torch.engine.stream import (planned_batches,
+                                                train_batch_iterator)
     from hvrnet_tpu_torch.tools import hnl_test
     from hvrnet_tpu_torch.utils.config import Config, unwrap
     work = ROOT / "build" / "chip_smoke_train_cli"
@@ -2288,9 +2308,10 @@ def phase_train_cli(torch, np):
     common = ["--device", TRAIN_CLI_DEVICE, "--canvas", *canvas, "--seed",
               "0", "--max-steps-per-epoch", "2"]
     out = work / "hvrnet"
+    one_step = ["--max-steps-per-epoch", "1"]     # HVRNet's steps, ~13 s
     hvr = train_cli_run(torch, np, [hvr_cfg, "--work-dir", str(out),
                                     "--total-epochs", "2", "--calibrate-bn",
-                                    "--validate", *common],
+                                    "--validate", *common, *one_step],
                         "[train-cli] hvrnet", TRAIN_STAGES, 9)
     check_train_weights(torch, hvr["engine"], hvr["before"],
                         "[train-cli] hvrnet", ("shared_head.", "bbox_head."))
@@ -2299,7 +2320,8 @@ def phase_train_cli(torch, np):
     maps = [m["mAP"] for m in maps if "mAP" in m]
 
     # the first sample trained on, against train_batch_iterator in this
-    # process (the calibration's probe drawn first, as the loop draws it)
+    # process (the calibration's probe planned first, as a rank above 0
+    # plans it: its draws, no decode)
     cfg = Config.fromfile(hvr_cfg)
     dataset = build_dataset(unwrap(cfg.data.train),
                             dict(seed=0, imread=read_ppm))
@@ -2310,17 +2332,18 @@ def phase_train_cli(torch, np):
         return plan(idx)
 
     dataset.plan = counted
+    next(planned_batches(dataset, CANVAS, seed=0))
+    probe_plans = plans[0]
     t0 = time.perf_counter()
-    next(train_batch_iterator(dataset, CANVAS, seed=0))
     first = next(train_batch_iterator(dataset, CANVAS, seed=0))
     loader_s = time.perf_counter() - t0
     same = all(np.array_equal(first[k], hvr["first"][k]) for k in first)
-    log(f"[train-cli] ({CARD}) loader in this process: 2 kept 27-frame "
-        f"samples from {plans[0]} planned ({plans[0] - 2} skipped for a "
-        f"frame off the {CANVAS[0]}x{CANVAS[1]} canvas), "
-        f"{1e3 * loader_s / 2:.3f} ms per kept sample; the first sample "
-        f"the CLI trained on bitwise equal to train_batch_iterator's: "
-        f"{same}")
+    log(f"[train-cli] ({CARD}) loader in this process: the probe planned "
+        f"from {probe_plans} items, then the first kept 27-frame sample "
+        f"from {plans[0] - probe_plans} planned (the others skipped for a "
+        f"frame off the {CANVAS[0]}x{CANVAS[1]} canvas) in "
+        f"{1e3 * loader_s:.3f} ms; the first sample the CLI trained on "
+        f"bitwise equal to train_batch_iterator's: {same}")
     if not same:
         raise RuntimeError("the CLI's first sample differs from "
                            "train_batch_iterator's")
@@ -2347,11 +2370,12 @@ def phase_train_cli(torch, np):
     resumed = train_cli_run(torch, np, [hvr_cfg, "--work-dir", str(out),
                                         "--total-epochs", "3",
                                         "--resume-from",
-                                        str(out / "latest.pth"), *common],
+                                        str(out / "latest.pth"), *common,
+                                        *one_step],
                             "[train-cli] hvrnet resumed", TRAIN_STAGES, 9)
     log(f"[train-cli] resumed from latest.pth (step {hvr['trainer'].step}): "
         f"step {resumed['trainer'].step} after one more epoch")
-    if not (hvr["trainer"].step == 4 and resumed["trainer"].step == 6):
+    if not (hvr["trainer"].step == 2 and resumed["trainer"].step == 3):
         raise RuntimeError("the resumed run did not carry the step on")
     numbers = ("launches", "steps", "wall_ms", "data_ms", "step_ms",
                "data_share", "peak_gib")
@@ -2387,7 +2411,7 @@ LANES_VIDEOS = tuple((f"val/ILSVRC2015_val_{i:08d}", n, (720, 1280))
                      for i, n in enumerate((30, 12, 21, 16, 25)))
 # B videos long enough that a lockstep step rarely runs a padded push:
 # ``test --batched 4`` against the sequential ``test`` from disk
-LANES_LONG = tuple((f"val/ILSVRC2015_val_{i:08d}", 64, (720, 1280))
+LANES_LONG = tuple((f"val/ILSVRC2015_val_{i:08d}", 32, (720, 1280))
                    for i in range(LANES_B))
 LANES_ATTN = ((6300, 6300, "lanes NL1/NL3"), (300, 6300, "lanes NL2/NL4"))
 # the batched backbone's outputs of each lane against the same frame's
@@ -3009,8 +3033,8 @@ def lanes_cli(torch, np, work, config, weights, n_frames, cli_runs):
 def lanes_long(torch, np, work, ckpt):
     """``test --batched 4 --loader-workers 4 --u8-transfer`` against the
     sequential ``test --loader-workers 4 --u8-transfer`` from disk on
-    ``LANES_LONG`` (4 videos of 64 frames: every stream busy to the end,
-    10 padded pushes per 64 frames): frames/s of both, and the frame
+    ``LANES_LONG`` (4 videos of 32 frames: every stream busy to the end,
+    10 padded pushes per 32 frames): frames/s of both, and the frame
     programs per emitted frame."""
     import shutil
     root = work / "LONG"
@@ -6235,6 +6259,393 @@ def phase_datasets(torch, np):
                              voc_ms=voc_ms, scores=scores, train=train,
                              host=host)}
 
+# [multi]: the multi-device paths on the check machine's one card.  NCCL
+# takes one rank per card, so it runs at world 1; two ranks share the card
+# over gloo, which reduces CUDA tensors through the host.  ``--cards``
+# (``main_cards``) spreads the ranks, replicas and shards over every
+# visible card instead, the ranks over NCCL
+MULTI_DEVICE = "cuda:0"
+MULTI_CARDS = False
+MULTI_BACKENDS = ("nccl", "gloo")       # world 1, then MULTI_RANKS ranks
+MULTI_RANKS = 2
+MULTI_STEPS = 2                         # per rank; the last one timed
+MULTI_TIMEOUT = 300.0                   # s, the spawned ranks together
+MULTI_LANES, MULTI_REPLICAS = 4, 2
+MULTI_LANE_STEPS = 3                    # lockstep steps of the ring check
+MULTI_SHARDS = (2, 4)
+MULTI_WINDOW_SHARDS = 2
+# detections of the split or sharded path against the unsharded one: the
+# CLI comparisons' limits (boxes 1e-4 of the 1280-px frame, scores 1e-4)
+MULTI_BOX_TOL, MULTI_SCORE_TOL = 1e-4 * 1280, 1e-4
+
+
+def multi_sample(seed):
+    """A [multi] rank's training sample: ``synthetic_train_batch``'s
+    27-frame HVRNet batch of ``seed`` (built in the rank's process)."""
+    import numpy as np
+    return synthetic_train_batch(np, seed=seed)
+
+
+# the ranks' sample maker (a module-level function: the ranks import it)
+MULTI_SAMPLE = multi_sample
+
+
+def multi_devices(n):
+    """The devices of n ranks, replicas or shards: ``MULTI_DEVICE`` n
+    times, or under ``--cards`` the visible cards in turn."""
+    if not MULTI_CARDS:
+        return [MULTI_DEVICE] * n
+    import torch
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
+
+
+def sync_cards(torch):
+    """Wait for every visible card (the split runs queue work on each)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_multi(torch, np, train_weights, hvr_weights):
+    """Data-parallel training (world 1 over NCCL, two ranks over gloo on
+    one card), the lockstep lanes over two replicas on the card and the
+    K/V-sharded attention.  Returns the kernel cases and the runs whose
+    launches the kernels line counts."""
+    import shutil
+    t0 = time.time()
+    log(f"[multi] {torch.cuda.device_count()} CUDA card(s) visible: NCCL "
+        f"runs at world 1 on {MULTI_DEVICE}, then {MULTI_RANKS} ranks on "
+        f"{', '.join(multi_devices(MULTI_RANKS))} over {MULTI_BACKENDS[1]}")
+    work = ROOT / "build" / "chip_smoke_multi"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = multi_training(torch, np, work, train_weights)
+    lap_s = time.time() - t0
+    engine = build_engine(torch, np, weights=hvr_weights)
+    warm_up(torch, np, engine)
+    runs.update(multi_lanes(torch, np, engine))
+    cases, kv_runs = multi_kv(torch, np, engine)
+    runs.update(kv_runs)
+    shutil.rmtree(work, ignore_errors=True)
+    del engine
+    torch.cuda.empty_cache()
+    log(f"[multi] ({CARD}) the phase took {time.time() - t0:.1f} s, "
+        f"training {lap_s:.1f} s")
+    return cases, runs
+
+
+def multi_training(torch, np, work, weights):
+    """One HVRNet data-parallel step at full width: at world 1 over NCCL
+    in this process (held to the one-process step), with the step's
+    collectives alone after it (``dryrun.collective_check``: the gradients'
+    all-reduce and the parameters' broadcast over NCCL, unchanged at one
+    rank), then ``MULTI_RANKS`` ranks (sharing one card over gloo, or one
+    card each over NCCL under ``--cards``) against one process's mean
+    gradient (``dryrun.data_parallel_check``)."""
+    from hvrnet_tpu_torch.parallel import dryrun
+    from hvrnet_tpu_torch.parallel.launch import free_coordinator
+    from hvrnet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(str(CONFIG)).as_dict()
+    path = work / "weights.pt"
+    torch.save({k: v.detach().cpu() for k, v in weights.items()}, path)
+    spec = dict(model_cfg=cfg["model"], train_cfg=cfg["train_cfg"], cfg=cfg,
+                weights=str(path), seed=0, make_sample=MULTI_SAMPLE,
+                sample_args=[(r,) for r in range(MULTI_RANKS)])
+    one = work / "world1"
+    one.mkdir()
+    dryrun.dp_step_rank(0, 1, free_coordinator(), spec, str(one),
+                        MULTI_DEVICE, MULTI_BACKENDS[0], steps=MULTI_STEPS,
+                        collectives=True)
+    rec = torch.load(one / "rank_0.pt", weights_only=False)
+    want = dryrun.mean_gradient_step(spec, 1, MULTI_DEVICE)
+    err1 = max(((rec["params"][n] - w).abs().max()
+                / w.abs().max().clamp_min(1.0)).item()
+               for n, w in want.items())
+    del want
+    log(f"[multi] ({CARD}) backend {rec['backend']}, world 1: HVRNet step "
+        f"{rec['ms'][-1]:.3f} ms (the first {rec['ms'][0]:.3f}), peak "
+        f"{rec['peak_gib']} GiB, kernel launches {rec['launches']} over "
+        f"{MULTI_STEPS} steps; against one process's step "
+        f"{err1:.3g} of max(1, |w|) (limit {dryrun.PARAM_TOL}); losses "
+        + json.dumps({k: round(v, 4) for k, v in rec["logs"].items()
+                      if k.startswith("loss")}))
+    log_collectives(rec, "one process")
+    if (rec["backend"] != MULTI_BACKENDS[0] or err1 > dryrun.PARAM_TOL
+            or not all(np.isfinite(v) for v in rec["logs"].values())
+            or rec["launches"] != 9 * MULTI_STEPS):
+        raise RuntimeError("[multi] the world-1 step over NCCL differs from "
+                           "the one-process step")
+    two = work / "ranks"
+    two.mkdir()
+    t0 = time.time()
+    devices = multi_devices(MULTI_RANKS)
+    out = dryrun.data_parallel_check(
+        spec, MULTI_RANKS, str(two), device=devices,
+        backend=MULTI_BACKENDS[1], timeout=MULTI_TIMEOUT, steps=MULTI_STEPS,
+        collectives=MULTI_CARDS)
+    ranks = out["ranks"]
+    log(f"[multi] ({CARD}) backend {ranks[0]['backend']}, {MULTI_RANKS} "
+        f"ranks on {', '.join(devices)}: the ranks' parameters bitwise "
+        f"equal, "
+        f"{out['max_rel_err']:.3g} of max(1, |w|) from one process's mean "
+        f"of the {MULTI_RANKS} samples' gradients (limit "
+        f"{dryrun.PARAM_TOL}); per rank ms/step "
+        + ", ".join(f"{r['ms'][-1]:.3f} (first {r['ms'][0]:.3f})"
+                    for r in ranks)
+        + ", peak GiB " + ", ".join(str(r["peak_gib"]) for r in ranks)
+        + ", kernel launches " + ", ".join(str(r["launches"]) for r in ranks)
+        + f"; {out['ranks_s']:.1f} s for the ranks with their start, "
+        f"{time.time() - t0:.1f} s with the one-process reference after "
+        f"them; mean loss {ranks[0]['logs']['loss']:.4f}")
+    if MULTI_CARDS:
+        log_collectives(ranks[0], f"{MULTI_RANKS} ranks, rank 0")
+    if any(r["backend"] != MULTI_BACKENDS[1]
+           or r["launches"] != 9 * MULTI_STEPS for r in ranks):
+        raise RuntimeError("[multi] a rank ran another backend or skipped "
+                           "the kernel")
+    return {"multi train world 1 nccl": dict(launches=rec["launches"]),
+            f"multi train {MULTI_RANKS} ranks {MULTI_BACKENDS[1]}": dict(
+                launches=sum(r["launches"] for r in ranks))}
+
+
+def log_collectives(rec, tag):
+    """A rank's ``collective_check`` record on one line."""
+    c = rec["collectives"]
+    log(f"[multi] ({CARD}) collectives over {rec['backend']}, {tag} (world "
+        f"{c['world']}): the gradients' all-reduce of {c['mib']:.1f} MiB "
+        f"(trainer.reduce) ms " + ", ".join(f"{v:.3f}" for v in c["reduce_ms"])
+        + "; the parameters' broadcast ms "
+        + ", ".join(f"{v:.3f}" for v in c["broadcast_ms"])
+        + ("; the gradients and parameters unchanged, bitwise"
+           if c["world"] == 1 else "; the parameters unchanged, bitwise"))
+
+
+def multi_match(np, engine, got, want, worst, tag):
+    """Each lane's detections of ``got`` against ``want`` (``(dets,
+    labels, mask)`` with or without a lane axis) per class
+    (``match_frame``, rows of near-equal score may swap) within
+    ``MULTI_BOX_TOL`` and ``MULTI_SCORE_TOL``; returns the worst box and
+    score differences so far."""
+    from hvrnet_tpu_torch.ops.boxes import bbox2result_np
+
+    def per_class(out):
+        dets, labels, mask = (t.detach().cpu().numpy() for t in out)
+        if dets.ndim == 2:
+            dets, labels, mask = dets[None], labels[None], mask[None]
+        return [bbox2result_np(d[m], lab[m], engine.num_classes)
+                for d, lab, m in zip(dets, labels, mask)]
+
+    for fg, fw in zip(per_class(got), per_class(want)):
+        problem, box, score = match_frame(fg, fw, MULTI_BOX_TOL,
+                                          MULTI_SCORE_TOL)
+        if problem:
+            raise RuntimeError(f"[multi] {tag}: {problem}")
+        worst = [max(worst[0], box), max(worst[1], score)]
+    return worst
+
+
+def multi_lanes(torch, np, engine):
+    """``MULTI_LANES`` lockstep lanes over ``MULTI_REPLICAS`` replicas
+    (``multi_devices``) against the unsharded batched engine: each replica's
+    backbone by depth (``LANES_MAP_LIMIT``; cuDNN picks its algorithms by
+    batch size, so not bitwise), its post of its maps bitwise the
+    unsharded post of the same maps, then ``MULTI_LANE_STEPS`` lockstep
+    steps (frame program, ring push, ring detect) with the unsharded ring
+    fed the replicas' caches: the same detections within the CLI limits,
+    4 launches per replica and detection; step times."""
+    from hvrnet_tpu_torch.ops.attention import masked_attention
+    B, n = MULTI_LANES, MULTI_REPLICAS
+    per = B // n
+    devices = multi_devices(n)
+    limit, held = LANES_MAP_LIMIT["float32"]
+    videos = [synthetic_video(np, MULTI_LANE_STEPS, seed=20 + b)
+              for b in range(B)]
+    steps = [[next(v) for v in videos] for _ in range(MULTI_LANE_STEPS)]
+
+    def stack(frames, key):
+        return np.stack([f[key][0] if key == "img" else f[key]
+                         for f in frames])
+
+    def rel(a, b):
+        a, b = a.float().to(b.device), b.float()
+        return ((a - b).norm() / b.norm()).item()
+
+    imgs, ishs, pshs = (stack(steps[0], k) for k in ("img", "img_shape",
+                                                      "pad_shape"))
+    home = engine.device
+    with torch.no_grad():
+        whole, _ = backbone_depths(torch, engine, imgs, ishs)
+        engine.enable_spmd_lanes(devices)
+        parts = [backbone_depths(torch, rep, imgs[i * per:(i + 1) * per],
+                                 ishs[i * per:(i + 1) * per])
+                 for i, rep in enumerate(engine.lane_replicas)]
+        lane = [(i, j) for i in range(n) for j in range(per)]
+        own = {d: max(rel(parts[i][0][d][j], whole[d][i * per + j])
+                      for i, j in lane) for d in LANES_MAP_DEPTHS}
+        other = {d: min(rel(parts[i][0][d][j], whole[d][a])
+                        for i, j in lane for a in range(B)
+                        if a != i * per + j) for d in LANES_MAP_DEPTHS}
+        post = [rep.frame_post_batched(*parts[i][1],
+                                       ishs[i * per:(i + 1) * per],
+                                       pshs[i * per:(i + 1) * per])
+                for i, rep in enumerate(engine.lane_replicas)]
+        engine.enable_spmd_lanes(None)
+        unsplit = engine.frame_post_batched(
+            *(torch.cat([p[1][m].to(home) for p in parts])
+              for m in range(3)), ishs, pshs)
+        bitwise = all(torch.equal(torch.cat([p[k].to(home) for p in post]),
+                                  v) for k, v in unsplit.items())
+    log(f"[multi] lanes ({CARD}): {B} lanes over {n} replicas on "
+        f"{', '.join(devices)}, "
+        f"each replica's backbone against the unsharded batch, "
+        f"|Δ|₂/|unsharded|₂ by depth, own lane "
+        + json.dumps({d: float(f"{v:.3g}") for d, v in own.items()})
+        + f" (limit {limit}), nearest other lane "
+        + json.dumps({d: float(f"{v:.3g}") for d, v in other.items()})
+        + f"; the replicas' post bitwise the unsharded post of their maps: "
+        f"{bitwise}")
+    if not (bitwise and all(own[d] <= limit and other[d] > 10 * limit
+                            for d in held)):
+        raise RuntimeError("[multi] the replicas' frame program differs "
+                           "from the unsharded engine's lanes")
+    del whole, parts, post, unsplit
+
+    sfs = np.tile(np.asarray(steps[0][0]["scale_factor"], np.float32),
+                  (B, 1))
+    split_ms, whole_ms, worst = [], [], [0.0, 0.0]
+    state_s = state_u = None
+    detections = launches = 0
+    for s, frames in enumerate(steps):
+        imgs, ishs, pshs = (stack(frames, k) for k in ("img", "img_shape",
+                                                        "pad_shape"))
+        reset = np.full(B, s == 0)
+        engine.enable_spmd_lanes(devices)
+        sync_cards(torch)
+        masked_attention.launches = 0
+        t0 = time.perf_counter()
+        feats = engine.frame_features_batched(imgs, ishs, pshs)
+        if state_s is None:
+            state_s = engine.ring_reset_batched(B, D)
+        state_s = engine.ring_push_batched(state_s, feats, reset)
+        got = engine.ring_detect_batched(state_s, ishs, sfs, branch=-1)
+        sync_cards(torch)
+        split_ms.append(1e3 * (time.perf_counter() - t0))
+        launches += masked_attention.launches
+        detections += 1
+        engine.enable_spmd_lanes(None)
+        fed = {k: feats[k] for k in feats[0]}     # the replicas' lanes
+        t0 = time.perf_counter()
+        engine.frame_features_batched(imgs, ishs, pshs)
+        if state_u is None:
+            state_u = engine.ring_reset_batched(B, D)
+        state_u = engine.ring_push_batched(state_u, fed, reset)
+        want = engine.ring_detect_batched(state_u, ishs, sfs, branch=-1)
+        torch.cuda.synchronize()
+        whole_ms.append(1e3 * (time.perf_counter() - t0))
+        worst = multi_match(np, engine, got, want, worst,
+                            "the replicas' detections against the "
+                            "unsharded ring's")
+    log(f"[multi] lanes ({CARD}): {MULTI_LANE_STEPS} lockstep steps of {B} "
+        f"lanes, the same detections as the unsharded ring fed the "
+        f"replicas' caches (boxes within {worst[0]:.3g} px, limit "
+        f"{MULTI_BOX_TOL:.3g}; scores within {worst[1]:.3g}, limit "
+        f"{MULTI_SCORE_TOL}); kernel launches {launches} over {detections} "
+        f"lockstep detections ({4 * n} = 4 per replica expected); wall ms "
+        f"per step (frame program, push, detect, synchronised) over {n} "
+        f"replicas " + ", ".join(f"{v:.3f}" for v in split_ms)
+        + ", unsharded " + ", ".join(f"{v:.3f}" for v in whole_ms))
+    if launches != 4 * n * detections:
+        raise RuntimeError("[multi] the split lanes did not launch the "
+                           "kernel 4 times per replica and detection")
+    return {f"multi lanes {n} replicas": dict(launches=launches)}
+
+
+def multi_kv(torch, np, engine):
+    """``masked_attention_kv_sharded`` at the T=21 shapes, f32 and bf16,
+    over ``MULTI_SHARDS`` shards (``multi_devices``), against
+    ``attention_plain`` (f32: within 1e-4 and 1e-5 of max; bf16:
+    ``bf16_agreement``'s worst and rms ≤ 1) and the kernel, ms per call
+    beside the kernel's; then one HVRNet window detection with
+    ``enable_kv_sharded_attention`` against the unsharded head, no kernel
+    launch."""
+    from hvrnet_tpu_torch.ops.attention import (NEG_INF, attention_plain,
+                                                bf16_agreement,
+                                                masked_attention,
+                                                masked_attention_kv_sharded)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scale = D ** -0.5
+    cases = []
+    for nq, nk, label in ATTN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(m, D, device="cuda", generator=gen).to(dt)
+                       for m in (nq, nk, nk))
+            live = torch.rand(nk, device="cuda", generator=gen) >= 0.1
+            bias = torch.where(live, 0.0, NEG_INF).float()
+            plain = attention_plain(q, k, v, bias, scale)
+            kernel = masked_attention(q, k, v, bias, scale)
+            kernel_ms = cuda_ms(torch, lambda: masked_attention(
+                q, k, v, bias, scale))
+            for n in MULTI_SHARDS:
+                devices = multi_devices(n)
+                got = masked_attention_kv_sharded(q, k, v, bias, scale,
+                                                  devices)
+                case = dict(label=f"kv-sharded {label}", shards=n, nq=nq,
+                            nk=nk, dtype=str(dt)[6:],
+                            devices=",".join(dict.fromkeys(devices)),
+                            kernel_diff=(got - kernel).abs().max().item())
+                if dt == torch.float32:
+                    err = (got - plain).abs().max().item()
+                    case.update(max_abs_err=err, tol=1e-4,
+                                rel_err=err / plain.abs().max().item(),
+                                rel_tol=1e-5)
+                    ok = err <= 1e-4 and case["rel_err"] <= 1e-5
+                else:
+                    case.update(bf16_agreement(got, q, k, v, bias, scale))
+                    ok = case["worst"] <= 1 and case["rms"] <= 1
+                case.update(
+                    ms=cuda_ms(torch, lambda: masked_attention_kv_sharded(
+                        q, k, v, bias, scale, devices)),
+                    kernel_ms=kernel_ms)
+                log(f"[multi] kv-sharded ({CARD}) " + json.dumps(case))
+                if not (ok and bool(torch.isfinite(got).all())):
+                    raise RuntimeError(f"[multi] the kv-sharded attention "
+                                       f"disagrees: {case}")
+                cases.append(case)
+            del q, k, v, plain, kernel, got
+    torch.cuda.empty_cache()
+
+    frames = list(synthetic_video(np, engine.window, seed=5))
+    feats = [engine.frame_features(f["img"], f["img_shape"], f["pad_shape"])
+             for f in frames]
+    fc1, boxes, masks = (torch.stack([f[k] for f in feats])
+                         for k in ("fc1", "boxes", "mask"))
+    key = frames[engine.key_dim]
+    args = (fc1, boxes, masks, key["img_shape"], key["scale_factor"])
+    base = engine.window_detect(*args)
+    base_ms = cuda_ms(torch, lambda: engine.window_detect(*args))
+    engine.enable_kv_sharded_attention(multi_devices(MULTI_WINDOW_SHARDS))
+    try:
+        masked_attention.launches = 0
+        got = engine.window_detect(*args)
+        launches = masked_attention.launches
+        kv_ms = cuda_ms(torch, lambda: engine.window_detect(*args))
+    finally:
+        engine.enable_kv_sharded_attention(None)
+    worst = [0.0, 0.0]
+    for g, w in zip(got, base):
+        worst = multi_match(np, engine, g, w, worst, "the kv-sharded "
+                            "window's detections against the kernel's")
+    log(f"[multi] kv-sharded HVRNet window ({CARD}): T={engine.window}, "
+        f"{MULTI_WINDOW_SHARDS} shards, both branches' detections as the "
+        f"kernel's (boxes within {worst[0]:.3g} px, limit "
+        f"{MULTI_BOX_TOL:.3g}; scores within {worst[1]:.3g}, limit "
+        f"{MULTI_SCORE_TOL}); {launches} kernel launches; "
+        f"{kv_ms:.3f} ms per detection against the kernel's {base_ms:.3f}")
+    if launches:
+        raise RuntimeError("[multi] the kv-sharded window launched the "
+                           "kernel")
+    return cases, {"multi kv-sharded window": dict(launches=launches)}
+
+
 
 def kernel_summary(cases, runs, runs16):
     """Per-kernel numbers, one entry per precision route of the one kernel:
@@ -6318,7 +6729,7 @@ def route_summary(cases, runs, dtype):
              "run over the [cli] tree, 69 frames, 40 at T=63; train-cli: "
              "tools/train.py's steps and its hook's evaluations; lanes: "
              "4 streams over the [lanes] tree, 104 frames, and the CLI over "
-             "it and over 4 videos of 64 frames, 4 launches per HVRNet "
+             "it and over 4 videos of 32 frames, 4 launches per HVRNet "
              "lockstep detection and 2 per SELSA one, whatever the lane "
              "count; aug: test --aug-test over the [cli] tree, 4 per HVRNet "
              "detection and 2 per SELSA one; multipass: hnl_test --window "
@@ -6335,7 +6746,12 @@ def route_summary(cases, runs, dtype):
              "plugins: Mask R-CNN gcb, Faster R-CNN gen_attention and "
              "Cascade R-CNN HRNet serving, and roi_pool alone, 0: no "
              "relation head; datasets: Faster R-CNN over the COCO and VOC "
-             "trees and one training step, 0: no relation head)",
+             "trees and one training step, 0: no relation head; multi: "
+             "HVRNet training at world 1 over NCCL and on 2 ranks over "
+             "gloo (2 steps each, 9 per step and rank, counted in the "
+             "ranks), 4 lockstep lanes over 2 replicas (4 per replica and "
+             "detection), the kv-sharded window, 0: its shards bypass the "
+             "kernel, as the JAX route bypasses the Pallas one)",
         cases=[c for c in cases if c["dtype"] == dtype])
     if f32:
         entry["cuda_core_bound_ms"] = per_frame(
@@ -6401,7 +6817,7 @@ def main() -> int:
     lap("[dense]")
     deform, _ = phase_deform(torch, np)
     lap("[deform]")
-    del hvr_weights, selsa_weights
+    del selsa_weights
     trunks, trunks16 = phase_trunks(torch, np)
     lap("[trunks]")
     plugins = phase_plugins(torch, np)
@@ -6416,6 +6832,7 @@ def main() -> int:
         torch, np, HNMBRCNN, CONFIG, weights,
         synthetic_train_batch(np), TRAIN_STAGES, "[bf16] train", 9,
         ("shared_head.", "bbox_head."), fp16_step=True)
+    train_weights = {k: v.cpu() for k, v in weights.items()}
     del weights
     cases += train_attention(torch, SELSA_TRAIN_SHAPES, "[selsa-train]")
     cases += train_attention(torch, SELSA_TRAIN_SHAPES, "[selsa-train]",
@@ -6431,12 +6848,16 @@ def main() -> int:
     lap("[train] and [selsa-train]")
     train_cli, _ = phase_train_cli(torch, np)
     lap("[train-cli]")
+    _, multi = phase_multi(torch, np, train_weights, hvr_weights)
+    del train_weights, hvr_weights
+    lap("[multi]")
     runs = {"exact T=21": exact, "stream T=21": stream,
             "stream T=21 in-step repair": repair,
             "forced rollback T=21": forced, "exact T=63": exact63,
             "stream T=63": stream63, "selsa T=21": selsa, "train": train,
             "selsa train": selsa_train, **cli, **train_cli, **lanes, **aug,
             **multipass, "trace": traced, **image, **trunks, **datasets,
+            **multi,
             **{k: v for k, v in {**zoo, **dense, **deform,
                                  **plugins}.items()
                if "bfloat16" not in k}}
@@ -6454,5 +6875,49 @@ def main() -> int:
     return 0
 
 
+def main_cards() -> int:
+    """``python3 chip_smoke.py --cards``: ``[multi]`` alone, its ranks,
+    lane replicas and key shards spread over every visible card (two or
+    more), the ranks joined over NCCL; the same checks as in the one-card
+    run, on the same weights."""
+    if not (ROOT / "hvrnet_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository (no "
+              "hvrnet_tpu_torch package beside it)", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two CUDA cards or more",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from hvrnet_tpu_torch.engine import HNMBRCNN
+    from hvrnet_tpu_torch.utils.config import Config
+    global MULTI_CARDS, MULTI_RANKS, MULTI_BACKENDS, MULTI_REPLICAS
+    global MULTI_WINDOW_SHARDS
+    n = torch.cuda.device_count()
+    MULTI_CARDS, MULTI_RANKS, MULTI_BACKENDS = True, n, ("nccl", "nccl")
+    MULTI_REPLICAS = n if MULTI_LANES % n == 0 else 2
+    MULTI_WINDOW_SHARDS = n
+    start = time.time()
+    kind = phase_device(torch)
+    phase_build()
+    engine = build_engine(torch, np)
+    hvr_weights = host_state_dict(engine)
+    del engine
+    cfg = Config.fromfile(str(CONFIG)).as_dict()
+    engine = calibrated_training_engine(torch, HNMBRCNN, cfg,
+                                        synthetic_train_batch(np), "[multi]")
+    train_weights = host_state_dict(engine)
+    del engine
+    torch.cuda.empty_cache()
+    phase_multi(torch, np, train_weights, hvr_weights)
+    log(f"[time] {time.time() - start:.1f} s in, after [multi] over {n} "
+        f"cards")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": n}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_cards() if sys.argv[1:] == ["--cards"] else main())

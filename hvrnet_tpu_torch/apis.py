@@ -60,7 +60,7 @@ from .engine.multi_stage import MultiStageEngine
 from .engine.single_stage import (FCOS, FOVEA, RepPointsDetector,
                                   RetinaNet, SingleStageDetector,
                                   SingleStageEngine)
-from .engine.stream import train_batch_iterator
+from .engine.stream import planned_batches, train_batch_iterator
 from .engine.train import (FasterRCNNTrainer, HNMBTrainer, SelsaTrainer,
                            still_image)
 from .engine.train_fcos import FCOSTrainer, FoveaTrainer
@@ -70,6 +70,7 @@ from .engine.train_single_stage import (FreeAnchorTrainer, RetinaTrainer,
                                         SSDTrainer)
 from .engine.train_two_stage import TwoStageTrainer
 from .models.registry import DETECTORS
+from .parallel.mesh import broadcast_, world_and_rank
 from .utils.checkpoint import (load_checkpoint, resolve_checkpoint,
                                save_checkpoint)
 from .utils.config import Config, unwrap
@@ -143,6 +144,27 @@ def _phase(timer, name: str):
         contextlib.nullcontext()
 
 
+def trainer_class(engine):
+    """The trainer of an engine's type (``train_detector``'s choice)."""
+    if isinstance(engine, HNMBRCNN):
+        return HNMBTrainer
+    if isinstance(engine, SelsaRCNN):
+        return SelsaTrainer
+    if isinstance(engine, FasterRCNN):
+        return FasterRCNNTrainer
+    if isinstance(engine, MultiStageEngine):
+        return TwoStageTrainer
+    if isinstance(engine, (RetinaNet, SingleStageDetector, FCOS, FOVEA,
+                           RepPointsDetector)):
+        return {"FCOSHead": FCOSTrainer, "FoveaHead": FoveaTrainer,
+                "FreeAnchorRetinaHead": FreeAnchorTrainer,
+                "SSDHead": SSDTrainer, "RepPointsHead": RepPointsTrainer,
+                "GARetinaHead": GATrainer}.get(engine.head_type,
+                                               RetinaTrainer)
+    raise ValueError(f"no training objective registered for detector "
+                     f"type {type(engine).__name__!r}")
+
+
 def train_detector(engine, data, cfg: Dict[str, Any],
                    work_dir: str = "work_dir",
                    total_epochs: Optional[int] = None,
@@ -151,11 +173,21 @@ def train_detector(engine, data, cfg: Dict[str, Any],
                    load_from: Optional[str] = None, log_interval: int = 50,
                    seed: int = 0, calibrate_bn: bool = False, eval_hook=None,
                    timer=None):
-    """Epoch loop: ``steps_per_epoch`` steps (default ``len(data)``) per
-    epoch, logs every ``log_interval`` steps to ``train_log.jsonl``, a
-    checkpoint ``epoch_<n>.pth`` and ``latest.pth`` after each epoch (and
-    ``latest.pth`` every ``checkpoint_config.iter_interval`` steps), then
-    ``eval_hook(engine, epoch)`` when given (``engine/eval_hook.py``).
+    """Epoch loop: ``steps_per_epoch`` steps (default ``len(data)`` over
+    the world size, at least 1) per epoch, logs every ``log_interval``
+    steps to ``train_log.jsonl``, a checkpoint ``epoch_<n>.pth`` and
+    ``latest.pth`` after each epoch (and ``latest.pth`` every
+    ``checkpoint_config.iter_interval`` steps), then ``eval_hook(engine,
+    epoch)`` when given (``engine/eval_hook.py``).
+
+    In a default process group of several ranks (``parallel/mesh.py``:
+    one process per card, the counterpart of the JAX loop over an n-device
+    mesh), step s takes items s·n … s·n + n − 1 of the sample order, rank r
+    item s·n + r, and the trainer averages the gradients over the ranks
+    (``engine/train.py``).  Every rank reads ``load_from`` and
+    ``resume_from``; rank 0 alone calibrates the frozen BNs, whose
+    statistics and weights every rank then takes from it, and alone writes
+    the checkpoints (with every rank's sampler state) and the log.
 
     ``engine``: a training engine (``build_detector`` with a
     ``train_cfg``), float32 or bfloat16.
@@ -171,41 +203,30 @@ def train_detector(engine, data, cfg: Dict[str, Any],
     stand-in for pretrained statistics when the weights are random.
     ``timer``: an object whose ``phase(name)`` context wraps the wait for
     each sample ("data") and each stage of a step.  Returns the trainer."""
-    if isinstance(engine, HNMBRCNN):
-        trainer_cls = HNMBTrainer
-    elif isinstance(engine, SelsaRCNN):
-        trainer_cls = SelsaTrainer
-    elif isinstance(engine, FasterRCNN):
-        trainer_cls = FasterRCNNTrainer
-    elif isinstance(engine, MultiStageEngine):
-        trainer_cls = TwoStageTrainer
-    elif isinstance(engine, (RetinaNet, SingleStageDetector, FCOS, FOVEA,
-                             RepPointsDetector)):
-        trainer_cls = {"FCOSHead": FCOSTrainer, "FoveaHead": FoveaTrainer,
-                       "FreeAnchorRetinaHead": FreeAnchorTrainer,
-                       "SSDHead": SSDTrainer,
-                       "RepPointsHead": RepPointsTrainer,
-                       "GARetinaHead": GATrainer}.get(engine.head_type,
-                                                      RetinaTrainer)
-    else:
-        raise ValueError(f"no training objective registered for detector "
-                         f"type {type(engine).__name__!r}")
+    trainer_cls = trainer_class(engine)
     os.makedirs(work_dir, exist_ok=True)
-    steps_per_epoch = steps_per_epoch or max(len(data), 1)
+    world, rank = world_and_rank()
+    steps_per_epoch = steps_per_epoch or max(len(data) // world, 1)
     trainer = trainer_cls(engine, cfg, steps_per_epoch, seed)
     trainer.timer = timer
     load_params_for_engine(engine, load_from)
     from_dataset = hasattr(data, "plan")
+    probe = None
     if from_dataset:
-        probe = (next(train_batch_iterator(data, canvas_hw, seed=seed))
-                 if calibrate_bn else None)
-        stream = train_batch_iterator(data, canvas_hw, seed=seed)
+        if calibrate_bn:
+            # every rank plans the probe's draws; rank 0 decodes it
+            probe = next(train_batch_iterator(data, canvas_hw, seed=seed)
+                         if rank == 0 else
+                         planned_batches(data, canvas_hw, seed=seed))
+        stream = train_batch_iterator(data, canvas_hw, seed=seed,
+                                      world=world, rank=rank)
     else:
         stream = _endless(data)
-        probe = next(stream) if calibrate_bn else None
         if calibrate_bn:
+            probe = next(stream)
             stream = itertools.chain([probe], stream)
-    if calibrate_bn:
+        stream = itertools.islice(stream, rank, None, world)
+    if calibrate_bn and rank == 0:
         if "imgs" not in probe:              # one still image
             one = still_image(probe)
             probe = dict(imgs=one["imgs"], img_shape=[one["img_shape"]])
@@ -215,7 +236,11 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         n_bn = calibrate_frozen_bn(engine, frames)
         logger.info("FrozenBN calibration: %d BNs from %d frames", n_bn,
                     len(frames))
-        del probe, frames
+        del frames
+    del probe
+    if world > 1:
+        broadcast_(list(engine.model.parameters())
+                   + list(engine.model.buffers()))
     start_epoch = 0
     if resume_from:
         resume_from = resolve_checkpoint(resume_from)
@@ -223,8 +248,16 @@ def train_detector(engine, data, cfg: Dict[str, Any],
         engine.model.load_state_dict(state["state_dict"])
         trainer.optimizer.load_state_dict(state["optimizer"])
         trainer.step = int(state["step"])
-        if state.get("rng") is not None:
-            trainer.generator.set_state(state["rng"])
+        rng = state.get("rng")
+        if isinstance(rng, list):
+            if len(rng) != world:
+                raise ValueError(f"{resume_from} holds the sampler states "
+                                 f"of {len(rng)} ranks, not {world}")
+            rng = rng[rank]
+        elif rank != 0:
+            rng = None       # one process's state: rank 0's
+        if rng is not None:
+            trainer.generator.set_state(rng)
         scale = state["meta"].get("loss_scale")
         if trainer.loss_scale is not None and scale is not None:
             trainer.scale_state = LossScaleState(
@@ -241,12 +274,18 @@ def train_detector(engine, data, cfg: Dict[str, Any],
     log_path = os.path.join(work_dir, "train_log.jsonl")
 
     def save(name, **meta):
+        rng = trainer.generator.get_state()
+        if world > 1:           # a collective: every rank takes part
+            states = [None] * world
+            torch.distributed.all_gather_object(states, rng)
+            rng = states
+        if rank != 0:
+            return
         if trainer.scale_state is not None:
             meta["loss_scale"] = [float(trainer.scale_state.scale),
                                   int(trainer.scale_state.good_steps)]
         save_checkpoint(os.path.join(work_dir, name), engine.model,
-                        trainer.optimizer, trainer.step, meta,
-                        trainer.generator)
+                        trainer.optimizer, trainer.step, meta, rng)
 
     for epoch in range(start_epoch, total_epochs):
         t0 = time.time()
@@ -255,7 +294,7 @@ def train_detector(engine, data, cfg: Dict[str, Any],
                 sample = next(stream)
             logs = trainer.train_step(sample)
             del sample
-            if it % log_interval == 0:
+            if it % log_interval == 0 and rank == 0:
                 logs_f = {k: float(v) for k, v in logs.items()}
                 logs_f.update(epoch=epoch, iter=it, time=time.time() - t0)
                 logger.info("epoch %d iter %d: %s", epoch, it, logs_f)

@@ -62,6 +62,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <atomic>
 #include <stdint.h>
 #include <stdio.h>
 
@@ -605,9 +606,22 @@ int make_map(CUtensorMap* map, bool f32, const void* ptr, int inner, int rows,
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// cudaFuncSetAttribute raises the dynamic shared-memory limit of a kernel on
+// the current device only, so each device's first launch of a kernel sets it
+// there; done[dev] records it (a device past MAX_DEVICES sets it every call).
 template <typename Kernel>
-int prepare(Kernel kernel, int smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int prepare(Kernel kernel, int smem, std::atomic<int>* done) {
+  int dev = 0;
+  const int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const bool known = dev < MAX_DEVICES;
+  if (known && done[dev].load(std::memory_order_acquire)) return 0;
+  const int set =
+      (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!set && known) done[dev].store(1, std::memory_order_release);
+  return set;
 }
 
 int blocks_for(size_t n, int threads) {
@@ -689,7 +703,8 @@ int launch_logits(const void* q, const void* k, const float* bias, const Layout&
   if (!err) err = make_map(&kb, F32, F32 ? w.k_lo : k, d, nk, row, lanes, Tile::N);
   if (err) return err;
   constexpr int smem = smem_bytes<Tile::STAGES, Tile::STAGE_BYTES>();
-  static const int prepared = prepare(logits_kernel<F32, WIDE>, smem);
+  static std::atomic<int> done[MAX_DEVICES];
+  const int prepared = prepare(logits_kernel<F32, WIDE>, smem, done);
   if (prepared) return prepared;
   const int tiles_m = (nq + Tile::M - 1) / Tile::M, tiles_n = (nk + Tile::N - 1) / Tile::N;
   logits_kernel<F32, WIDE><<<dim3(tiles_m * tiles_n, lanes), THREADS, smem, stream>>>(
@@ -730,7 +745,8 @@ int output(const Layout& w, float* out, int lanes, int nq, int nk, int d, int ns
   if (!err) err = make_map(&vb, F32, F32 ? w.vt_b : w.vt_a, nk, d, row, lanes);
   if (err) return err;
   constexpr int smem = smem_bytes<OUTPUT_STAGES, 3 * TILE>();
-  static const int prepared = prepare(output_kernel<F32>, smem);
+  static std::atomic<int> done[MAX_DEVICES];
+  const int prepared = prepare(output_kernel<F32>, smem, done);
   if (prepared) return prepared;
   const int tiles_m = (nq + BM - 1) / BM, tiles_n = (d + BN - 1) / BN;
   output_kernel<F32><<<dim3(tiles_m * tiles_n, nsplit, lanes), THREADS, smem, stream>>>(

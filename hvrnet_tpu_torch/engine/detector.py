@@ -35,6 +35,13 @@ A lanes, and their decodes are mapped back, averaged and NMSed once.
 ``HNMBRCNN.multi_pass`` P runs the head's multi-pass test graph on the
 exact ring (P passes as P lanes of NL1 and NL2).
 
+Two scale-outs (``hvrnet_tpu/engine/detector.py:231-285``):
+``enable_spmd_lanes(devices)`` splits the lanes of the batched frame
+program, ring push and ring detect over one replica of the engine per
+device (``parallel/lanes.py``); ``enable_kv_sharded_attention(devices)``
+splits the keys of every relation block of the head over the devices
+(``ops/attention.py:masked_attention_kv_sharded``).
+
 ``dtype`` is the engine's compute dtype (``core/precision.py``): float32,
 or bfloat16 with float32 parameters, as ``bench.py`` serves.  In bf16 the
 ring's row caches are bf16; boxes, scores, the streaming accumulators, the
@@ -43,7 +50,8 @@ softmaxes and the decode stay float32.  TF32 stays off either way.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+import copy
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +65,7 @@ from ..models.registry import DETECTORS
 from ..ops.boxes import bbox_mapping, delta2bbox
 from ..ops.nms import (multiclass_nms_static, multiclass_nms_static_lanes,
                        nms_static_lanes)
+from ..parallel.lanes import LaneShards, gather_lanes, lane_slices, on_replicas
 from ..utils.config import unwrap
 from .canvas import Canvas
 
@@ -69,6 +78,15 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
 
 
 @contextlib.contextmanager
@@ -178,6 +196,11 @@ def aug_metas(img_shapes, scale_factors, flips):
             for ish, sf, flip in zip(img_shapes, scale_factors, flips)]
 
 
+# what a lane replica keeps of its own; it takes every other attribute
+# from its engine at each call
+_REPLICA_OWN = ("model", "device", "_canvases", "lane_replicas")
+
+
 class BaseEngine:
     """Model construction, weights and the per-frame program.
 
@@ -265,6 +288,66 @@ class BaseEngine:
                     if p.dtype == torch.float32 and p.ndim >= 2:
                         p.data = p.data.to(torch.bfloat16)
 
+    # ------------------------------------------------------ scale-outs
+    #: the replicas the lockstep lanes split over (``enable_spmd_lanes``)
+    lane_replicas = None
+
+    def enable_spmd_lanes(self, devices: Optional[Sequence]) -> None:
+        """Split the lockstep lanes (``frame_features_batched``,
+        ``ring_reset_batched``, ``ring_push_batched``,
+        ``ring_detect_batched``) over ``devices``, one replica of this
+        engine per device, replica i on lanes i·B/n … (i+1)·B/n − 1: B
+        must divide by the device count.  A replica on the engine's own device
+        shares its weights; one on another device takes a copy of them
+        now, so load the weights first.  Every other attribute (window, key
+        frame, normalisation, …) the replicas take from the engine at each
+        call.  None ends the split."""
+        if devices is None:
+            self.lane_replicas = None
+            return
+        replicas = []
+        for dev in devices:
+            dev = resolve_device(dev)
+            rep = copy.copy(self)
+            rep.lane_replicas = None
+            rep.device = dev
+            rep._canvases = {}
+            if not same_device(dev, self.device):
+                rep.model = copy.deepcopy(self.model).to(dev)
+            replicas.append(rep)
+        self.lane_replicas = replicas
+
+    def enable_kv_sharded_attention(self, devices: Optional[Sequence]
+                                    ) -> None:
+        """Split the keys of every relation block of the head over
+        ``devices`` (sequence parallelism for windows beyond one card:
+        ``ops/attention.py:masked_attention_kv_sharded``, keys padded to a
+        multiple of the device count with −1e30 biases); the weights stay
+        as they are.  None returns to one device."""
+        from ..models.bbox_heads.selsa_bbox_head import SelsaAttention
+        kv = None if devices is None else [resolve_device(d)
+                                           for d in devices]
+        for m in self.model.bbox_head.modules():
+            if isinstance(m, SelsaAttention):
+                m.kv_devices = kv
+
+    def _on_lanes(self, batch: int, call):
+        """``call(i, replica, lanes)`` for each replica i and its slice of
+        the ``batch`` lanes, all queued before any is waited on, each
+        with its replica's card current; under ``f32_precision`` here, so
+        that no replica's thread restores the TF32 flags while another
+        computes."""
+        slices = lane_slices(batch, len(self.lane_replicas))
+        for rep in self.lane_replicas:      # window, key frame, norm, …
+            rep.__dict__.update({k: v for k, v in self.__dict__.items()
+                                 if k not in _REPLICA_OWN})
+        with f32_precision():
+            return on_replicas(
+                [(lambda i=i, rep=rep, sl=sl: call(i, rep, sl))
+                 for i, (rep, sl) in enumerate(zip(self.lane_replicas,
+                                                   slices))],
+                [rep.device for rep in self.lane_replicas])
+
     def _canvas(self, h: int, w: int) -> Canvas:
         key = (h, w)
         if key not in self._canvases:
@@ -328,7 +411,15 @@ class BaseEngine:
         """imgs: (B, H, W, 3), one canvas-padded frame from each of B video
         streams (normalised float32 or raw uint8); img_shapes, pad_shapes
         (B, 2).  Returns the frames' window caches with a leading lane
-        axis: fc1 (B, P, D), boxes (B, P, 4), scores (B, P), mask (B, P)."""
+        axis: fc1 (B, P, D), boxes (B, P, 4), scores (B, P), mask (B, P);
+        with ``enable_spmd_lanes``, the replicas' pieces of it
+        (``LaneShards``)."""
+        if self.lane_replicas:
+            ishs = np.asarray(img_shapes, np.float32)
+            pshs = np.asarray(pad_shapes, np.float32)
+            return LaneShards(self._on_lanes(
+                len(ishs), lambda i, rep, sl: rep.frame_features_batched(
+                    imgs[sl], ishs[sl], pshs[sl])))
         c5, cls_map, reg_map = self.backbone_maps(imgs, img_shapes)
         return self.frame_post_batched(c5, cls_map, reg_map, img_shapes,
                                        pad_shapes)
@@ -463,6 +554,10 @@ class _RingMixin:
     # a streaming one included, as in the JAX package.
 
     def ring_reset_batched(self, batch: int, fc1_dim: int) -> Dict[str, Any]:
+        if self.lane_replicas:
+            return LaneShards(self._on_lanes(
+                batch, lambda i, rep, sl: rep.ring_reset_batched(
+                    sl.stop - sl.start, fc1_dim)))
         T, P = self.window, self.proposal_num
         dev = self.device
         return dict(fc1=torch.zeros((batch, T, P, fc1_dim), dtype=self.dtype,
@@ -477,8 +572,19 @@ class _RingMixin:
         """Write each lane's frame caches (``feats`` with a leading lane
         axis) over its oldest slot, in place; ``reset`` (B,) bool instead
         fills that lane's whole ring with its frame (a video's front
-        padding in one push)."""
+        padding in one push).  With ``enable_spmd_lanes`` the state is the
+        replicas' (``LaneShards``), and so are ``feats`` or they are split
+        here."""
         reset = np.asarray(reset, bool)
+        if self.lane_replicas:
+            if not isinstance(feats, LaneShards):
+                feats = LaneShards(
+                    {k: v[sl] for k, v in feats.items()}
+                    for sl in lane_slices(len(reset), len(state)))
+            return LaneShards(self._on_lanes(
+                len(reset), lambda i, rep, sl: rep.ring_push_batched(
+                    state[i], {k: torch.as_tensor(v).to(rep.device)
+                               for k, v in feats[i].items()}, reset[sl])))
         pos = np.where(reset, 0, (state["pos"] + 1) % self.window)
         dev = self.device
         lanes = torch.arange(len(pos), device=dev)
@@ -496,7 +602,16 @@ class _RingMixin:
                             branch=None):
         """Every lane's window centre from its own ring, oldest frame first
         (each lane rolled by its own position): ``window_detect_batched``
-        on (B, T, …) stacks."""
+        on (B, T, …) stacks.  With ``enable_spmd_lanes`` each replica
+        detects its lanes and the outputs come back in lane order on the
+        engine's device."""
+        if self.lane_replicas:
+            ishs = np.asarray(img_shapes, np.float32)
+            sfs = np.asarray(scale_factors, np.float32)
+            outs = self._on_lanes(len(ishs), lambda i, rep, sl:
+                                  rep.ring_detect_batched(
+                                      state[i], ishs[sl], sfs[sl], branch))
+            return gather_lanes(outs, self.device)
         T = self.window
         order = (np.arange(T)[None] + state["pos"][:, None] + 1) % T
         dev = self.device

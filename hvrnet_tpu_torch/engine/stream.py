@@ -24,7 +24,7 @@ import contextlib
 import queue
 import threading
 from collections import deque
-from typing import Dict, Iterable, Iterator, Sequence
+from typing import Dict, Iterable, Iterator, List, Sequence
 
 import numpy as np
 import torch
@@ -214,11 +214,10 @@ def collate_train(frames: Sequence[Dict], canvas_hw, gt_max: int = 32
     2).  A frame larger than the canvas raises ``FrameTooLarge``."""
     F = len(frames)
     ch, cw = canvas_hw
-    for fr in frames:           # before decoding any planned image
-        h, w = fr["img"].shape[:2]
-        if h > ch or w > cw:
-            raise FrameTooLarge(f"a {h}x{w} frame does not fit the "
-                                f"{ch}x{cw} canvas")
+    too_large = oversized(frames, canvas_hw)   # before decoding any image
+    if too_large:
+        raise FrameTooLarge(f"a {too_large[0]}x{too_large[1]} frame does "
+                            f"not fit the {ch}x{cw} canvas")
     imgs = np.zeros((F, ch, cw, 3), np.float32)
     gt_bboxes = np.zeros((F, gt_max, 4), np.float32)
     gt_labels = np.zeros((F, gt_max), np.int64)
@@ -241,27 +240,51 @@ def collate_train(frames: Sequence[Dict], canvas_hw, gt_max: int = 32
                 gt_mask=gt_mask, img_shape=img_shape, pad_shape=pad_shape)
 
 
-def train_batch_iterator(dataset, canvas_hw=(608, 1008), gt_max: int = 32,
-                         shuffle: bool = True, seed: int = 0
-                         ) -> Iterator[Dict]:
-    """Training samples, one dataset item each, endlessly: the order from
-    ``np.random.default_rng(seed)`` reshuffled each pass.  An item with a
-    frame that does not fit the canvas (a portrait video or crop in a
-    landscape run) is skipped, its draws consumed; items are planned
-    (``dataset.plan``) and only the kept ones decoded.  A sample equals
-    the JAX iterator's batch ``[0]`` at batch size 1."""
+def oversized(frames: Sequence[Dict], canvas_hw):
+    """(h, w) of the first frame (decoded or planned) larger than the
+    canvas, or None."""
+    ch, cw = canvas_hw
+    for fr in frames:
+        h, w = fr["img"].shape[:2]
+        if h > ch or w > cw:
+            return h, w
+    return None
+
+
+def planned_batches(dataset, canvas_hw=(608, 1008), batch_size: int = 1,
+                    shuffle: bool = True, seed: int = 0
+                    ) -> Iterator[List]:
+    """The JAX ``train_batch_iterator(batch_size=n)``'s batches, planned
+    (``dataset.plan``) and not decoded: lists of ``batch_size`` items, the
+    order from ``np.random.default_rng(seed)`` reshuffled each pass, an
+    item with a frame larger than the canvas skipped (its draws consumed)
+    and the last items of a pass that do not fill a batch dropped."""
     order = np.arange(len(dataset))
     rng = np.random.default_rng(seed)
     while True:
         if shuffle:
             rng.shuffle(order)
+        batch = []
         for idx in order:
             frames = dataset.plan(int(idx))
-            try:
-                sample = collate_train(frames, canvas_hw, gt_max)
-            except FrameTooLarge:
+            if oversized(frames, canvas_hw):
                 continue
-            yield sample
+            batch.append(frames)
+            if len(batch) == batch_size:
+                yield batch
+                batch = []
+
+
+def train_batch_iterator(dataset, canvas_hw=(608, 1008), gt_max: int = 32,
+                         shuffle: bool = True, seed: int = 0,
+                         world: int = 1, rank: int = 0) -> Iterator[Dict]:
+    """Training samples, one dataset item each, endlessly: step s of a
+    ``world``-rank run takes the s-th batch of ``world`` items of
+    ``planned_batches`` and rank ``rank`` decodes its item alone (every
+    rank plans every draw, so the draws stay in the JAX order).  A sample
+    equals the JAX iterator's batch ``[rank]`` at batch size ``world``."""
+    for items in planned_batches(dataset, canvas_hw, world, shuffle, seed):
+        yield collate_train(items[rank], canvas_hw, gt_max)
 
 
 def _phase(timer, name):

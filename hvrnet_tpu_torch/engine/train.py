@@ -45,6 +45,21 @@ weights and the momentum untouched and still advances
 
 The samplers' noise comes from the trainer's ``torch.Generator`` unless
 the caller hands it in (the tests hand both packages the same noise).
+
+Data parallel (``hvrnet_tpu/engine/train.py:166-192``): in a default
+process group of more than one rank (``parallel/mesh.py``), each rank runs
+one sample through the loss and its backward, then every rank's gradients,
+its loss and each of its logs are replaced by their mean over the ranks
+(an all-reduce sum over one flat buffer, divided by the world size: the
+JAX step's ``pmean``), and the clip, the loss scale's finiteness check and
+the SGD step follow as on one device, on the same bits on every rank, so
+the parameters stay equal across ranks.  Only the trainable parameters
+take a gradient and go into the reduction.  At world 1 the step is the
+one-device step.  Rank r's sampler generator is seeded with
+``parallel.mesh.rank_seed(seed, r)`` = seed + r·2³² (rank 0 draws what one
+process draws; the JAX loop splits its key into one per device).  The
+single-stage trainers train on one image per step and refuse a world
+above 1 (``DenseTrainer``).
 """
 from __future__ import annotations
 
@@ -61,6 +76,7 @@ from ..core.targets import (anchor_target_single, ohem_weights,
                             random_sample_and_target)
 from ..models.anchor_heads.rpn_head import rpn_flat_logits_deltas
 from ..models.losses import accuracy, smooth_l1, softmax_cross_entropy
+from ..parallel.mesh import all_reduce_mean_, rank_seed, world_and_rank
 from .detector import _rpn_proposals, f32_precision
 from .optim import (clip_grad_global_norm_, default_trainable_mask,
                     make_optimizer, step_lr_schedule)
@@ -68,10 +84,12 @@ from .optim import (clip_grad_global_norm_, default_trainable_mask,
 
 class BaseTrainer:
     """The optimizer side: trainable mask, schedule, loss scale, clip, SGD
-    step."""
+    step; the data-parallel mean of the gradients in a process group."""
 
     freeze_backbone = False
     freeze_rpn = False
+    #: runs the data-parallel step in a process group of several ranks
+    data_parallel = True
     # the optimizer and schedule of a config without those keys
     default_optimizer = dict(lr=2.5e-4, momentum=0.9, weight_decay=1e-4)
     default_lr_config = dict(step=[12], warmup_iters=500,
@@ -80,6 +98,12 @@ class BaseTrainer:
     def __init__(self, engine, cfg, steps_per_epoch: int = 1000,
                  seed: int = 0):
         self.engine = engine
+        self.world, self.rank = world_and_rank()
+        if self.world > 1 and not self.data_parallel:
+            raise ValueError(
+                f"{type(self).__name__} does not train data-parallel (world "
+                f"{self.world}): the JAX single-stage trainers train on "
+                f"sample 0 of each n-device batch and drop the other n - 1")
         opt = cfg.get("optimizer") or self.default_optimizer
         lrc = cfg.get("lr_config") or self.default_lr_config
         clip = ((cfg.get("optimizer_config") or {}).get("grad_clip")
@@ -116,7 +140,7 @@ class BaseTrainer:
         self.loss_beta = float((bh.get("loss_bbox") or {}).get("beta", 1.0))
         self.step = 0
         self.generator = torch.Generator(device=engine.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(rank_seed(seed, self.rank))
         # ``timer.phase(name)`` context manager around each stage of a step
         self.timer = None
 
@@ -150,8 +174,23 @@ class BaseTrainer:
 
     def train_step(self, sample: Dict[str, Any],
                    noise=None) -> Dict[str, Any]:
-        """One step on a ``collate_train`` sample; returns the logs (device
-        scalars, and ``lr`` the step's learning rate)."""
+        """One step on a ``collate_train`` sample (this rank's, in a
+        process group); returns the logs (device scalars, and ``lr`` the
+        step's learning rate), averaged over the ranks."""
+        with f32_precision():
+            loss, logs = self.forward_backward(sample, noise)
+            if self.world > 1:
+                with self._phase("reduce"):
+                    loss, logs = self.reduce(loss, logs)
+            with self._phase("optimizer"):
+                update_logs = self.apply_update()
+        logs.update(loss=loss, **update_logs)
+        return logs
+
+    def forward_backward(self, sample: Dict[str, Any], noise=None):
+        """The sample's loss and its backward, which leaves the gradients
+        in the trainable parameters' ``.grad`` (of the scaled loss under a
+        loss scale): (loss, logs), detached."""
         with f32_precision():
             with self._phase("backbone"):
                 c4 = self.backbone(sample)
@@ -161,11 +200,29 @@ class BaseTrainer:
                 scaled = (loss if self.loss_scale is None else
                           self.loss_scale.scale_loss(loss, self.scale_state))
                 scaled.backward()
-            with self._phase("optimizer"):
-                update_logs = self.apply_update()
-        logs = {k: v.detach() for k, v in logs.items()}
-        logs.update(loss=loss.detach(), **update_logs)
-        return logs
+        return loss.detach(), {k: v.detach() for k, v in logs.items()}
+
+    def reduce(self, loss: torch.Tensor, logs: Dict[str, Any]):
+        """The data-parallel mean: each trainable parameter's gradient, the
+        loss and every tensor of the logs replaced by their mean over the
+        ranks (one all-reduce).  A parameter without a gradient on any rank
+        keeps none, as on one device; one with a gradient on some ranks
+        averages zeros for the others.  Returns (loss, logs)."""
+        dev = self.engine.device
+        have = torch.tensor([float(p.grad is not None) for p in self.params],
+                            device=dev)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        keys = [k for k, v in logs.items() if torch.is_tensor(v)]
+        scalars = torch.stack([loss.float()]
+                              + [logs[k].float() for k in keys])
+        all_reduce_mean_([p.grad for p in self.params] + [have, scalars])
+        for p, h in zip(self.params, have.tolist()):
+            if h == 0.0:
+                p.grad = None
+        logs = dict(logs, **{k: scalars[i + 1] for i, k in enumerate(keys)})
+        return scalars[0], logs
 
     def backbone(self, sample: Dict[str, Any]) -> torch.Tensor:
         """C4 (F, 1024, H/16, W/16) of the sample's (F, H, W, 3)

@@ -45,6 +45,9 @@ class DenseTrainer(BaseTrainer):
     """A single-stage engine's step: ``losses(outs, gt, sample)`` of the
     head's outputs is the objective."""
 
+    # the JAX dense trainers ignore the mesh and train on sample 0 of each
+    # n-device batch, so in a process group of several ranks these refuse
+    data_parallel = False
     default_optimizer = dict(lr=0.01, momentum=0.9, weight_decay=1e-4)
     default_lr_config = dict(step=[8, 11], warmup_iters=500,
                              warmup_ratio=1.0 / 3)

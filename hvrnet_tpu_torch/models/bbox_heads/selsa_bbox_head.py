@@ -33,13 +33,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.precision import widen
-from ...ops.attention import NEG_INF, masked_attention
+from ...ops.attention import (NEG_INF, masked_attention,
+                              masked_attention_kv_sharded, pad_keys)
 from ..layers import Conv2d, Linear, conv1x1_as_linear
 from ..registry import HEADS
 from .bbox_head import flatten_roi_feats
 
 
 class SelsaAttention(nn.Module):
+    """``kv_devices``, a device list (``enable_kv_sharded_attention``),
+    splits the block's keys over those devices
+    (``masked_attention_kv_sharded``, the keys padded to a multiple of the
+    device count with −1e30 biases); None keeps the kernel."""
+
+    kv_devices = None
 
     def __init__(self, index: int, dim=(1024, 1024, 1024),
                  fc_feat_dim: int = 1024, dtype: torch.dtype = torch.float32):
@@ -91,7 +98,12 @@ class SelsaAttention(nn.Module):
                                device=k.device)
         else:
             bias = torch.where(key_mask, 0.0, NEG_INF).float()
-        out = masked_attention(q, k, v, bias, self.scale)
+        if self.kv_devices:
+            out = masked_attention_kv_sharded(
+                q, *pad_keys(k, v, bias, len(self.kv_devices)), self.scale,
+                self.kv_devices)
+        else:
+            out = masked_attention(q, k, v, bias, self.scale)
         return self.out_proj(out.to(roi_feat.dtype))
 
 

@@ -23,11 +23,17 @@ keep float64 inputs in float64, for gradient checks.)
 forward is the kernel (or the plain version on the CPU) and whose backward
 is ``attention_backward_plain``, the dense recompute of the JAX package's
 ``custom_vjp`` backward ``_bwd`` (which is XLA, not a Pallas kernel).
+
+``masked_attention_kv_sharded`` splits the keys over several devices
+(sequence parallelism for windows beyond one card); its shard body is plain
+PyTorch, as the JAX one is XLA, and launches no kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from typing import Sequence
 
 import torch
 
@@ -149,6 +155,62 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 masked_attention.launches = 0
+# lane replicas launch from several host threads (parallel/lanes.py)
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def pad_keys(k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, n: int):
+    """K, V and the bias padded along the key axis to a multiple of ``n``:
+    zero keys and values with a −1e30 bias, which no softmax weight
+    reaches (the JAX head's padding before ``masked_attention_kv_sharded``)."""
+    pad = (-k.shape[-2]) % n
+    if not pad:
+        return k, v, bias
+    zeros = k.new_zeros(k.shape[:-2] + (pad, k.shape[-1]))
+    return (torch.cat([k, zeros], dim=-2), torch.cat([v, zeros], dim=-2),
+            torch.cat([bias, bias.new_full(bias.shape[:-1] + (pad,),
+                                           NEG_INF)], dim=-1))
+
+
+def masked_attention_kv_sharded(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, bias: torch.Tensor,
+                                scale: float, devices: Sequence
+                                ) -> torch.Tensor:
+    """``attention_plain`` with K, V and the bias split along the key axis
+    into ``len(devices)`` equal shards, shard i on ``devices[i]`` (a device
+    may repeat) and q on each (counterpart of
+    ``hvrnet_tpu/ops/attention.py:masked_attention_kv_sharded``): each
+    shard's scaled float32 logits and their row max; the row max of those
+    (the ``pmax``); each shard's ``exp(logits − max)``, its row sum and its
+    product with v, the weights cast to v's dtype first (the JAX
+    ``p.astype(v.dtype)``); the sums added on q's device (the ``psum``) and
+    divided.  No device holds more than its shard's (nq, nk / n) logits.
+    The key count must divide by the shard count (``pad_keys``).  q (nq, d)
+    or (B, nq, d), k and v (…, nk, d), bias (…, nk) → float32 (float64 for
+    float64 inputs) on q's device."""
+    n = len(devices)
+    nk = k.shape[-2]
+    if nk % n:
+        raise ValueError(f"{nk} keys do not split into {n} shards: pad "
+                         f"them (pad_keys)")
+    per = nk // n
+    f = _acc_dtype(q)
+    home = q.device
+    shards = []
+    for i, dev in enumerate(devices):
+        keys = slice(i * per, (i + 1) * per)
+        kd = k[..., keys, :].to(dev)
+        aff = ((q.to(dev).to(f) @ kd.to(f).transpose(-1, -2)) * scale
+               + bias[..., keys].to(dev).to(f)[..., None, :])
+        shards.append((aff, v[..., keys, :].to(dev)))
+    m = torch.stack([aff.amax(dim=-1, keepdim=True).to(home)
+                     for aff, _ in shards]).amax(dim=0)
+    num = den = 0
+    for aff, vd in shards:
+        p = torch.exp(aff - m.to(aff.device))
+        num = num + (p.to(vd.dtype).to(f) @ vd.to(f)).to(home)
+        den = den + p.sum(dim=-1, keepdim=True).to(home)
+    return num / den
 
 
 _MAX_LANES = 64          # the kernel's lane grid axis (gridDim.z)
@@ -222,9 +284,10 @@ PHASES = ("pre-split", "pass 1", "statistics", "pass 2", "combine")
 
 class _Call:
     """One kernel call's arguments and workspace: ``run(first, last)``
-    launches phases ``PHASES[first..last]`` on the current stream.  Lanes
-    multiply the output tiles the split is chosen for and every scratch
-    buffer; a 2-D call is one lane."""
+    launches phases ``PHASES[first..last]`` on the inputs' device (made
+    current for the launch, whatever the calling thread's current device)
+    and its current stream.  Lanes multiply the output tiles the split is
+    chosen for and every scratch buffer; a 2-D call is one lane."""
 
     def __init__(self, q, k, v, bias, scale):
         nq, d = q.shape[-2:]
@@ -250,9 +313,11 @@ class _Call:
                       float(scale), self.nsplit, per,
                       torch.cuda.current_stream(dev).cuda_stream)
         self._f32 = int(f32)
+        self._device = dev
 
     def run(self, first: int = 0, last: int = len(PHASES) - 1) -> torch.Tensor:
-        err = _library().hvr_attn_run(self._f32, first, last, *self._args)
+        with torch.cuda.device(self._device):
+            err = _library().hvr_attn_run(self._f32, first, last, *self._args)
         if err != 0:
             msg = _library().hvr_attn_error_string(err).decode()
             raise RuntimeError(f"masked_attention kernel launch failed: {msg}")
@@ -285,7 +350,8 @@ def _launch(q, k, v, bias, scale):
     if q.shape[-2] == 0:
         return torch.empty(q.shape, dtype=torch.float32, device=q.device)
     out = _Call(q, k, v, bias, scale).run()
-    masked_attention.launches += 1
+    with _LAUNCHES_LOCK:
+        masked_attention.launches += 1
     return out
 
 

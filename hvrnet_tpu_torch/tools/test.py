@@ -22,6 +22,10 @@ runner a threaded stream whose shuffles are drawn before any frame, as in
 the JAX CLI); ``--pair-features P`` runs P consecutive interior frames
 through one frame program on the sequential runner.
 
+``--spmd-lanes [N]`` with ``--batched B`` splits the B lanes over every
+visible card (or the first N), one replica of the engine per card in this
+process (``engine.enable_spmd_lanes``); on the CPU, N replicas.
+
 ``--aug-test`` runs flip-augmented testing (the reference's
 ``MultiScaleFlipAug(flip=True)``): every frame and its mirror, proposals
 merged per frame, the two heads' scores and boxes averaged per detection,
@@ -29,8 +33,9 @@ on the sequential stream.  ``--timing`` prints the host wall time per
 phase after the run (``utils/profiling.py:PhaseTimer``); ``--trace DIR``
 writes a ``torch.profiler`` trace of the run, host and card, into DIR.
 
-Flags of the JAX CLI that the port does not run yet stop the CLI with the
-ROADMAP item that will port them; none is accepted and ignored.
+Flags of the JAX CLI that the port does not run yet (``--show``) stop the
+CLI with the ROADMAP item that will port them; none is accepted and
+ignored.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from ..engine.batched_runner import BatchedSlidingWindowRunner
 from ..engine.stream import (parallel_test_frame_stream, prefetch_stream,
                              test_frame_stream)
 from ..engine.video_runner import SlidingWindowRunner
+from ..parallel.mesh import make_mesh
 from ..utils.config import Config
 from ..utils.dist_io import (collect_results, dump_part, trim_to_local,
                              wait_for_parts)
@@ -63,7 +69,6 @@ logger = logging.getLogger("hvrnet_tpu_torch")
 
 # flags of the JAX CLI that stop this one: flag → (refused when, ROADMAP item)
 REFUSED = {
-    "spmd_lanes": (bool, "Queue 1 item 6 (multi-GPU: the SPMD lanes)"),
     "show": (bool, "Queue 1 item 7 (--show, which draws with cv2)"),
 }
 
@@ -103,7 +108,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 def exclusive(args: argparse.Namespace) -> None:
     """The JAX CLI's rules for flags that do not combine, with its
     messages."""
-    if args.spmd_lanes and not args.batched:
+    if getattr(args, "spmd_lanes", None) is not None and not args.batched:
         raise SystemExit("--spmd-lanes requires --batched B (the lanes are "
                          "the batched runner's streams)")
     if args.batched:
@@ -118,6 +123,24 @@ def exclusive(args: argparse.Namespace) -> None:
                              "stage across streams")
     elif args.u8_transfer and args.aug_test:
         raise SystemExit("--u8-transfer is not supported with --aug-test")
+
+
+def spmd_devices(args: argparse.Namespace):
+    """The devices of ``--spmd-lanes [N]``: every visible card, or the
+    first N; on the CPU, N times the CPU.  ``--batched`` must divide by
+    their count."""
+    n = args.spmd_lanes
+    if torch.device(args.device).type == "cpu" and n < 1:
+        raise SystemExit("--spmd-lanes on the CPU takes the replica count "
+                         "(--spmd-lanes N)")
+    try:
+        devices = make_mesh(n if n >= 1 else None, args.device)
+    except ValueError as e:
+        raise SystemExit(f"--spmd-lanes: {e}") from e
+    if args.batched % len(devices):
+        raise SystemExit(f"--spmd-lanes needs --batched divisible by the "
+                         f"device count ({len(devices)})")
+    return devices
 
 
 def refuse(args: argparse.Namespace) -> None:
@@ -308,7 +331,11 @@ def parse_args(argv=None):
     p.add_argument("--batched", type=int, default=0, metavar="B",
                    help="drive B video streams in lockstep through the "
                         "batched frame program and ring")
-    p.add_argument("--spmd-lanes", action="store_true")
+    p.add_argument("--spmd-lanes", type=int, nargs="?", const=0,
+                   default=None, metavar="N",
+                   help="with --batched B: split the B lanes over every "
+                        "visible card (or the first N; on the CPU, N "
+                        "replicas), one engine replica per card")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run (host and "
                         "card) into DIR")
@@ -328,12 +355,17 @@ def main(argv=None, imread=None, timer=None) -> Dict:
     exclusive(args)
     refuse(args)
     setup(args)
+    devices = spmd_devices(args) if args.spmd_lanes is not None else None
     imread = imread or decoder_from_flag(args.decoder)
     cfg = Config.fromfile(args.config)
     dataset = test_dataset(cfg, args.world_size, args.seed, imread)
     engine = test_engine(cfg, args)
     if args.window:
         set_window(engine, args.window)
+    if devices is not None:
+        engine.enable_spmd_lanes(devices)
+        logger.info("SPMD lanes: %d streams over %d devices", args.batched,
+                    len(devices))
     if args.u8_transfer:
         # the device normalises with THIS config's values
         norm = next((t for t in cfg.data.test["pipeline"]

@@ -1,6 +1,7 @@
 """Training checkpoints in the port's own format: one ``torch.save`` file
 holding the model ``state_dict`` (mmdet names), the optimizer state, the
-step, the sampler's generator state and a meta dict (counterpart of
+step, the sampler's generator state (every rank's, in a data-parallel
+run) and a meta dict (counterpart of
 ``hvrnet_tpu/utils/checkpoint.py``'s save/load, which writes orbax
 directories)."""
 from __future__ import annotations
@@ -14,12 +15,16 @@ import torch
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     step: int = 0, meta: Optional[Dict[str, Any]] = None,
-                    generator: Optional[torch.Generator] = None) -> None:
-    """Write atomically: a reader never sees half a file."""
+                    generator=None) -> None:
+    """Write atomically: a reader never sees half a file.  ``generator``:
+    the sampler's ``torch.Generator``, whose state is kept as ``rng``, or
+    the states of every rank's generator (a list, rank by rank)."""
+    rng = (generator.get_state() if isinstance(generator, torch.Generator)
+           else generator)
     state = dict(state_dict=model.state_dict(), step=int(step),
                  meta=dict(meta or {}),
                  optimizer=optimizer.state_dict() if optimizer else None,
-                 rng=generator.get_state() if generator is not None else None)
+                 rng=rng)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(state, tmp)

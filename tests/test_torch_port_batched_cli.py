@@ -251,6 +251,17 @@ def test_pair_features_cli_matches_jax(setup, cli):
     assert_results_close(run["results"], load(want))
 
 
+def test_spmd_lanes_match_the_unsharded_lanes(setup, batched, jax_batched):
+    """``test --batched 2 --spmd-lanes 2``: the two lanes on two CPU
+    replicas of the engine, one lane each, every frame within the limits
+    of the port's ``--batched 2`` on one engine (a replica's one-frame
+    backbone batch rounds otherwise) and of the JAX CLI's."""
+    run = _port(setup, "spmd", "--batched", "2", "--spmd-lanes", "2")
+    assert len(run["runner"].engine.lane_replicas) == 2
+    assert_results_close(run["results"], batched["plain"]["results"])
+    assert_results_close(run["results"], jax_batched["plain"])
+
+
 # ----------------------------------------------------------- CLI rules
 EXCLUSIVE = [(["--batched", "2", "--aug-test"], "are exclusive"),
              (["--batched", "2", "--timing"], "not supported with --batched"),
@@ -258,13 +269,16 @@ EXCLUSIVE = [(["--batched", "2", "--aug-test"], "are exclusive"),
               "applies to the sequential runner"),
              (["--spmd-lanes"], "requires --batched B"),
              (["--batched", "2", "--spmd-lanes"],
-              "not ported yet \\(ROADMAP Queue 1 item 6")]
+              "on the CPU takes the replica count"),
+             (["--batched", "3", "--spmd-lanes", "2"],
+              "divisible by the device count \\(2\\)")]
 
 
 @pytest.mark.parametrize("flags,message", EXCLUSIVE,
                          ids=[" ".join(f) for f, _ in EXCLUSIVE])
 def test_cli_flag_rules_follow_jax(setup, flags, message):
     """The JAX CLI's rules for flags that do not combine, with its
-    messages, before the refusals of what is not ported yet."""
+    messages, before the refusals of what is not ported yet; on the CPU,
+    ``--spmd-lanes`` names its replica count."""
     with pytest.raises(SystemExit, match=message):
         _port(setup, "never", *flags)

@@ -1,8 +1,8 @@
 """The port's SELSA ``test`` CLI against the JAX package's ``tools/test.py``
 (what ``tools/selsa_test.py`` runs), in-process on the synthetic VID tree
 and one checkpoint file, as ``tests/test_torch_port_cli.py`` runs
-``hnl_test``; the port's ``--u8-transfer`` and ``--bf16`` runs; and
-``HNLRCNN`` through the trainer.
+``hnl_test``; the port's ``--u8-transfer``, ``--bf16`` and
+``--batched --spmd-lanes`` runs; and ``HNLRCNN`` through the trainer.
 """
 import shutil
 
@@ -18,7 +18,9 @@ from hvrnet_tpu_torch.tools import hnl_test
 from hvrnet_tpu_torch.tools import test as test_cli
 from tests.test_engine_hnmb import tiny_hnmb_cfg
 from tests.test_engine_selsa import tiny_selsa_cfg
-from tests.test_torch_port_cli import (assert_cli_matches, fill_gaps,
+from tests.test_torch_port_batched_cli import landscape_tree
+from tests.test_torch_port_cli import (assert_cli_matches,
+                                       assert_results_close, fill_gaps,
                                        jax_backbone, jax_cli, load, port_args,
                                        shared_checkpoint, write_config)
 from tests.test_torch_port_data import build_tree
@@ -115,7 +117,7 @@ def test_bf16_cli_runs(setup, tmp_path):
                        for c in frame)
 
 
-REFUSED = [["--spmd-lanes", "--batched", "2"], ["--show"]]
+REFUSED = [["--show"]]
 
 
 @pytest.mark.parametrize("flag", REFUSED, ids=[f[0] for f in REFUSED])
@@ -124,6 +126,34 @@ def test_test_cli_refuses_unported_flags(setup, flag):
     with pytest.raises(SystemExit, match="not ported yet \\(ROADMAP Queue "
                                          "1 item [67]"):
         test_cli.main(port_args(cfg, ckpt, work / "no.pkl", *flag))
+
+
+@pytest.fixture(scope="module")
+def landscape(tmp_path_factory):
+    """SELSA's (config, checkpoint) over the landscape tree of
+    ``tests/test_torch_port_batched_cli.py`` (lockstep lanes share one
+    canvas per step)."""
+    work = tmp_path_factory.mktemp("selsa_lanes")
+    root = landscape_tree(str(work / "VID"))
+    model_cfg, test_cfg = tiny_selsa_cfg()
+    cfg = write_config(work / "selsa.py", model_cfg, test_cfg, root)
+    yield cfg, shared_checkpoint(work / "selsa.pth", model_cfg, test_cfg,
+                                 JaxSelsaRCNN, SelsaRCNN, root, seed=6), work
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def test_spmd_lanes_match_the_unsharded_lanes(landscape):
+    """SELSA's ``test --batched 4 --spmd-lanes 2`` (the JAX CLI's
+    ``--spmd-lanes``, once refused here): 4 lanes on two CPU replicas,
+    each frame within ``assert_results_close``'s limits of ``--batched 4``
+    on one engine (the replicas' backbone batches of 2 round otherwise)."""
+    cfg, ckpt, work = landscape
+    runs = [test_cli.main(port_args(
+        cfg, ckpt, work / f"{name}.pkl", "--seed", "1", "--batched", "4",
+        *flags, "--tmpdir", str(work / name)))
+        for name, flags in (("spmd", ("--spmd-lanes", "2")), ("plain", ()))]
+    assert len(runs[0]["runner"].engine.lane_replicas) == 2
+    assert_results_close(runs[0]["results"], runs[1]["results"])
 
 
 @pytest.mark.parametrize("flag", [["--show-dir", "vis"],

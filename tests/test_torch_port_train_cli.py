@@ -191,16 +191,43 @@ def test_selsa_trains_on_the_vid_det_concat(trees, work_dir):  # noqa: F811
     assert "nan" not in lines[0].lower()
 
 
+# each multi-device flag: (a use refused, its message), then a use
+# accepted with the world and the global rank of local rank 1
+MULTI_DEVICE = {
+    "--n-devices": ((["--n-devices", "0"], "at least 1"),
+                    ["--n-devices", "4"], 4, 1),
+    "--coordinator": ((["--num-processes", "2"], "needs --coordinator"),
+                      ["--coordinator", "localhost:1234", "--num-processes",
+                       "2", "--process-id", "1"], 2, 2),
+    "--num-processes": ((["--num-processes", "0"], "at least 1"),
+                        ["--num-processes", "3", "--coordinator", "h:1",
+                         "--n-devices", "2", "--process-id", "2"], 6, 5),
+    "--process-id": ((["--process-id", "1"], "outside 0..0"),
+                     ["--process-id", "1", "--num-processes", "2",
+                      "--coordinator", "h:1", "--n-devices", "2"], 4, 3),
+}
+
+
 @pytest.mark.parametrize("flag", [["--n-devices", "4"],
                                   ["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"],
                                   ["--process-id", "1"]])
 def test_multi_device_flags_are_refused(flag):
+    """The JAX CLI's multi-device flags, ported: each is refused where it
+    cannot hold (a count below 1, several processes without a coordinator,
+    a process id outside their count) and accepted where it can, with the
+    world --n-devices × --num-processes and the global rank process id ·
+    --n-devices + local rank; one process of one device is world 1."""
     config = str(Path(__file__).resolve().parents[1] / "configs"
                  / "faster_rcnn_r101_hrnmp_c5.py")
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
-        train.parse_args([config, *flag])
-    train.parse_args([config, "--n-devices", "1"])
+    (refused, message), accepted, world, rank = MULTI_DEVICE[flag[0]]
+    with pytest.raises(SystemExit, match=message):
+        train.parse_args([config, *refused])
+    args = train.parse_args([config, *accepted])
+    assert train.world_of(args) == world
+    assert train.global_rank(args, 1) == rank
+    assert train.world_of(train.parse_args([config, "--n-devices", "1"])) \
+        == 1
 
 
 def test_autoscale_lr_quarters_the_rate(trees, tmp_path, monkeypatch):
@@ -214,6 +241,29 @@ def test_autoscale_lr_quarters_the_rate(trees, tmp_path, monkeypatch):
         train.main([cfg, "--device", "cpu", "--work-dir", str(tmp_path),
                     *extra])
     assert [c["optimizer"]["lr"] for c in seen] == [1e-3, 1e-3 / 4]
+
+
+def test_autoscale_lr_scales_by_the_world(trees, tmp_path, monkeypatch):
+    """Two ranks (``--n-devices 2``; one rank's ``run`` here):
+    ``--autoscale-lr`` trains at lr · 2 / 4, the JAX CLI's lr · devices /
+    4; the validation hook shards the val videos over the two ranks."""
+    cfg = hnmb_config(tmp_path / "hnmb.py", trees)
+    seen = []
+    monkeypatch.setattr(train, "train_detector",
+                        lambda engine, data, cfg, **kw: seen.append(
+                            (cfg, kw["eval_hook"])))
+    args = train.parse_args([cfg, "--device", "cpu", "--work-dir",
+                             str(tmp_path), "--n-devices", "2",
+                             "--autoscale-lr", "--validate"])
+    logger = logging.getLogger("hvrnet_tpu_torch")
+    level = logger.level
+    try:
+        train.run(args, "cpu", 1)       # quiets the logger, as a rank > 0
+    finally:
+        logger.setLevel(level)
+    (cfg_seen, hook), = seen
+    assert cfg_seen["optimizer"]["lr"] == 1e-3 * 2 / 4
+    assert (hook.world_size, hook.rank) == (2, 1)
 
 
 def test_load_from_takes_a_reference_state_dict(work_dir,  # noqa: F811
