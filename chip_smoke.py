@@ -10,7 +10,15 @@ stops the script with a non-zero exit:
 1. Device: name, count, ``nvidia-smi`` name and power limit; TF32 off for
    the plain references.
 2. Build: every kernel under ``hvrnet_tpu_torch/csrc/``, one ``nvcc`` per
-   source.
+   source, and the data layer's host libraries (``csrc/*.cpp``: the JPEG
+   decoder and the annotation scanner), one ``c++`` each, all at once.
+   ``[jpeg]``: every committed JPEG fixture (``tests/fixtures/jpeg``)
+   through ``data/jpeg.py:imread_native``, each array's SHA-256 equal to
+   the one cv2 gave (``expected.json``), the progressive file refused; the
+   host ms per 1280×720 decode (median of 20) against ``read_ppm`` of the
+   same frame, and 8 frames decoded by 1 and by 4 threads; the [cli]
+   JPEG tree's XMLs through the native scanner and through ElementTree,
+   the same annotations, ms per XML.
 3. Kernels against their plain versions at the main path's shapes, with
    times (CUDA events) of the whole call and of each phase, the plain
    version's, one PyTorch library call's, and the bound the card's
@@ -62,19 +70,21 @@ stops the script with a non-zero exit:
 10. ``[cli]``: the port's whole-video CLIs from disk.  A synthetic VID
     tree (videos of 40 and 17 frames at 1280×720 and 12 portrait frames at
     540×960, one or two moving boxes of VID classes, a VOC XML per frame;
-    binary PPM frames under VID's ``.JPEG`` names, read by ``read_ppm``)
-    and the f32 engines' weights saved as ``.pth`` files: ``hnl_test`` at
-    T=21 on the exact and the streaming ring, at T=63 streaming over the
-    40-frame video, in bf16 at T=21; SELSA's ``test`` with float and with
-    uint8 frames; ``vid_eval`` on a results pickle.  Checked: every frame
-    a 30-class result with finite boxes, the kernel's launches per
+    binary PPM frames under VID's ``.JPEG`` names, read by ``read_ppm``),
+    the same videos assembled from the committed JPEG fixtures, and the
+    f32 engines' weights saved as ``.pth`` files: ``hnl_test`` at T=21 on
+    the exact ring over the JPEG tree with ``--decoder native`` (real JPEG
+    files into the main path) and on the streaming ring, at T=63 streaming
+    over the 40-frame video, in bf16 at T=21; SELSA's ``test`` with float
+    and with uint8 frames; ``vid_eval`` on a results pickle.  Checked: every
+    frame a 30-class result with finite boxes, the kernel's launches per
     detection and per replay, an mAP in [0, 1] equal to ``vid_eval``'s, the
     exact-ring CLI against ``SlidingWindowRunner`` over
     ``test_frame_stream`` in this process, and the uint8 SELSA run's engine
     inputs (bitwise) and detections against the float run's.  Printed: the
-    host data time per frame by pipeline step, the frame program and
-    window step (CUDA events), the CLI's frames/s and the share of its
-    wall time the runner waited on the frame stream.
+    host data time per frame by pipeline step (PPM and JPEG), the frame
+    program and window step (CUDA events), the CLI's frames/s and the share
+    of its wall time the runner waited on the frame stream.
 11. ``[train-cli]``: ``tools/train.py`` from disk at full width in f32.
     A synthetic training tree (30 classes × 3 videos × 3 frames at
     1280×720, a portrait 540×960 video, the class lists; 6 distinct PPM
@@ -279,6 +289,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pickle
 import subprocess
 import sys
@@ -410,8 +421,15 @@ def phase_build():
                              check=True).stdout
     log(f"[build] {version.strip().splitlines()[-1]}")
     t0 = time.time()
+    from concurrent.futures import ThreadPoolExecutor
+    names = kb.SOURCES + kb.HOST_SOURCES
+    with ThreadPoolExecutor(len(names)) as pool:
+        reports = dict(zip(names, pool.map(kb.build, names)))
+    for name in kb.HOST_SOURCES:
+        log(f"[build] {name} (host, {kb.cxx_path()}): "
+            f"{kb.library_path(name).relative_to(ROOT)}")
     for name in kb.SOURCES:
-        report = kb.build(name)
+        report = reports[name]
         log(f"[build] {name}: {kb.library_path(name).relative_to(ROOT)}")
         kernel = "?"
         for line in report.splitlines():
@@ -420,7 +438,8 @@ def phase_build():
             elif ("registers" in line or "spill" in line
                   or "Performance Loss" in line or "warning" in line):
                 log(f"[build]   {kernel}: {line.strip()}")
-    log(f"[build] {len(kb.SOURCES)} kernel source(s) in "
+    log(f"[build] {len(kb.SOURCES)} kernel source(s) and "
+        f"{len(kb.HOST_SOURCES)} host source(s), built at once, in "
         f"{time.time() - t0:.1f} s")
 
 
@@ -1663,6 +1682,149 @@ def read_ppm(path):
     return np.ascontiguousarray(rgb.reshape(h, w, 3)[..., ::-1])
 
 
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+JPEG_TIMED = 20           # decodes per host timing (median)
+JPEG_THREADS = 4          # decode threads beside one
+
+
+def write_jpeg_tree(root, videos):
+    """A VID tree of ``videos`` (``CLI_VIDEOS``' form) from the committed
+    JPEG fixtures: frame i of a 1280×720 video is ``frame_{i % 8}``, every
+    frame of a 540×960 one ``portrait``, each with its XML, and the val
+    imageset.  Returns the imageset's path."""
+    import shutil
+    frames = sorted(JPEG_FIXTURES.glob("frame_*.jpg"))
+    lines, frame_id = [], 1
+    for vpath, n, hw in videos:
+        if hw not in ((720, 1280), (960, 540)):
+            raise ValueError(f"no JPEG fixture of {hw}")
+        for kind in ("JPEGImages", "Annotations"):
+            (root / kind / vpath).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            src = (frames[i % len(frames)] if hw == (720, 1280)
+                   else JPEG_FIXTURES / "portrait.jpg")
+            shutil.copyfile(src, root / "JPEGImages" / vpath
+                            / f"{i:06d}.JPEG")
+            shutil.copyfile(src.with_suffix(".xml"),
+                            root / "Annotations" / vpath / f"{i:06d}.xml")
+        lines.append(f"{vpath} {frame_id} 0 {n}")
+        frame_id += n
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    imageset = root / "ImageSets" / f"VID_val_{len(videos)}_videos.txt"
+    imageset.write_text("\n".join(lines) + "\n")
+    return imageset
+
+
+def median_ms(fn, n=JPEG_TIMED):
+    """Median host wall time of ``fn`` over ``n`` calls after one."""
+    import statistics
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def phase_jpeg(np):
+    """The data layer's host code on this machine: the native JPEG decoder
+    on every committed fixture, held to cv2's hashes; its time per
+    1280×720 frame against ``read_ppm``, alone and from threads; the
+    native annotation scanner against ElementTree on the [cli] JPEG tree's
+    XMLs, with times."""
+    import hashlib
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from hvrnet_tpu_torch.data import jpeg, native
+    from hvrnet_tpu_torch.data.vid_dataset import (VID_WNIDS,
+                                                   parse_vid_xml_elementtree)
+    expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
+    decoded = refused = 0
+    for name, entry in expected["files"].items():
+        path = JPEG_FIXTURES / name
+        if entry.get("native") == "refuses":
+            try:
+                jpeg.imread_native(path)
+            except ValueError as e:
+                if str(path) not in str(e):
+                    raise RuntimeError(f"[jpeg] {name}: the refusal does "
+                                       f"not name the file: {e}") from e
+                log(f"[jpeg] {name}: refused ({e})")
+                refused += 1
+                continue
+            raise RuntimeError(f"[jpeg] {name} decoded; it is to be refused")
+        img = jpeg.imread_native(path)
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes())
+        if (list(img.shape) != entry["shape"]
+                or digest.hexdigest() != entry["sha256"]):
+            raise RuntimeError(f"[jpeg] {name}: {img.shape} "
+                               f"{digest.hexdigest()}, not cv2's "
+                               f"{entry['shape']} {entry['sha256']}")
+        decoded += 1
+    log(f"[jpeg] {decoded} fixtures decoded by imread_native, each array's "
+        f"SHA-256 and shape equal to {expected['decoder']}'s "
+        f"(expected.json); {refused} refused as expected")
+
+    work = ROOT / "build" / "chip_smoke_jpeg"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    frame = JPEG_FIXTURES / "frame_000000.jpg"
+    img = jpeg.imread_native(frame)
+    ppm = work / "frame_000000.ppm"
+    write_ppm(ppm, img)
+    if not np.array_equal(read_ppm(ppm), img):
+        raise RuntimeError("[jpeg] read_ppm does not give the frame back")
+    t = dict(decode_ms=median_ms(lambda: jpeg.imread_native(frame)),
+             ppm_ms=median_ms(lambda: read_ppm(ppm)))
+    batch = sorted(JPEG_FIXTURES.glob("frame_*.jpg")) * 8
+
+    def decode_all(workers):
+        if workers == 1:
+            return [jpeg.imread_native(f) for f in batch]
+        with ThreadPoolExecutor(workers) as pool:
+            return list(pool.map(jpeg.imread_native, batch))
+
+    serial = decode_all(1)
+    threaded = decode_all(JPEG_THREADS)
+    if not all(np.array_equal(a, b) for a, b in zip(serial, threaded)):
+        raise RuntimeError("[jpeg] threaded decodes differ from serial ones")
+    for workers in (1, JPEG_THREADS):
+        ms = median_ms(lambda: decode_all(workers), n=3)
+        t[f"frames_per_s_{workers}"] = 1e3 * len(batch) / ms
+    log(f"[jpeg] ({CARD}; host CPU, {os.cpu_count()} cores) one 1280x720 "
+        f"frame: imread_native of its {frame.stat().st_size} B quality-75 "
+        f"JPEG {t['decode_ms']:.3f} ms, read_ppm of its "
+        f"{ppm.stat().st_size} B PPM {t['ppm_ms']:.3f} ms (medians of "
+        f"{JPEG_TIMED}); {len(batch)} frames decoded at "
+        f"{t['frames_per_s_1']:.1f} frames/s by one thread, "
+        f"{t['frames_per_s_' + str(JPEG_THREADS)]:.1f} by {JPEG_THREADS} "
+        f"(the same arrays)")
+
+    root = work / "VID"
+    write_jpeg_tree(root, CLI_VIDEOS)
+    xmls = sorted(str(p) for p in (root / "Annotations").rglob("*.xml"))
+    table = {c: i for i, c in enumerate(("__background__",) + VID_WNIDS)}
+    for path in xmls:
+        got = native.parse_xml_fast(path, table)
+        want = parse_vid_xml_elementtree(path, table)
+        if got[1:] != want[1:] or not all(
+                got[0][k].dtype == want[0][k].dtype
+                and np.array_equal(got[0][k], want[0][k]) for k in want[0]):
+            raise RuntimeError(f"[jpeg] {path}: the scanner's annotation "
+                               f"differs from ElementTree's")
+    t["scan_ms"] = median_ms(lambda: [native.parse_xml_fast(p, table)
+                                      for p in xmls], n=5) / len(xmls)
+    t["elementtree_ms"] = median_ms(
+        lambda: [parse_vid_xml_elementtree(p, table) for p in xmls],
+        n=5) / len(xmls)
+    log(f"[jpeg] ({CARD}; host CPU) {len(xmls)} XMLs of the [cli] JPEG "
+        f"tree: the native scanner's annotations equal ElementTree's; "
+        f"{t['scan_ms']:.4f} ms per XML scanned, {t['elementtree_ms']:.4f} "
+        f"ms with ElementTree (medians of 5 passes)")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def write_cli_tree(np, root, videos, seed=0):
     """A VID tree of ``videos`` (``CLI_VIDEOS``' form): each frame a smooth random scene panning
     under one or two moving boxes of VID classes, a VOC XML per frame, and
@@ -1754,9 +1916,11 @@ class CliTimer(PhaseTimer):
         return sum(self.host.get(name, ()))
 
 
-def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
-    """One CLI run in this process with the PPM decoder and a timer, the
-    kernel's launch count set to 0 just before and read just after.
+def cli_run(torch, np, module, argv, tag, per_det, per_replay=0,
+            imread=read_ppm):
+    """One CLI run in this process with a timer and the PPM decoder
+    (``imread=None``: the one ``--decoder`` names), the kernel's launch
+    count set to 0 just before and read just after.
     Checks a 30-class result with finite boxes for every frame, the
     launches (``per_det`` per detection, ``per_replay`` per replayed one)
     and an mAP in [0, 1].  Returns the run's record."""
@@ -1767,7 +1931,7 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     masked_attention.launches = 0
-    run = main(argv, imread=read_ppm, timer=timer)
+    run = main(argv, imread=imread, timer=timer)
     torch.cuda.synchronize()
     launches = masked_attention.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1817,15 +1981,16 @@ def cli_run(torch, np, module, argv, tag, per_det, per_replay=0):
     return run
 
 
-def host_data_probe(np, config, n=12):
+def host_data_probe(np, config, imread, what, n=12):
     """Host data time per 1280×720 frame, each step of the test pipeline
-    alone (decode, resize, flip, normalise, pad, collect) and the canvas
-    padding, over the first ``n`` frames of the tree's first video."""
+    alone (decode with ``imread``, of ``what``; resize, flip, normalise,
+    pad, collect) and the canvas padding, over the first ``n`` frames of
+    the tree's first video."""
     from hvrnet_tpu_torch.engine.stream import runner_frame
     from hvrnet_tpu_torch.tools.test import canvas_of, test_dataset
     from hvrnet_tpu_torch.utils.config import Config
     cfg = Config.fromfile(config)
-    ds = test_dataset(cfg, 1, 0, read_ppm)
+    ds = test_dataset(cfg, 1, 0, imread)
     canvas = canvas_of(cfg)
     video = ds.img_infos[0]
     n = min(n, video["frame_seg_len"])
@@ -1845,8 +2010,8 @@ def host_data_probe(np, config, n=12):
     ms = {k: v / n for k, v in ms.items()}
     total = sum(ms.values())
     log(f"[cli] ({CARD}) host data per {video['width']}x{video['height']} "
-        f"frame, ms (mean of {n}; decode = LoadImageFromFile of a binary "
-        f"PPM): " + json.dumps({k: round(v, 3) for k, v in ms.items()})
+        f"frame, ms (mean of {n}; decode = LoadImageFromFile of {what}): "
+        + json.dumps({k: round(v, 3) for k, v in ms.items()})
         + f"; total {total:.3f} ms")
     return ms
 
@@ -1920,13 +2085,16 @@ def host_state_dict(engine):
 
 def phase_cli(torch, np, hvr_weights, selsa_weights):
     """The port's CLIs over a synthetic VID tree on disk (1280×720 and a
-    portrait 540×960 video, PPM frames read by ``read_ppm``) with the f32
+    portrait 540×960 video, PPM frames read by ``read_ppm``) and over the
+    same videos assembled from the committed JPEG fixtures, with the f32
     engines' seeded, calibrated weights saved as ``.pth`` files: HVRNet's
-    ``hnl_test`` on the exact and streaming rings at T=21, the streaming
-    ring at T=63 over the 40-frame video, bf16 at T=21; SELSA's ``test``
-    in f32 with and without ``--u8-transfer``; ``vid_eval`` on a results
-    pickle.  Returns the runs whose launches the kernels line counts."""
+    ``hnl_test`` on the exact ring at T=21 over the JPEG tree with
+    ``--decoder native``, on the streaming ring at T=21 and T=63 (over the
+    40-frame video), bf16 at T=21; SELSA's ``test`` in f32 with and without
+    ``--u8-transfer``; ``vid_eval`` on a results pickle.  Returns the runs
+    whose launches the kernels line counts."""
     import shutil
+    from hvrnet_tpu_torch.data.jpeg import imread_native
     from hvrnet_tpu_torch.engine import HNMBRCNN, SlidingWindowRunner
     from hvrnet_tpu_torch.engine.stream import test_frame_stream
     from hvrnet_tpu_torch.tools import vid_eval
@@ -1942,17 +2110,24 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
     # a tree of its own: its one video is its last, which has two boxes
     root63 = work / "VID63"
     long_only, _ = write_cli_tree(np, root63, CLI_VIDEOS[:1])
+    root_jpeg = work / "VID_JPEG"
+    jpeg_set = write_jpeg_tree(root_jpeg, CLI_VIDEOS)
     hvr_ckpt, selsa_ckpt = work / "hvrnet.pth", work / "selsa.pth"
     torch.save({"state_dict": hvr_weights}, hvr_ckpt)
     torch.save({"state_dict": selsa_weights}, selsa_ckpt)
     hvr_cfg = cli_config(CONFIG, root, imageset, work / "hvrnet.py")
     hvr63_cfg = cli_config(CONFIG, root63, long_only, work / "hvrnet63.py")
+    jpeg_cfg = cli_config(CONFIG, root_jpeg, jpeg_set,
+                          work / "hvrnet_jpeg.py")
     selsa_cfg = cli_config(SELSA_CONFIG, root, imageset, work / "selsa.py")
     n_frames = sum(n for _, n, _ in CLI_VIDEOS)
     sizes = ", ".join(f"{n} of {w}x{h}" for _, n, (h, w) in CLI_VIDEOS)
-    log(f"[cli] tree of {len(CLI_VIDEOS)} videos, {n_frames} PPM frames "
-        f"({sizes}), and the two .pth files in {time.time() - t0:.1f} s")
-    host_data_probe(np, hvr_cfg)
+    log(f"[cli] trees of {len(CLI_VIDEOS)} videos, {n_frames} PPM frames "
+        f"and {n_frames} JPEG frames ({sizes}), and the two .pth files in "
+        f"{time.time() - t0:.1f} s")
+    host_data_probe(np, hvr_cfg, read_ppm, "a binary PPM")
+    host_data_probe(np, jpeg_cfg, imread_native,
+                    "a quality-75 JPEG, imread_native")
 
     def argv(cfg, ckpt, name, *extra):
         return [cfg, str(ckpt), "--out", str(work / f"{name}.pkl"),
@@ -1961,7 +2136,8 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
     hnl = ("--window", "21", "--pre-padding", "repeat", "--eval")
     runs = {}
     runs["cli exact T=21"] = cli_run(torch, np, "hnl_test", argv(
-        hvr_cfg, hvr_ckpt, "exact", *hnl), "hnl_test exact T=21", 4)
+        jpeg_cfg, hvr_ckpt, "exact", *hnl, "--decoder", "native"),
+        "hnl_test exact T=21 (JPEG tree, --decoder native)", 4, imread=None)
     runs["cli stream T=21"] = cli_run(torch, np, "hnl_test", argv(
         hvr_cfg, hvr_ckpt, "stream", *hnl, "--stream"),
         "hnl_test stream T=21", 2, 4)
@@ -1974,7 +2150,7 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
 
     # mAP against vid_eval on the same pickle
     exact = runs["cli exact T=21"]
-    mean_ap, _ = vid_eval.main([str(work / "exact.pkl"), hvr_cfg])
+    mean_ap, _ = vid_eval.main([str(work / "exact.pkl"), jpeg_cfg])
     log(f"[cli] vid_eval on the exact run's pickle: mAP {mean_ap} (the CLI "
         f"printed {exact['map']})")
     if mean_ap != exact["map"]:
@@ -1992,24 +2168,25 @@ def phase_cli(torch, np, hvr_weights, selsa_weights):
         raise RuntimeError("vid_eval scores the tree's truth below 1")
 
     # the exact-ring CLI against SlidingWindowRunner over the port's
-    # test_frame_stream in this process, on the same weights
-    cfg = Config.fromfile(hvr_cfg)
+    # test_frame_stream in this process, on the same weights and the same
+    # decoded JPEG frames
+    cfg = Config.fromfile(jpeg_cfg)
     set_head_window(cfg, 21)
     test_cfg = unwrap(cfg.test_cfg)
     engine = HNMBRCNN(unwrap(cfg.model), test_cfg, device="cuda")
     set_window(engine, 21)
     engine.load_state_dict(hvr_weights)
 
-    ds = test_dataset(cfg, 1, 0, read_ppm)
+    ds = test_dataset(cfg, 1, 0, imread_native)
     canvas = canvas_of(cfg)
     direct = SlidingWindowRunner(engine).run(
         test_frame_stream(ds, max_long=max(canvas), max_short=min(canvas)),
         len(ds))
     del engine
     torch.cuda.empty_cache()
-    compare_cli("hnl_test exact T=21 against SlidingWindowRunner over "
-                "test_frame_stream in-process", exact["results"], direct,
-                1e-4 * 1280)
+    compare_cli("hnl_test exact T=21 (JPEG tree, --decoder native) against "
+                "SlidingWindowRunner over test_frame_stream in-process",
+                exact["results"], direct, 1e-4 * 1280)
 
     # SELSA: float frames and uint8 frames, the engine input of each
     # video's first frame kept
@@ -2057,7 +2234,6 @@ TRAIN_CLI_PROBE_FRAMES = 8
 def write_train_tree(np, root):
     """The VID training tree, its class lists and a DET tree beside it;
     returns (VID imageset, DET imageset)."""
-    import os
     import xml.etree.ElementTree as ET
     from hvrnet_tpu_torch.data.vid_dataset import VID_WNIDS
     rng = np.random.default_rng(5)
@@ -6778,6 +6954,8 @@ def main() -> int:
 
     kind = phase_device(torch)
     phase_build()
+    phase_jpeg(np)
+    lap("[build] and [jpeg]")
     cases = phase_attention(torch)
     lap("[attention]")
     engine, exact = phase_main_path(torch, np)

@@ -6,8 +6,10 @@ collect) and the training ones (float loading, annotations,
 
 Two things the caller hands in rather than the module importing them:
 - ``imread(path) -> (H, W, 3) uint8 BGR``, the image decoder.  The default
-  ``"cv2"`` imports cv2 when the first image is read; a machine without
-  cv2 passes its own decoder.
+  ``"cv2"`` imports cv2 when the first image is read; ``"native"`` is the
+  port's own decoder (``data/jpeg.py``: baseline JPEG and binary PPM/PGM,
+  bit for bit cv2), for a machine without cv2; a caller may also pass any
+  callable.
 - ``rng``, the ``np.random.RandomState`` that every random transform
   draws from (the JAX package draws from numpy's global state; one explicit
   generator per dataset, drawn in the reference's order, gives the same
@@ -33,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 
 from .color import bgr2hsv_f32, hsv2bgr_f32
+from .jpeg import imread_native
 from .resize import resize_bilinear_f32, resize_bilinear_u8
 
 Decoder = Callable[[str], np.ndarray]
@@ -44,8 +47,10 @@ def cv2_imread(path: str) -> np.ndarray:
         import cv2
     except ImportError as e:
         raise ImportError(
-            "cv2 is not installed: pass a decoder, imread(path) -> (H, W, 3) "
-            "uint8 BGR array, to the dataset or the CLI instead of 'cv2'"
+            "cv2 is not installed: use the port's own decoder, 'native' "
+            "(--decoder native on the CLIs; baseline JPEG and binary "
+            "PPM/PGM), or pass a decoder, imread(path) -> (H, W, 3) uint8 "
+            "BGR array, to the dataset or the CLI instead of 'cv2'"
         ) from e
     return cv2.imread(path, cv2.IMREAD_COLOR)
 
@@ -53,8 +58,11 @@ def cv2_imread(path: str) -> np.ndarray:
 def resolve_decoder(imread: Union[str, Decoder]) -> Decoder:
     if imread == "cv2":
         return cv2_imread
+    if imread == "native":
+        return imread_native
     if not callable(imread):
-        raise TypeError(f"imread must be 'cv2' or a callable, not {imread!r}")
+        raise TypeError(f"imread must be 'cv2', 'native' or a callable, "
+                        f"not {imread!r}")
     return imread
 
 

@@ -4,8 +4,9 @@
 - the 30-class VID label space (WordNet ids and names);
 - imageset lines of 4 fields: video path, frame id, frame seg id, seg len
   (DET: one image id per line, a 1-frame pseudo-video);
-- VOC XML annotations, parsed with ElementTree (boxes −1 to 0-based,
-  labels 1-based);
+- VOC XML annotations, read by the native scanner (``data/native.py``)
+  as the JAX package reads them, ElementTree for a file the scanner cannot
+  read (boxes −1 to 0-based, labels 1-based);
 - TRAIN: each index yields 3 frames per sampled video, the key frame and
   two condition frames at random offsets in ±1000 clipped to the video,
   run through the pipeline with the key frame's flip; ``hnl=True`` samples
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.registry import Registry, build_from_cfg
+from . import native
 from .pipelines import Compose, render
 
 DATASETS = Registry("dataset")
@@ -60,14 +62,25 @@ def list_from_file(path: str) -> List[str]:
         return [line.rstrip("\n") for line in f if line.strip()]
 
 
-MAX_OBJECTS = 256          # the JAX package's native scanner keeps this many
+MAX_OBJECTS = native.MAX_OBJECTS
 
 
 def parse_vid_xml(xml_path: str, class_to_index: Dict[str, int]):
     """VOC-style XML → (ann dict, (width, height), number of kept boxes);
     boxes −1 to 0-based float32, labels 1-based int64, names outside
     ``class_to_index`` skipped, and the first ``MAX_OBJECTS`` kept boxes
-    only (``hvrnet_tpu/data/native.py:_MAX_OBJ``)."""
+    only.  Read by the native scanner, as the JAX package reads it; a file
+    the scanner cannot read goes to ``parse_vid_xml_elementtree``, which
+    raises the reason."""
+    fast = native.parse_xml_fast(xml_path, class_to_index)
+    if fast is not None:
+        return fast
+    return parse_vid_xml_elementtree(xml_path, class_to_index)
+
+
+def parse_vid_xml_elementtree(xml_path: str, class_to_index: Dict[str, int]):
+    """The plain version of ``parse_vid_xml``: ElementTree, the same
+    results."""
     root = ET.parse(xml_path).getroot()
     size = root.find("size")
     width = int(size.find("width").text)

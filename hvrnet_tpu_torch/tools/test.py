@@ -11,8 +11,10 @@ every video on the card, writes the per-frame results (per class an
 VID mAP.  ``--rank r --world-size n`` runs one of n processes, each on its
 own whole videos; rank 0 merges the part files.  ``--device cpu`` runs on
 the CPU.  Images are read with ``--decoder``: ``cv2`` (the default, needs
-cv2) or ``module:function``, an importable callable ``path -> (H, W, 3)
-uint8 BGR`` array.
+cv2), ``native`` (the port's own decoder, ``data/jpeg.py``: baseline JPEG
+and binary PPM/PGM, bit for bit cv2; what a real VID tree needs on a
+machine without cv2) or ``module:function``, an importable callable
+``path -> (H, W, 3) uint8 BGR`` array.
 
 Throughput: ``--batched B`` runs B videos in lockstep
 (``engine.batched_runner``: one batched frame program and one batched
@@ -100,8 +102,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--decoder", default="cv2",
-                   help="image decoder: cv2, or module:function taking a "
-                        "path and returning an (H, W, 3) uint8 BGR array")
+                   help="image decoder: cv2, native (the port's baseline "
+                        "JPEG and PPM/PGM decoder, bit for bit cv2), or "
+                        "module:function taking a path and returning an "
+                        "(H, W, 3) uint8 BGR array")
     p.add_argument("--show", action="store_true")
 
 
@@ -153,12 +157,13 @@ def refuse(args: argparse.Namespace) -> None:
 
 
 def decoder_from_flag(name: str):
-    """``cv2`` or ``module:function`` → an imread callable."""
-    if name == "cv2":
+    """``cv2``, ``native`` or ``module:function`` → an imread callable."""
+    if name in ("cv2", "native"):
         return resolve_decoder(name)
     module, _, func = name.partition(":")
     if not func:
-        raise SystemExit(f"--decoder {name!r}: give cv2 or module:function")
+        raise SystemExit(f"--decoder {name!r}: give cv2, native or "
+                         f"module:function")
     return getattr(importlib.import_module(module), func)
 
 

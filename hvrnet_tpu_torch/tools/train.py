@@ -12,7 +12,7 @@ builds the config's ``data.train`` (a list is concatenated), the detector
 ``epoch_<n>.pth``, ``latest.pth`` and ``train_log.jsonl`` to the work
 directory.  ``--validate`` runs the VID evaluation on ``data.val`` after
 every ``evaluation.interval`` epochs.  ``--device cpu`` runs on the CPU;
-``--decoder`` reads images as the test CLIs do (``cv2`` or
+``--decoder`` reads images as the test CLIs do (``cv2``, ``native`` or
 ``module:function``).  ``--seed`` seeds the dataset's draws, the sample
 order, the samplers and the evaluation's frame order.
 
@@ -73,8 +73,10 @@ def parse_args(argv=None):
                         "evaluation.interval epochs")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--decoder", default="cv2",
-                   help="image decoder: cv2, or module:function taking a "
-                        "path and returning an (H, W, 3) uint8 BGR array")
+                   help="image decoder: cv2, native (the port's baseline "
+                        "JPEG and PPM/PGM decoder, bit for bit cv2), or "
+                        "module:function taking a path and returning an "
+                        "(H, W, 3) uint8 BGR array")
     p.add_argument("--n-devices", type=int, default=None,
                    help="ranks on this host, one process per card (with "
                         "--device cpu, gloo ranks on the CPU)")

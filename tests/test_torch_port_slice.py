@@ -183,6 +183,7 @@ def test_port_imports_no_image_library_at_module_level():
 # in data/pipelines.py)
 NO_IMAGE_LIBRARY = ("data/datasets.py", "data/loader.py",
                     "data/albu_mini.py", "data/imgproc.py", "data/color.py",
+                    "data/jpeg.py", "data/native.py", "ops/kernel_build.py",
                     "core/evaluation/recall.py", "tools/coco_eval.py",
                     "tools/voc_eval.py", "tools/convert_datasets/pascal_voc.py")
 
@@ -205,8 +206,10 @@ def test_port_imports_with_jax_blocked(tmp_path):
     machine), every port module imports (the backbone zoo's and
     ``roi_pool`` among them, which pools once), one frame of a VID tree goes
     through the test pipeline and the stream with an injected numpy
-    decoder, a float frame through the training transforms, and an image
-    through the single-image API's pipeline (``apis.image_input``)."""
+    decoder, a float frame through the training transforms, an image
+    through the single-image API's pipeline (``apis.image_input``), and a
+    committed JPEG fixture and its XML through the native decoder and
+    scanner (``data/jpeg.py``, ``data/native.py``)."""
     from tests.test_vid_dataset import TEST_PIPELINE, write_xml
     root = tmp_path / "VID"
     write_xml(str(root / "Annotations" / "v" / "000000.xml"), 72, 48,
@@ -261,6 +264,15 @@ def test_port_imports_with_jax_blocked(tmp_path):
             "    mean=[1., 2., 3.], std=[1., 1., 1.]))),\n"
             "    np.full((30, 50, 3), 9, np.uint8))\n"
             "assert x['img'].shape == (1, 608, 1008, 3), x['img'].shape\n"
+            "from hvrnet_tpu_torch.data import jpeg, native\n"
+            "from hvrnet_tpu_torch.data.vid_dataset import parse_vid_xml\n"
+            "fx = 'tests/fixtures/jpeg/'\n"
+            "img = pipelines.LoadImageFromFile(imread='native').read(\n"
+            "    fx + 'frame_000000.jpg')\n"
+            "assert img.shape == (720, 1280, 3), img.shape\n"
+            "ann, wh, n = parse_vid_xml(fx + 'frame_000000.xml',\n"
+            "                           {'n02691156': 1})\n"
+            "assert wh == (1280, 720) and n == 1, (wh, n)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          timeout=120, capture_output=True, text=True)
